@@ -1,0 +1,105 @@
+"""uint8-threshold dropout and the positional (counter-based) keep hash.
+
+Torch port of the JAX package's ``ops/dropout.py``. The drop probability is
+quantized to ``round(rate * 256) / 256`` and survivors are rescaled by the
+quantized keep probability, so the expectation is exactly preserved.
+
+:func:`positional_keep_u8` is THE definition of the positional mask that
+both CUDA kernels (``csrc/vit_common.cuh``) evaluate in native ``uint32``:
+an element's keep bit is a pure hash of ``(seed, tag, row, col)``, so any
+kernel, block order or device regenerates the identical mask. Torch has no
+full ``uint32`` arithmetic on the CPU, so the hash is emulated in ``int64``
+with every product reduced ``& 0xFFFFFFFF`` (a 32x32-bit product is split
+into 16-bit halves so it never leaves the int64 range).
+
+Only the eval path exists in this slice: :class:`Dropout` is the identity
+outside training and raises in training mode (training comes with the
+backward kernels).
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import torch
+from torch import nn
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _threshold(rate: float) -> int:
+    """uint8 compare threshold for ``rate``; validates the range.
+
+    Rates in (255.5/256, 1) clamp to 255 — the largest representable drop
+    probability below 1 — rather than overflowing the uint8 compare.
+    """
+    if not 0.0 <= rate <= 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1], got {rate}")
+    t = min(round(rate * 256), 255)
+    if rate > 0.0 and t == 0:
+        warnings.warn(
+            f"dropout rate {rate} quantizes to 0/256 — dropout is a no-op",
+            stacklevel=3)
+    return t
+
+
+def quantized_rate(rate: float) -> float:
+    """The effective drop probability after uint8 quantization."""
+    if rate == 1.0:
+        return 1.0
+    return _threshold(rate) / 256.0
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``(x * c) mod 2**32`` for int64 ``x`` in [0, 2**32) and a 32-bit
+    constant, without leaving the int64 range."""
+    lo = (x & 0xFFFF) * c
+    hi = ((x >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _MASK32
+
+
+def avalanche_u32(x: torch.Tensor) -> torch.Tensor:
+    """lowbias32-style integer avalanche mix on uint32 values held in an
+    int64 tensor (in and out in [0, 2**32))."""
+    x = x & _MASK32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x
+
+
+def positional_keep_u8(seed, bh, row, col, threshold: int) -> torch.Tensor:
+    """Keep/drop bit keyed on global element coordinates:
+    ``uint8 hash(seed, bh, row, col) >= threshold``.
+
+    ``seed``/``bh``/``row``/``col`` are integers or integer tensors that
+    broadcast together; returns a bool tensor of the broadcast shape.
+    Bit-equal to the JAX package's function, including the wraparound of
+    every 32-bit product.
+    """
+    def u32(v):
+        return torch.as_tensor(v, dtype=torch.int64) & _MASK32
+
+    x = (u32(seed) + _mul32(u32(row), 0x9E3779B1)
+         + _mul32(u32(col), 0x85EBCA77)
+         + _mul32((1 + u32(bh)) & _MASK32, 0xC2B2AE3D)) & _MASK32
+    return (avalanche_u32(x) & 0xFF) >= threshold
+
+
+class Dropout(nn.Module):
+    """The uint8-threshold dropout at its evaluation contract: the
+    identity when the module is not training or the rate quantizes to 0.
+    Training-mode dropout comes with the training slice."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if quantized_rate(self.rate) == 0.0 or not self.training:
+            return x
+        raise NotImplementedError(
+            "training-mode dropout is not ported yet (ROADMAP Queue 1, "
+            "slice 2: training)")
