@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the PyTorch/CUDA port (ViT-B/16 serving path).
+"""On-card smoke test of the PyTorch/CUDA port (ViT-B/16 serving and
+training paths).
 
 Run from the repository root on a machine with one CUDA card::
 
@@ -11,18 +12,37 @@ final ``ok`` line is never printed:
 1. build   — compile every CUDA kernel of the path from ``csrc/`` (one
              ``nvcc`` per source, started together) and load it.
 2. kernels — each kernel against its plain PyTorch version on the card at
-             the B/16 serving shapes (bucket 32: N = 32*197 rows for the
-             fused MLP; B = 32, H = 12, Dh = 64, T in {197, 577} for
-             flash attention), with dropout off and at t = 26 (rate 0.1);
-             the dropout keep masks are recovered by feeding ones and must
-             be bit-identical. Times come from CUDA events.
+             the B/16 shapes (batch 32: N = 32*197 rows for the fused MLP;
+             B = 32, H = 12, Dh = 64, T in {197, 577} for flash attention),
+             with dropout off and at t = 26 (rate 0.1); the forward keep
+             masks are recovered by feeding ones and must be bit-identical.
+             The backward kernels (fused MLP: bf16 t = 0 and 26, f32 t = 0;
+             flash dq and dk/dv: bf16, T in {197, 577}, t = 0 and 26) are
+             held against their plain versions per output and must be
+             bitwise deterministic over two launches; the ``save_h``
+             forward's h against the plain h. Times come from CUDA events;
+             the flash backward is timed beside the backward of
+             ``F.scaled_dot_product_attention`` (timed only, never called
+             by the port).
 3. serve   — a seeded ViT-B/16 export (1000 classes) served through
              ``InferenceEngine.from_checkpoint(..., device="cuda")`` with
              the ladder 1,8,32 and ~40 requests over the probs / features /
              tokens heads, a second engine with ``attention_impl="flash"``,
              and the serve CLI in pipe mode. The kernels' launch counters
              are set to 0 right before the requests and read right after.
-4. the kernel list, the card's name and power limit, and the ``ok`` line.
+4. train   — ViT-B/16 at full width and depth (224 px, 1000 classes, bf16,
+             the default dropouts) from ``convert.seeded_params``, trained
+             by ``engine.train`` with the default ``TrainConfig`` recipe on
+             a seeded batch of 32 repeated every step: 8 steps + one eval
+             pass with ``attention_impl="auto"`` (xla at T = 197, fused
+             MLP), then 3 steps + eval with ``attention_impl="flash"``. The
+             launch counters are set to 0 right before each run and read
+             right after; losses and grad norms must be finite and the loss
+             must fall. Then step time, img/s and a ``torch.profiler``
+             breakdown of one step, and one f32 step of a 2-layer B/16 on
+             the card against the same step through the plain versions on
+             the CPU: loss, gradients and the updated params.
+5. the kernel list, the card's name and power limit, and the ``ok`` line.
 
 Numerical settings: float32 matmuls run in full f32
 (``allow_tf32 = False`` for matmul and cuDNN) so the plain versions are
@@ -172,6 +192,158 @@ def check_fused_mlp(gen, card_peaks, dev):
                 row["masks_bit_identical"] = fused_mlp_masks(p, kw, dev)
             emit(row)
             rows.append(row)
+    return rows
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b| in f32; raises on a nonfinite ``a``."""
+    import torch
+    a, b = a.float(), b.float()
+    if not torch.isfinite(a).all():
+        raise AssertionError("kernel output is not finite")
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+MLP_GRADS = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+
+
+def check_fused_mlp_bwd(gen, card_peaks, dev):
+    """The save_h forward and the backward kernels at N = 32*197, D = 768,
+    F = 3072. Tolerance per gradient, relative to its largest element:
+    bf16 2e-2 (a bf16 rounding of df or dh that falls the other way moves
+    that element by one ulp), f32 1e-4 (summation order only)."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.ops import fused_mlp
+    n, d, f = 32 * 197, 768, 3072
+    bf16_rate, f32_rate, hbm = card_peaks
+    rows = []
+    for dtype, t in ((torch.bfloat16, 0), (torch.bfloat16, 26),
+                     (torch.float32, 0)):
+        name = str(dtype).split(".")[1]
+        p = _mlp_inputs(gen, n, d, f, dtype, dev)
+        kw = dict(eps=1e-6, seed=20261017, threshold=t)
+        dout = torch.randn(n, d, generator=gen).to(dev, dtype)
+        with torch.inference_mode():
+            out, h = fused_mlp._launch(**p, **kw, save_h=True)
+            torch.cuda.synchronize()
+            out_ref, h_ref = fused_mlp.ln_mlp_residual_plain(**p, **kw,
+                                                             save_h=True)
+            h_err = close(h, h_ref, TOL[name])
+            close(out, out_ref, TOL[name])
+            args = (p["x2"], h_ref, p["gamma"], p["beta"], p["w1"], p["w2"],
+                    dout)
+            got = fused_mlp._launch_bwd(*args, **kw)
+            again = fused_mlp._launch_bwd(*args, **kw)
+            torch.cuda.synchronize()
+            want = fused_mlp.ln_mlp_residual_bwd_plain(*args, **kw)
+            errs, abs_errs = {}, []
+            for g_name, a, b, c in zip(MLP_GRADS, got, again, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"fused MLP backward {g_name} is "
+                                         "not deterministic")
+                errs[g_name] = rel_err(a, c)
+                abs_errs.append((a.float() - c.float()).abs().max().item())
+            tol = 2e-2 if name == "bfloat16" else 1e-4
+            bad = {k: v for k, v in errs.items() if v > tol}
+            if bad:
+                raise AssertionError(f"fused MLP backward {name} t={t}: "
+                                     f"{bad} exceed {tol}")
+            ms = time_ms(lambda: fused_mlp._launch_bwd(*args, **kw), 10)
+            plain_ms = time_ms(
+                lambda: fused_mlp.ln_mlp_residual_bwd_plain(*args, **kw), 3)
+            fwd_h_ms = time_ms(
+                lambda: fused_mlp._launch(**p, **kw, save_h=True), 10)
+        s_ = dtype.itemsize
+        # in: x, h, dO, W1, W2, gamma, beta; out: dx, dW1, dW2, the vectors.
+        nbytes = ((3 * n * d + n * f) * s_ + 4 * d * f * s_
+                  + (2 * f + 4 * d) * 4)
+        b_ms, b_by = bound(8.0 * n * d * f, nbytes,
+                           bf16_rate if name == "bfloat16" else f32_rate, hbm)
+        h_bytes = 2 * n * d * s_ + 2 * d * f * s_ + n * f * s_
+        hb_ms, hb_by = bound(4.0 * n * d * f, h_bytes,
+                             bf16_rate if name == "bfloat16" else f32_rate,
+                             hbm)
+        row = {"phase": "kernels", "kernel": "fused_ln_mlp_residual_bwd",
+               "dtype": name, "threshold": t, "shape": [n, d, f],
+               "max_abs_err": max(abs_errs), "max_rel_err_by_grad": errs,
+               "tolerance_rel": tol, "deterministic": True,
+               "save_h_max_abs_err": h_err, "save_h_fwd_ms": fwd_h_ms,
+               "save_h_fwd_bound_ms": hb_ms, "save_h_fwd_bound_by": hb_by,
+               "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def check_flash_bwd(gen, card_peaks, dev):
+    """The dq and dk/dv kernels at B = 32, H = 12, Dh = 64, bf16, against
+    the plain backward (f32 math), tolerance 2e-2 relative to each
+    gradient's largest element; two launches must be bitwise equal."""
+    import torch
+    import torch.nn.functional as F
+    from pytorch_vit_paper_replication_tpu_torch.ops import (
+        flash_attention as fa)
+    b, h, dh = 32, 12, 64
+    bf16_rate, _, hbm = card_peaks
+    rows = []
+    for t_len in (197, 577):
+        for t in (0, 26):
+            q, k, v, do = [torch.randn(b * h, t_len, dh, generator=gen).to(
+                dev, torch.bfloat16) for _ in range(4)]
+            kw = dict(seed=4242, threshold=t)
+            with torch.inference_mode():
+                out, lse = fa._launch(q, k, v, **kw)
+                delta = (do.float() * out.float()).sum(-1)
+                bwd = (q, k, v, do, lse, delta)
+                dq = fa._launch_bwd_dq(*bwd, **kw)
+                dk, dv = fa._launch_bwd_dkv(*bwd, **kw)
+                dq2 = fa._launch_bwd_dq(*bwd, **kw)
+                dk2, dv2 = fa._launch_bwd_dkv(*bwd, **kw)
+                torch.cuda.synchronize()
+                if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                        and torch.equal(dv, dv2)):
+                    raise AssertionError("flash backward not deterministic")
+                want = fa.flash_attention_bwd_plain(*bwd, **kw)
+                errs = {g: rel_err(a, c) for g, a, c in
+                        zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+                abs_err = {g: (a.float() - c.float()).abs().max().item()
+                           for g, a, c in zip(("dq", "dk", "dv"),
+                                              (dq, dk, dv), want)}
+                if max(errs.values()) > 2e-2:
+                    raise AssertionError(f"flash backward T={t_len} t={t}: "
+                                         f"{errs} exceed 2e-2")
+                dq_ms = time_ms(lambda: fa._launch_bwd_dq(*bwd, **kw), 20)
+                dkv_ms = time_ms(lambda: fa._launch_bwd_dkv(*bwd, **kw), 20)
+                plain_ms = time_ms(
+                    lambda: fa.flash_attention_bwd_plain(*bwd, **kw), 3)
+            q4, k4, v4 = (a.view(b, h, t_len, dh).detach().requires_grad_()
+                          for a in (q, k, v))
+            o4 = F.scaled_dot_product_attention(q4, k4, v4,
+                                                dropout_p=t / 256.0)
+            do4 = do.view(b, h, t_len, dh)
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                o4, (q4, k4, v4), do4, retain_graph=True), 20)
+            elem = b * h * t_len * dh
+            io = 4 * elem * 2 + 2 * b * h * t_len * 4
+            dq_b = bound(6.0 * b * h * t_len * t_len * dh, io + elem * 2,
+                         bf16_rate, hbm)
+            dkv_b = bound(8.0 * b * h * t_len * t_len * dh, io + 2 * elem * 2,
+                          bf16_rate, hbm)
+            lib_b = bound(10.0 * b * h * t_len * t_len * dh,
+                          io + 3 * elem * 2, bf16_rate, hbm)
+            row = {"phase": "kernels", "kernel": "flash_attention_bwd",
+                   "dtype": "bfloat16", "threshold": t,
+                   "shape": [b, t_len, h, dh], "max_rel_err": errs,
+                   "max_abs_err": abs_err, "tolerance_rel": 2e-2,
+                   "deterministic": True, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "dq_bound_ms": dq_b[0], "dq_bound_by": dq_b[1],
+                   "dkv_bound_ms": dkv_b[0], "dkv_bound_by": dkv_b[1],
+                   "bwd_bound_ms": lib_b[0]}
+            emit(row)
+            rows.append(row)
+            del q4, k4, v4, o4
     return rows
 
 
@@ -476,41 +648,351 @@ def phase_cli(export: Path, paths, device: str = "cuda") -> None:
 
 
 # ------------------------------------------------------------- phase 4
-def kernel_list(k_rows, launches):
-    """The two ported kernels with their main-path numbers (bucket 32,
-    bf16, dropout off), then the TPU kernels still to port."""
+TRAIN_BATCH = 32
+TRAIN_STEPS = 8
+FLASH_STEPS = 3
+EVAL_BATCHES = 2
+
+
+def _counters():
+    from pytorch_vit_paper_replication_tpu_torch.ops import (
+        flash_attention as fa, fused_mlp)
+    return fused_mlp, fa
+
+
+def reset_counts() -> None:
+    fused_mlp, fa = _counters()
+    fused_mlp.launches = fused_mlp.bwd_launches = 0
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+
+
+def read_counts() -> dict:
+    fused_mlp, fa = _counters()
+    return {"fused_ln_mlp_residual": fused_mlp.launches,
+            "fused_ln_mlp_residual_bwd": fused_mlp.bwd_launches,
+            "flash_attention": fa.launches,
+            "flash_attention_bwd_dq": fa.dq_launches,
+            "flash_attention_bwd_dkv": fa.dkv_launches}
+
+
+def _train_run(cfg, dev, steps: int, seed: int):
+    """``engine.train`` for one epoch of ``steps`` copies of one seeded
+    batch plus an eval pass; returns (per-step metrics, results, launch
+    counts, per-step wall seconds, state)."""
+    import numpy as np
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch import engine, optim
+    from pytorch_vit_paper_replication_tpu_torch.configs import TrainConfig
+    from pytorch_vit_paper_replication_tpu_torch.convert import seeded_params
+    from pytorch_vit_paper_replication_tpu_torch.models import ViT
+
+    tcfg = TrainConfig()
+    model = ViT(cfg)
+    model.load_state_dict(seeded_params(cfg, seed))
+    model.to(dev)
+    state = engine.TrainState.create(
+        model=model, seed=tcfg.seed,
+        tx=optim.make_optimizer(tcfg, steps))
+    rng = np.random.default_rng(seed)
+    n = TRAIN_BATCH
+
+    def make_batch():
+        return {"image": rng.standard_normal(
+                    (n, cfg.image_size, cfg.image_size, 3)).astype(np.float32),
+                "label": rng.integers(0, cfg.num_classes, n)}
+    train_batch = make_batch()
+    eval_set = [dict(make_batch(), mask=np.ones(n, np.float32))
+                for _ in range(EVAL_BATCHES)]
+    step_fn = engine.make_train_step()
+    per_step, walls = [], []
+
+    def recording_step(st, batch):
+        t0 = time.perf_counter()
+        st, m = step_fn(st, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        per_step.append({k: v.detach() for k, v in m.items()})
+        return st, m
+
+    torch.cuda.synchronize()
+    reset_counts()
+    state, results = engine.train(
+        state, lambda: iter([train_batch] * steps), lambda: iter(eval_set),
+        epochs=1, train_step=recording_step, verbose=False)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    metrics = [{k: float(v) for k, v in m.items()} for m in per_step]
+    return metrics, results, counts, walls, state, train_batch
+
+
+def _check_run(tag, metrics, counts, steps, flash: bool,
+               loss_must_fall: bool = True):
+    import math
+    for i, m in enumerate(metrics):
+        if not (math.isfinite(m["loss_sum"]) and
+                math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"{tag}: step {i} loss/grad_norm not "
+                                 f"finite: {m}")
+    losses = [m["loss_sum"] / m["count"] for m in metrics]
+    if loss_must_fall and not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: loss did not fall: {losses}")
+    forwards = steps + EVAL_BATCHES
+    want = {"fused_ln_mlp_residual": 12 * forwards,
+            "fused_ln_mlp_residual_bwd": 12 * steps,
+            "flash_attention": 12 * forwards if flash else 0,
+            "flash_attention_bwd_dq": 12 * steps if flash else 0,
+            "flash_attention_bwd_dkv": 12 * steps if flash else 0}
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} != {want} (12 per "
+                             f"block per step / eval batch)")
+    return losses
+
+
+def profile_step(state, batch) -> dict:
+    """One train step under ``torch.profiler``: device time by kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pytorch_vit_paper_replication_tpu_torch import engine
+
+    step = engine.make_train_step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return float(getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0) or 0)
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA]
+    top = sorted(events, key=dev_us, reverse=True)[:15]
+    return {"device_events": len(events),
+            "device_ms_total": sum(dev_us(e) for e in events) / 1e3,
+            "top_device_ms": [[e.key[:90], dev_us(e) / 1e3, e.count]
+                              for e in top]}
+
+
+def split_qkv_bias(tree: dict):
+    """``(leaves, k_slices)``: the qkv bias ``[3, H, Dh]`` of every block
+    split into its Q and V slices (kept as leaves) and its K slice, whose
+    gradient is analytically zero (softmax is invariant to the shift
+    ``q . b_k`` of a row), so both sides hold rounding noise there."""
+    leaves, k_slices = {}, {}
+    for name, v in tree.items():
+        if name.endswith("qkv.bias"):
+            leaves[name + "[q]"], leaves[name + "[v]"] = v[0], v[2]
+            k_slices[name + "[k]"] = v[1]
+        else:
+            leaves[name] = v
+    return leaves, k_slices
+
+
+def step_errors(p0, card, cpu, lr: float) -> dict:
+    """Errors of one train step on the card against the same step on the
+    CPU. ``card`` and ``cpu`` are ``(metrics, grads, params after)``,
+    ``p0`` the params before, all on the CPU. Gradients: the global
+    relative error and the largest per-leaf error relative to the leaf's
+    largest element. Params, in the form of the JAX trajectory tests:
+    per leaf the drift between the sides over how far the CPU moved the
+    leaf, and the same over all leaves; the K slices of the qkv bias are
+    held in absolute terms (their update is Adam's normalised noise,
+    at most lr per element on either side)."""
+    (mg, gg, pg), (mc, gc, pc) = card, cpu
+
+    def sq(a):
+        return float(a.double().square().sum())
+    g_card, _ = split_qkv_bias(gg)
+    g_cpu, _ = split_qkv_bias(gc)
+    (q_card, k_card), (q_cpu, k_cpu) = (split_qkv_bias(pg),
+                                        split_qkv_bias(pc))
+    q0, _ = split_qkv_bias(p0)
+    drift = {k: sq(q_card[k] - q_cpu[k]) ** 0.5 for k in q_cpu}
+    move = {k: sq(q_cpu[k] - q0[k]) ** 0.5 for k in q_cpu}
+    return {
+        "loss": abs(mg["loss_sum"] - mc["loss_sum"]) / abs(mc["loss_sum"]),
+        "grad_norm": abs(mg["grad_norm"] - mc["grad_norm"])
+        / mc["grad_norm"],
+        "grads_global": (sum(sq(gg[k] - gc[k]) for k in gc)
+                         / sum(sq(gc[k]) for k in gc)) ** 0.5,
+        "grads_max_leaf": max(rel_err(g_card[k], g_cpu[k]) for k in g_cpu),
+        "params_max_leaf_drift": max(drift[k] / max(move[k], 1e-12)
+                                     for k in q_cpu),
+        "params_global_drift": (sum(d * d for d in drift.values())
+                                / sum(m * m for m in move.values())) ** 0.5,
+        "qkv_bias_k_max_abs_over_lr": max(
+            float((k_card[k] - k_cpu[k]).abs().max()) for k in k_cpu) / lr,
+    }
+
+
+# Bounds of step_errors: gradients and the loss 2e-3 relative (f32
+# summation order only); params as in tests/test_torch_engine.py's
+# trajectory test; the qkv-bias K slice within 2 lr (opposite signs).
+# Both sides are deterministic, so a reading repeats exactly; on an H100
+# the params read 4.9e-4 per leaf, 6.4e-5 global and 0.083 lr.
+STEP_TOL = {"loss": 2e-3, "grad_norm": 2e-3, "grads_global": 2e-3,
+            "grads_max_leaf": 2e-3, "params_max_leaf_drift": 5e-3,
+            "params_global_drift": 2e-3, "qkv_bias_k_max_abs_over_lr": 2.0}
+
+
+def f32_step_vs_cpu(dev) -> dict:
+    """One f32 train step of a 2-layer ViT-B/16 (fused MLP and flash,
+    mlp and attention dropout 0.1) on the card against the same step on
+    the CPU, where the wrappers run their plain versions; errors and bounds
+    in :func:`step_errors` and ``STEP_TOL``. The embedding dropout is
+    off: its bits come from a device generator, and CPU and CUDA
+    generators give different streams."""
+    import numpy as np
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch import engine, optim
+    from pytorch_vit_paper_replication_tpu_torch.configs import (
+        TrainConfig, vit_b16)
+    from pytorch_vit_paper_replication_tpu_torch.convert import seeded_params
+    from pytorch_vit_paper_replication_tpu_torch.models import ViT
+
+    cfg = vit_b16(num_classes=NUM_CLASSES, num_layers=2, dtype="float32",
+                  mlp_impl="fused", attention_impl="flash",
+                  attn_dropout=0.1, embedding_dropout=0.0)
+    tcfg = TrainConfig(warmup_fraction=0.0)
+    rng = np.random.default_rng(5)
+    batch = {"image": rng.standard_normal((8, 224, 224, 3)).astype(
+        np.float32), "label": rng.integers(0, NUM_CLASSES, 8)}
+    p0 = seeded_params(cfg, 9)
+    out = []
+    for device in (dev, torch.device("cpu")):
+        model = ViT(cfg)
+        model.load_state_dict(p0)
+        model.to(device)
+        st = engine.TrainState.create(
+            model=model, seed=1, tx=optim.make_optimizer(tcfg, 10))
+        grads = {}
+        apply = st.tx.apply
+
+        def capture(params, g, opt_state, apply=apply, grads=grads):
+            grads.update({k: v.detach().cpu().clone() for k, v in g.items()})
+            return apply(params, g, opt_state)
+        st.tx.apply = capture
+        st, m = engine.make_train_step()(st, batch)
+        after = {k: v.detach().cpu().clone()
+                 for k, v in model.named_parameters()}
+        out.append(({k: float(v) for k, v in m.items()}, grads, after))
+    errs = step_errors({k: p0[k].float() for k in out[1][2]}, *out,
+                       lr=tcfg.learning_rate)
+    bad = {k: v for k, v in errs.items() if not v <= STEP_TOL[k]}
+    if bad:
+        raise AssertionError(f"f32 step on the card vs the CPU: {bad} "
+                             f"exceed {STEP_TOL}")
+    return errs
+
+
+def phase_train(dev) -> dict:
+    import statistics
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.configs import PRESETS
+
+    cfg = PRESETS[PRESET](num_classes=NUM_CLASSES)
+    t0 = time.perf_counter()
+    metrics, results, counts, walls, state, batch = _train_run(
+        cfg, dev, TRAIN_STEPS, seed=1)
+    losses = _check_run("train(auto)", metrics, counts, TRAIN_STEPS, False)
+    step_s = statistics.median(walls[1:])
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_step(state, batch)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    torch.cuda.empty_cache()
+    f_metrics, f_results, f_counts, f_walls, f_state, _ = _train_run(
+        cfg.replace(attention_impl="flash"), dev, FLASH_STEPS, seed=2)
+    # Three steps are too few to require a falling loss; finite is required.
+    f_losses = _check_run("train(flash)", f_metrics, f_counts, FLASH_STEPS,
+                          True, loss_must_fall=False)
+    del f_state
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "ok": True, "batch": TRAIN_BATCH,
+          "steps": TRAIN_STEPS, "losses": losses,
+          "grad_norms": [m["grad_norm"] for m in metrics],
+          "results": results, "launches": counts,
+          "step_ms_median": step_s * 1e3,
+          "step_ms_first": walls[0] * 1e3,
+          "img_per_s": TRAIN_BATCH / step_s,
+          "peak_memory_gib_profiled_step": peak_gib,
+          "profile_one_step": prof,
+          "flash_steps": FLASH_STEPS, "flash_losses": f_losses,
+          "flash_launches": f_counts,
+          "flash_step_ms_median": statistics.median(f_walls[1:]) * 1e3,
+          "flash_results": f_results,
+          "seconds": round(time.perf_counter() - t0, 3)})
+    t1 = time.perf_counter()
+    emit({"phase": "train_f32_card_vs_cpu", "ok": True,
+          "errors": f32_step_vs_cpu(dev), "tolerance": STEP_TOL,
+          "seconds": round(time.perf_counter() - t1, 3)})
+    merged = dict(counts)
+    for k in ("flash_attention", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        merged[k] = f_counts[k]
+    return merged
+
+
+# ------------------------------------------------------------- phase 5
+def kernel_list(k_rows, launches, serve_launches):
+    """The five ported kernels with their main-path numbers (batch 32,
+    bf16, dropout off, T = 197), then the TPU kernels still to port.
+    ``launches`` are the training runs' counts (the flash kernels' from
+    the flash run), ``serve_launches`` the serve phase's."""
     def pick(kernel, **match):
         return next(r for r in k_rows if r["kernel"] == kernel and all(
             r[k] == v for k, v in match.items()))
 
+    def max_err(kernel, key=None):
+        vals = []
+        for r in k_rows:
+            if r["kernel"] == kernel and r["dtype"] == "bfloat16":
+                e = r["max_abs_err"]
+                vals.append(e[key] if key else
+                            (max(e.values()) if isinstance(e, dict) else e))
+        return max(vals)
+
     base = f"{PKG}/csrc"
-    out = []
-    for name, src, replaces, row in (
-            ("fused_ln_mlp_residual", f"{base}/fused_mlp.cu",
-             "pytorch_vit_paper_replication_tpu/ops/fused_mlp.py:461",
-             pick("fused_ln_mlp_residual", dtype="bfloat16", threshold=0)),
-            ("flash_attention", f"{base}/flash_attention.cu",
-             "pytorch_vit_paper_replication_tpu/ops/flash_attention.py:295",
-             pick("flash_attention", threshold=0, shape=[32, 197, 12, 64]))):
-        errs = [r["max_abs_err"] for r in k_rows if r["kernel"] == name
-                and r["dtype"] == "bfloat16"]
-        out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": replaces, "status": "ported and checked",
-                    "launches": launches[name], "max_abs_err": max(errs),
-                    "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
-                    "bound_ms": row["bound_ms"],
-                    "bound_by": row["bound_by"],
-                    "library_ms": row["library_ms"]})
-    todo = [
-        ("fused_ln_mlp_residual backward", "ops/fused_mlp.py:501"),
-        ("flash_attention backward dq", "ops/flash_attention.py:485"),
-        ("flash_attention backward dk/dv", "ops/flash_attention.py:503"),
-        ("fused_mlp forward", "ops/fused_mlp.py:236"),
-        ("fused_mlp backward", "ops/fused_mlp.py:278"),
+    ref = "pytorch_vit_paper_replication_tpu/ops"
+    mlp = pick("fused_ln_mlp_residual", dtype="bfloat16", threshold=0)
+    mlp_b = pick("fused_ln_mlp_residual_bwd", dtype="bfloat16", threshold=0)
+    fl = pick("flash_attention", threshold=0, shape=[32, 197, 12, 64])
+    fl_b = pick("flash_attention_bwd", threshold=0, shape=[32, 197, 12, 64])
+    rows = [
+        ("fused_ln_mlp_residual", "fused_mlp.cu", "fused_mlp.py:461",
+         max_err("fused_ln_mlp_residual"), mlp["kernel_ms"], mlp["plain_ms"],
+         mlp["bound_ms"], mlp["bound_by"], None),
+        ("fused_ln_mlp_residual_bwd", "fused_mlp_bwd.cu", "fused_mlp.py:501",
+         max_err("fused_ln_mlp_residual_bwd"), mlp_b["kernel_ms"],
+         mlp_b["plain_ms"], mlp_b["bound_ms"], mlp_b["bound_by"], None),
+        ("flash_attention", "flash_attention.cu", "flash_attention.py:295",
+         max_err("flash_attention"), fl["kernel_ms"], fl["plain_ms"],
+         fl["bound_ms"], fl["bound_by"], fl["library_ms"]),
+        # plain_ms and library_ms of the two backward kernels are one call
+        # each computing dq, dk and dv together.
+        ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
+         "flash_attention.py:485", max_err("flash_attention_bwd", "dq"),
+         fl_b["dq_ms"], fl_b["plain_ms"], fl_b["dq_bound_ms"],
+         fl_b["dq_bound_by"], fl_b["library_ms"]),
+        ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+         "flash_attention.py:503",
+         max(max_err("flash_attention_bwd", "dk"),
+             max_err("flash_attention_bwd", "dv")),
+         fl_b["dkv_ms"], fl_b["plain_ms"], fl_b["dkv_bound_ms"],
+         fl_b["dkv_bound_by"], fl_b["library_ms"]),
     ]
+    out = [{"name": name, "route": "cuda", "source": f"{base}/{src}",
+            "replaces": f"{ref}/{rep}", "status": "ported and checked",
+            "launches": launches[name],
+            "serve_launches": serve_launches.get(name, 0),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+           for name, src, rep, err, ms, plain_ms, b_ms, b_by, lib in rows]
+    todo = [("fused_mlp forward", "fused_mlp.py:236"),
+            ("fused_mlp backward", "fused_mlp.py:278")]
     return {"kernels": out, "to_port": [
-        {"name": n, "replaces": f"pytorch_vit_paper_replication_tpu/{r}",
-         "status": "still to port"} for n, r in todo]}
+        {"name": n, "replaces": f"{ref}/{r}", "status": "still to port"}
+        for n, r in todo]}
 
 
 def main() -> int:
@@ -533,18 +1015,23 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     card_peaks = peaks(name)
     k_rows = check_fused_mlp(gen, card_peaks, dev) + \
-        check_flash(gen, card_peaks, dev)
+        check_flash(gen, card_peaks, dev) + \
+        check_fused_mlp_bwd(gen, card_peaks, dev) + \
+        check_flash_bwd(gen, card_peaks, dev)
     torch.cuda.empty_cache()
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        export, paths, launches = phase_serve(root, dev)
+        export, paths, serve_launches = phase_serve(root, dev)
         phase_cli(export, paths)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    launches = phase_train(dev)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             3)})
     print(card, flush=True)
-    print(json.dumps(kernel_list(k_rows, launches)), flush=True)
+    print(json.dumps(kernel_list(k_rows, launches, serve_launches)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

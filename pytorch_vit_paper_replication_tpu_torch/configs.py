@@ -75,7 +75,8 @@ class ViTConfig:
     # Storage format of the attention backward residual (None = follow
     # attention_probs_dtype); training-only, kept for config parity.
     attention_probs_residual_dtype: str | None = None
-    # Rematerialize encoder blocks (training-only; kept for config parity).
+    # Rematerialize encoder blocks in training (torch.utils.checkpoint per
+    # block; the dropout seeds are drawn outside the checkpointed call).
     remat: bool = False
     # Pool strategy for classification: "cls" token (reference vit.py:235)
     # or "gap" (global average pool, used by some ViT variants).
@@ -212,3 +213,32 @@ def model_tier(cfg: "ViTConfig") -> str:
             return name
     return (f"custom/{cfg.embedding_dim}x{cfg.num_layers}"
             f"p{cfg.patch_size}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-recipe hyperparameters (field for field the JAX package's).
+
+    Defaults reproduce the reference recipe: Adam(1e-3, 0.9, 0.999) with
+    weight decay 0.03 applied only to ndim>1 params (reference main notebook
+    cells 84-85), linear warmup over 5% of steps then linear decay to 0
+    (cells 87-88), global-norm-1 gradient clipping (engine.py:63), batch 32,
+    10 epochs.
+    """
+
+    batch_size: int = 32
+    epochs: int = 10
+    learning_rate: float = 1e-3
+    beta1: float = 0.9
+    beta2: float = 0.999
+    weight_decay: float = 0.03
+    warmup_fraction: float = 0.05
+    grad_clip_norm: float = 1.0
+    label_smoothing: float = 0.0
+    seed: int = 42
+    # Freeze everything except the classifier head (transfer learning;
+    # reference main notebook cell 112 sets requires_grad=False on backbone).
+    freeze_backbone: bool = False
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)

@@ -38,8 +38,22 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """A Flax param tree (nested dicts of numpy-convertible arrays, keys as
     in ``ViT.init(...)["params"]``) -> the port's ``state_dict``."""
     return {path.replace("/", "."): torch.from_numpy(
-                np.ascontiguousarray(arr, dtype=np.float32))
+                np.array(arr, dtype=np.float32))
             for path, arr in flatten_tree(tree).items()}
+
+
+def params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_flax`: a ``state_dict`` -> a nested
+    Flax param tree of f32 numpy arrays, so the JAX package can read
+    weights the port trained."""
+    tree: Dict[str, Any] = {}
+    for name, val in state.items():
+        *parents, leaf = name.split(".")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = val.detach().to("cpu", torch.float32).numpy()
+    return tree
 
 
 def save_params_npz(path: str | Path, state: Mapping[str, torch.Tensor]

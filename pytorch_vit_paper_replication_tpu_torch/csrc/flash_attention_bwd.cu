@@ -1,0 +1,398 @@
+// Flash-attention backward (no mask): the dq kernel and the dk/dv kernel.
+//
+// Replace the JAX package's Pallas kernels
+// ops/flash_attention.py::_bwd_dq_kernel and ::_bwd_dkv_kernel (the two
+// pallas_calls in _flash_bwd), in their mask=None form, with positional
+// attention dropout.
+//
+// Both recompute P = exp(q.k * scale - lse) from the forward's row
+// logsumexp; delta = rowsum(dO * O) is computed in f32 by the caller, as the
+// JAX wrapper does. With dropout the keep bit of (seed, b*h, row, col) is
+// the forward's: it enters through dP (dS = P * (M/keep * dP - delta) *
+// scale) and, for dV, through P.
+//
+// What bounds them on an H100: at ViT-B/16 shapes (B*H = 384, Dh = 64,
+// T = 197) 8*BH*T^2*Dh FLOP (dq: 2 products, dk/dv: 3, plus the recomputed
+// logits in each) against reading q, k, v, dO once and writing dq, dk, dv:
+// the bytes bound them at T = 197, the operations at T = 577.
+//
+// Design (first, simple kernels; all math in f32 like the Pallas kernels,
+// which upcast q, k, v and dO):
+//   * The Pallas grids are (bh, q-blocks) for dq and (bh, k-blocks) for
+//     dk/dv with an in-kernel loop over the other axis; nothing is carried
+//     between programs, so each maps to a CUDA grid directly: one CTA of
+//     256 threads per (b*h, 64-row block), no atomics, deterministic.
+//   * Thread (rg, cg) owns 4 rows x 4 columns of each 64x64 logit block
+//     and 4 rows x Dh/16 columns of the output; operands are staged in
+//     shared memory as f32, both transposed (for the logit products) and
+//     row-major (for the output products).
+//   * The ragged edge: keys past T give P = 0 in the dq kernel, queries
+//     past T give P = 0 in the dk/dv kernel, padded rows load as zeros and
+//     are never stored.
+// Tensor cores are not used yet: every product is SIMT f32 FMA.
+#include "vit_common.cuh"
+
+using vit::bf16;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kB = 64;  // rows of a q block and of a k block
+constexpr int kLdp = kB + 4;
+
+template <int DH>
+struct DqSmem {
+  static constexpr size_t q_off = 0;                    // [B][DH]
+  static constexpr size_t do_off = q_off + kB * DH * 4;  // [B][DH]
+  static constexpr size_t kt_off = do_off + kB * DH * 4; // [DH][B]
+  static constexpr size_t vt_off = kt_off + DH * kB * 4; // [DH][B]
+  static constexpr size_t k_off = vt_off + DH * kB * 4;  // [B][DH]
+  static constexpr size_t ds_off = k_off + kB * DH * 4;  // [B][kLdp]
+  static constexpr size_t bytes = ds_off + kB * kLdp * 4;
+};
+
+template <int DH>
+struct DkvSmem {
+  static constexpr size_t k_off = 0;                     // [B][DH]
+  static constexpr size_t v_off = k_off + kB * DH * 4;    // [B][DH]
+  static constexpr size_t qt_off = v_off + kB * DH * 4;   // [DH][B]
+  static constexpr size_t dot_off = qt_off + DH * kB * 4; // [DH][B]
+  static constexpr size_t q_off = dot_off + DH * kB * 4;  // [B][DH]
+  static constexpr size_t do_off = q_off + kB * DH * 4;   // [B][DH]
+  static constexpr size_t p_off = do_off + kB * DH * 4;   // [B][kLdp]
+  static constexpr size_t ds_off = p_off + kB * kLdp * 4; // [B][kLdp]
+  static constexpr size_t bytes = ds_off + kB * kLdp * 4;
+};
+
+// rows r0.. of src [t_len, DH] -> dst as [B][DH] f32 (zero past t_len).
+template <typename T, int DH>
+__device__ __forceinline__ void load_rows(const T* __restrict__ src, float* dst,
+                                          int r0, int t_len) {
+  for (int i = threadIdx.x; i < kB * DH; i += kThreads) {
+    const int r = i / DH, d = i % DH;
+    dst[i] = (r0 + r < t_len)
+                 ? vit::to_f32(src[static_cast<size_t>(r0 + r) * DH + d])
+                 : 0.0f;
+  }
+}
+
+// rows r0.. of src [t_len, DH] -> dst transposed as [DH][B] f32.
+template <typename T, int DH>
+__device__ __forceinline__ void load_rows_t(const T* __restrict__ src,
+                                            float* dst, int r0, int t_len) {
+  for (int i = threadIdx.x; i < kB * DH; i += kThreads) {
+    const int c = i % kB, d = i / kB;
+    dst[d * kB + c] =
+        (r0 + c < t_len)
+            ? vit::to_f32(src[static_cast<size_t>(r0 + c) * DH + d])
+            : 0.0f;
+  }
+}
+
+// s[i][j] += a[4rg+i, :] . bt[:, 4cg+j] over DH (a row-major, bt
+// transposed), for two operand pairs at once.
+template <int DH>
+__device__ __forceinline__ void block_dots(const float* a0, const float* b0t,
+                                           const float* a1, const float* b1t,
+                                           int rg, int cg, float (&s0)[4][4],
+                                           float (&s1)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s0[i][j] = s1[i][j] = 0.0f;
+  for (int d = 0; d < DH; ++d) {
+    const float4 b0 = *reinterpret_cast<const float4*>(b0t + d * kB + 4 * cg);
+    const float4 b1 = *reinterpret_cast<const float4*>(b1t + d * kB + 4 * cg);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x0 = a0[(4 * rg + i) * DH + d];
+      const float x1 = a1[(4 * rg + i) * DH + d];
+      s0[i][0] = fmaf(x0, b0.x, s0[i][0]);
+      s0[i][1] = fmaf(x0, b0.y, s0[i][1]);
+      s0[i][2] = fmaf(x0, b0.z, s0[i][2]);
+      s0[i][3] = fmaf(x0, b0.w, s0[i][3]);
+      s1[i][0] = fmaf(x1, b1.x, s1[i][0]);
+      s1[i][1] = fmaf(x1, b1.y, s1[i][1]);
+      s1[i][2] = fmaf(x1, b1.z, s1[i][2]);
+      s1[i][3] = fmaf(x1, b1.w, s1[i][3]);
+    }
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 T* __restrict__ dq, int t_len, float scale, uint32_t seed,
+                 int threshold, float inv_keep) {
+  using L = DqSmem<DH>;
+  constexpr int CW = DH / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem + L::q_off);
+  float* do_s = reinterpret_cast<float*>(smem + L::do_off);
+  float* kt_s = reinterpret_cast<float*>(smem + L::kt_off);
+  float* vt_s = reinterpret_cast<float*>(smem + L::vt_off);
+  float* k_s = reinterpret_cast<float*>(smem + L::k_off);
+  float* ds_s = reinterpret_cast<float*>(smem + L::ds_off);
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kB;
+  const size_t base = static_cast<size_t>(bh) * t_len * DH;
+  const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
+  load_rows<T, DH>(q + base, q_s, q0, t_len);
+  load_rows<T, DH>(dout + base, do_s, q0, t_len);
+  float lse_r[4], dl_r[4], acc[4][CW];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * rg + i;
+    const bool in = row < t_len;
+    lse_r[i] = in ? lse[static_cast<size_t>(bh) * t_len + row] : 0.0f;
+    dl_r[i] = in ? delta[static_cast<size_t>(bh) * t_len + row] : 0.0f;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) acc[i][c] = 0.0f;
+  }
+
+  for (int k0 = 0; k0 < t_len; k0 += kB) {
+    __syncthreads();  // previous block done with kt_s / vt_s / k_s / ds_s
+    load_rows_t<T, DH>(k + base, kt_s, k0, t_len);
+    load_rows_t<T, DH>(v + base, vt_s, k0, t_len);
+    load_rows<T, DH>(k + base, k_s, k0, t_len);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    block_dots<DH>(q_s, kt_s, do_s, vt_s, rg, cg, s, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + 4 * rg + i;
+      float ds[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + 4 * cg + j;
+        const float p = col < t_len ? expf(s[i][j] * scale - lse_r[i]) : 0.0f;
+        float dpv = dp[i][j];
+        if (threshold)
+          dpv = vit::positional_keep(seed, bh, row, col, threshold)
+                    ? dpv * inv_keep
+                    : 0.0f;
+        ds[j] = p * (dpv - dl_r[i]) * scale;
+      }
+      *reinterpret_cast<float4*>(ds_s + (4 * rg + i) * kLdp + 4 * cg) =
+          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    }
+    __syncthreads();
+    for (int j = 0; j < kB; ++j) {
+      float a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = ds_s[(4 * rg + i) * kLdp + j];
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        const float kb = k_s[j * DH + cg * CW + c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(a[i], kb, acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * rg + i;
+    if (row >= t_len) continue;
+    const size_t o = base + static_cast<size_t>(row) * DH + cg * CW;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) dq[o + c] = vit::from_f32<T>(acc[i][c]);
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, T* __restrict__ dk,
+                  T* __restrict__ dv, int t_len, float scale, uint32_t seed,
+                  int threshold, float inv_keep) {
+  using L = DkvSmem<DH>;
+  constexpr int CW = DH / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* k_s = reinterpret_cast<float*>(smem + L::k_off);
+  float* v_s = reinterpret_cast<float*>(smem + L::v_off);
+  float* qt_s = reinterpret_cast<float*>(smem + L::qt_off);
+  float* dot_s = reinterpret_cast<float*>(smem + L::dot_off);
+  float* q_s = reinterpret_cast<float*>(smem + L::q_off);
+  float* do_s = reinterpret_cast<float*>(smem + L::do_off);
+  float* p_s = reinterpret_cast<float*>(smem + L::p_off);
+  float* ds_s = reinterpret_cast<float*>(smem + L::ds_off);
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kB;
+  const size_t base = static_cast<size_t>(bh) * t_len * DH;
+  const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;  // rg: keys
+  load_rows<T, DH>(k + base, k_s, k0, t_len);
+  load_rows<T, DH>(v + base, v_s, k0, t_len);
+  float dk_acc[4][CW], dv_acc[4][CW];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < CW; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.0f;
+
+  for (int q0 = 0; q0 < t_len; q0 += kB) {
+    __syncthreads();  // previous block done with the q-side tiles
+    load_rows_t<T, DH>(q + base, qt_s, q0, t_len);
+    load_rows_t<T, DH>(dout + base, dot_s, q0, t_len);
+    load_rows<T, DH>(q + base, q_s, q0, t_len);
+    load_rows<T, DH>(dout + base, do_s, q0, t_len);
+    __syncthreads();
+    // st[i][j] = k_i . q_j, dpt[i][j] = v_i . dO_j (i: key, j: query)
+    float st[4][4], dpt[4][4];
+    block_dots<DH>(k_s, qt_s, v_s, dot_s, rg, cg, st, dpt);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = k0 + 4 * rg + i;
+      float pd[4], ds[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = q0 + 4 * cg + j;
+        const bool in = row < t_len;
+        const size_t ri = static_cast<size_t>(bh) * t_len + row;
+        const float p = in ? expf(st[i][j] * scale - lse[ri]) : 0.0f;
+        const float dl = in ? delta[ri] : 0.0f;
+        float dpv = dpt[i][j];
+        pd[j] = p;
+        if (threshold) {
+          const bool keep = vit::positional_keep(seed, bh, row, key, threshold);
+          pd[j] = keep ? p * inv_keep : 0.0f;
+          dpv = keep ? dpv * inv_keep : 0.0f;
+        }
+        ds[j] = p * (dpv - dl) * scale;
+      }
+      *reinterpret_cast<float4*>(p_s + (4 * rg + i) * kLdp + 4 * cg) =
+          make_float4(pd[0], pd[1], pd[2], pd[3]);
+      *reinterpret_cast<float4*>(ds_s + (4 * rg + i) * kLdp + 4 * cg) =
+          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    }
+    __syncthreads();
+    for (int j = 0; j < kB; ++j) {
+      float pa[4], sa[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pa[i] = p_s[(4 * rg + i) * kLdp + j];
+        sa[i] = ds_s[(4 * rg + i) * kLdp + j];
+      }
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        const float dob = do_s[j * DH + cg * CW + c];
+        const float qb = q_s[j * DH + cg * CW + c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dv_acc[i][c] = fmaf(pa[i], dob, dv_acc[i][c]);
+          dk_acc[i][c] = fmaf(sa[i], qb, dk_acc[i][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + 4 * rg + i;
+    if (key >= t_len) continue;
+    const size_t o = base + static_cast<size_t>(key) * DH + cg * CW;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) {
+      dk[o + c] = vit::from_f32<T>(dk_acc[i][c]);
+      dv[o + c] = vit::from_f32<T>(dv_acc[i][c]);
+    }
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  void *o0, *o1;  // dq (dq kernel) or dk, dv (dk/dv kernel)
+  int bh, t_len;
+  float scale;
+  uint32_t seed;
+  int threshold;
+  float inv_keep;
+};
+
+template <typename T, int DH>
+cudaError_t launch(bool dkv, const Args& a, cudaStream_t s) {
+  const dim3 grid((a.t_len + kB - 1) / kB, a.bh);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* d = static_cast<const T*>(a.dout);
+  cudaError_t err;
+  if (dkv) {
+    const size_t smem = DkvSmem<DH>::bytes;
+    err = cudaFuncSetAttribute(flash_bwd_dkv<T, DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv<T, DH><<<grid, kThreads, smem, s>>>(
+        q, k, v, d, a.lse, a.delta, static_cast<T*>(a.o0),
+        static_cast<T*>(a.o1), a.t_len, a.scale, a.seed, a.threshold,
+        a.inv_keep);
+  } else {
+    const size_t smem = DqSmem<DH>::bytes;
+    err = cudaFuncSetAttribute(flash_bwd_dq<T, DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq<T, DH><<<grid, kThreads, smem, s>>>(
+        q, k, v, d, a.lse, a.delta, static_cast<T*>(a.o0), a.t_len, a.scale,
+        a.seed, a.threshold, a.inv_keep);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_dh(int dh, bool dkv, const Args& a, cudaStream_t s) {
+  switch (dh) {
+    case 32:
+      return launch<T, 32>(dkv, a, s);
+    case 64:
+      return launch<T, 64>(dkv, a, s);
+    case 128:
+      return launch<T, 128>(dkv, a, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+int run(int dtype, int dh, bool dkv, const Args& a, void* stream) {
+  if (a.bh <= 0 || a.bh > 65535 || a.t_len <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return static_cast<int>(dispatch_dh<bf16>(dh, dkv, a, s));
+  if (dtype == 0) return static_cast<int>(dispatch_dh<float>(dh, dkv, a, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes). q, k, v, dout and the outputs:
+// [bh, t, dh] contiguous in dtype (0 = float32, 1 = bf16), dh in {32, 64,
+// 128}; lse, delta: [bh, t] float32. Return the cudaError_t of the
+// attribute call / launch (0 on success).
+extern "C" int vit_flash_bwd_dq(int dtype, const void* q, const void* k,
+                                const void* v, const void* dout,
+                                const float* lse, const float* delta, void* dq,
+                                int bh, int t_len, int dh, float scale,
+                                uint32_t seed, int threshold, float inv_keep,
+                                void* stream) {
+  const Args a{q,     k,    v,         dout,    lse, delta, dq, nullptr, bh,
+               t_len, scale, seed, threshold, inv_keep};
+  return run(dtype, dh, false, a, stream);
+}
+
+extern "C" int vit_flash_bwd_dkv(int dtype, const void* q, const void* k,
+                                 const void* v, const void* dout,
+                                 const float* lse, const float* delta, void* dk,
+                                 void* dv, int bh, int t_len, int dh,
+                                 float scale, uint32_t seed, int threshold,
+                                 float inv_keep, void* stream) {
+  const Args a{q,     k,    v,         dout,    lse, delta, dk, dv, bh,
+               t_len, scale, seed, threshold, inv_keep};
+  return run(dtype, dh, true, a, stream);
+}

@@ -2,8 +2,10 @@
 //     out = x + drop1(fc2(drop0(gelu(fc1(LN(x))))))
 //
 // Replaces the JAX package's Pallas kernel
-// ops/fused_mlp.py::_lnmlp_fwd_kernel (pallas_call in _lnmlp_call), forward
-// only (save_h=False, the serving path).
+// ops/fused_mlp.py::_lnmlp_fwd_kernel (pallas_call in _lnmlp_call), in both
+// its forms: save_h=False (serving) and save_h=True (training: h = y@W1 + b1
+// is also written, rounded to the compute dtype, as the backward's residual;
+// csrc/fused_mlp_bwd.cu reads it).
 //
 // What bounds it on an H100: at ViT-B/16 serving shapes (N = B*197 rows,
 // D = 768, F = 3072) the two GEMMs are 4*N*D*F FLOP against ~2*N*D*2 bytes
@@ -37,22 +39,6 @@ namespace {
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kBM = 32;        // rows per CTA
-
-__device__ __forceinline__ float erf_as(float x) {
-  // Abramowitz & Stegun 7.1.26, the polynomial ops/fused_mlp.py::_erf uses.
-  float a = fabsf(x);
-  float t = 1.0f / (1.0f + 0.3275911f * a);
-  float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f +
-                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  float y = 1.0f - poly * expf(-a * a);
-  return x < 0.0f ? -y : y;
-}
-
-__device__ __forceinline__ float gelu_exact(float h) {
-  return h * 0.5f * (1.0f + erf_as(h * 0.70710678118654752f));
-}
 
 // LayerNorm of this CTA's rows into y_s (row stride ldy), one warp per row.
 template <typename T, int D>
@@ -125,9 +111,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     lnmlp_fwd_bf16(const bf16* __restrict__ x, const float* __restrict__ gamma,
                    const float* __restrict__ beta, const bf16* __restrict__ w1,
                    const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                   const bf16* __restrict__ b2, bf16* __restrict__ out, int n,
-                   int f, float eps, uint32_t seed, int threshold,
-                   float inv_keep) {
+                   const bf16* __restrict__ b2, bf16* __restrict__ out,
+                   bf16* __restrict__ h_out, int n, int f, float eps,
+                   uint32_t seed, int threshold, float inv_keep) {
   using L = Bf16Smem<D>;
   constexpr int NF = D / 128;  // 16-wide output column fragments per warp
   extern __shared__ __align__(128) unsigned char smem[];
@@ -173,7 +159,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     for (int i = threadIdx.x; i < kBM * kBF16Chunk; i += kThreads) {
       const int r = i / kBF16Chunk, c = i % kBF16Chunk;
-      float g = gelu_exact(h_s[r * L::ldh + c] + vit::to_f32(b1[f0 + c]));
+      const float hv = h_s[r * L::ldh + c] + vit::to_f32(b1[f0 + c]);
+      if (h_out != nullptr && row0 + r < n)
+        h_out[static_cast<size_t>(row0 + r) * f + f0 + c] =
+            vit::from_f32<bf16>(hv);
+      float g = vit::gelu_exact(hv);
       if (threshold) {
         g = vit::positional_keep(seed, 0u, row0 + r, f0 + c, threshold)
                 ? g * inv_keep
@@ -247,9 +237,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     lnmlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ gamma,
                   const float* __restrict__ beta, const float* __restrict__ w1,
                   const float* __restrict__ b1, const float* __restrict__ w2,
-                  const float* __restrict__ b2, float* __restrict__ out, int n,
-                  int f, float eps, uint32_t seed, int threshold,
-                  float inv_keep) {
+                  const float* __restrict__ b2, float* __restrict__ out,
+                  float* __restrict__ h_out, int n, int f, float eps,
+                  uint32_t seed, int threshold, float inv_keep) {
   using L = F32Smem<D>;
   constexpr int NC = D / 32;  // output columns per thread (stride 32)
   constexpr int RPW = kBM / (kThreads / 32);  // rows per warp = 4
@@ -289,7 +279,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const int r = warp * RPW + i;
-      float g = gelu_exact(h[i] + b1[f0 + lane]);
+      const float hv = h[i] + b1[f0 + lane];
+      if (h_out != nullptr && row0 + r < n)
+        h_out[static_cast<size_t>(row0 + r) * f + f0 + lane] = hv;
+      float g = vit::gelu_exact(hv);
       if (threshold) {
         g = vit::positional_keep(seed, 0u, row0 + r, f0 + lane, threshold)
                 ? g * inv_keep
@@ -352,35 +345,37 @@ cudaError_t launch(Kernel kernel, size_t smem, int n, cudaStream_t stream,
 template <int D>
 cudaError_t dispatch(int dtype, const void* x, const float* gamma,
                      const float* beta, const void* w1, const void* b1,
-                     const void* w2, const void* b2, void* out, int n, int f,
-                     float eps, uint32_t seed, int threshold, float inv_keep,
-                     cudaStream_t stream) {
+                     const void* w2, const void* b2, void* out, void* h_out,
+                     int n, int f, float eps, uint32_t seed, int threshold,
+                     float inv_keep, cudaStream_t stream) {
   if (dtype == 1) {
     return launch(lnmlp_fwd_bf16<D>, Bf16Smem<D>::bytes, n, stream,
                   static_cast<const bf16*>(x), gamma, beta,
                   static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
                   static_cast<const bf16*>(w2), static_cast<const bf16*>(b2),
-                  static_cast<bf16*>(out), n, f, eps, seed, threshold,
-                  inv_keep);
+                  static_cast<bf16*>(out), static_cast<bf16*>(h_out), n, f,
+                  eps, seed, threshold, inv_keep);
   }
   return launch(lnmlp_fwd_f32<D>, F32Smem<D>::bytes, n, stream,
                 static_cast<const float*>(x), gamma, beta,
                 static_cast<const float*>(w1), static_cast<const float*>(b1),
                 static_cast<const float*>(w2), static_cast<const float*>(b2),
-                static_cast<float*>(out), n, f, eps, seed, threshold,
-                inv_keep);
+                static_cast<float*>(out), static_cast<float*>(h_out), n, f,
+                eps, seed, threshold, inv_keep);
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). dtype: 0 = float32, 1 = bf16.
-// x, w1, b1, w2, b2, out in that dtype; gamma, beta float32. Returns the
-// cudaError_t of the attribute call / launch (0 on success).
+// x, w1, b1, w2, b2, out and h (null: not saved) in that dtype; gamma, beta
+// float32. Returns the cudaError_t of the attribute call / launch (0 on
+// success).
 extern "C" int vit_lnmlp_fwd(int dtype, const void* x, const float* gamma,
                              const float* beta, const void* w1, const void* b1,
-                             const void* w2, const void* b2, void* out, int n,
-                             int d, int f, float eps, uint32_t seed,
-                             int threshold, float inv_keep, void* stream) {
+                             const void* w2, const void* b2, void* out,
+                             void* h, int n, int d, int f, float eps,
+                             uint32_t seed, int threshold, float inv_keep,
+                             void* stream) {
   if ((dtype != 0 && dtype != 1) || n <= 0 || f <= 0 ||
       f % (dtype == 1 ? kBF16Chunk : kF32Chunk) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -388,11 +383,11 @@ extern "C" int vit_lnmlp_fwd(int dtype, const void* x, const float* gamma,
   switch (d) {
     case 384:
       return static_cast<int>(dispatch<384>(dtype, x, gamma, beta, w1, b1, w2,
-                                            b2, out, n, f, eps, seed,
+                                            b2, out, h, n, f, eps, seed,
                                             threshold, inv_keep, s));
     case 768:
       return static_cast<int>(dispatch<768>(dtype, x, gamma, beta, w1, b1, w2,
-                                            b2, out, n, f, eps, seed,
+                                            b2, out, h, n, f, eps, seed,
                                             threshold, inv_keep, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);

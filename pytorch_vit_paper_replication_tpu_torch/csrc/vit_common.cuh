@@ -3,7 +3,10 @@
 // positional_keep() is the CUDA form of ops/dropout.py::positional_keep_u8:
 // the keep bit of an element is a pure hash of (seed, tag, row, col) in
 // native uint32 arithmetic (wrapping multiplies), so every kernel and the
-// plain PyTorch versions regenerate the identical mask.
+// plain PyTorch versions regenerate the identical mask. erf_as(),
+// gelu_exact() and gelu_grad() are the fused MLP's GELU and its derivative
+// in the form the Pallas kernels evaluate (ops/fused_mlp.py::_erf,
+// _gelu_exact, _gelu_grad).
 #pragma once
 
 #include <cstdint>
@@ -41,6 +44,29 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float erf_as(float x) {
+  // Abramowitz & Stegun 7.1.26 (max abs error 1.5e-7).
+  float a = fabsf(x);
+  float t = 1.0f / (1.0f + 0.3275911f * a);
+  float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f +
+                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  float y = 1.0f - poly * expf(-a * a);
+  return x < 0.0f ? -y : y;
+}
+
+__device__ __forceinline__ float gelu_exact(float h) {
+  return h * 0.5f * (1.0f + erf_as(h * 0.70710678118654752f));
+}
+
+// d/dh of the exact GELU: Phi(h) + h * phi(h), Phi through erf_as.
+__device__ __forceinline__ float gelu_grad(float h) {
+  const float phi = expf(-0.5f * h * h) * 0.3989422804014327f;
+  const float cdf = 0.5f * (1.0f + erf_as(h * 0.70710678118654752f));
+  return cdf + h * phi;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -1,0 +1,290 @@
+"""Training engine: the train/eval steps and the epoch loop (port of the
+JAX ``engine.py``).
+
+* :func:`make_train_step` returns ``(state, batch) -> (state, metrics)``:
+  forward in training mode with dropout seeds drawn from a generator seeded
+  by ``(state.seed, state.step)`` (the counterpart of JAX's
+  ``fold_in(state.rng, step)``), backward through the hand-written kernels'
+  ``autograd.Function``s on CUDA, then one :class:`..optim.RecipeOptimizer`
+  update. Metrics stay on the device as running sums (``loss_sum``,
+  ``correct``, ``count``, ``grad_norm`` = the global norm of the raw
+  gradient before clipping) and are fetched once per epoch.
+* Accuracy and loss are example-weighted; eval uses the masked metrics of
+  padded batches.
+* :func:`train` returns the reference ``engine.train`` results dict.
+
+The step updates ``state`` in place (PyTorch params are mutable) and returns
+it. Batches are dicts of numpy arrays or tensors: ``image`` ``[B, H, W, C]``
+float, ``label`` ``[B]`` int, optionally ``mask`` (eval) and
+``teacher_logits`` (distillation); the step moves them to the model's
+device.
+
+Not ported yet: the metrics logger, checkpoints, step telemetry and
+profiler windows (ROADMAP Queue 1 items 5 and 6); passing any of them to
+:func:`train` raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .optim import OptState, RecipeOptimizer, global_norm
+
+Batch = Dict[str, Any]
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Model, optimizer and its state, the dropout seed and the step."""
+
+    model: nn.Module
+    tx: RecipeOptimizer
+    opt_state: OptState
+    seed: int
+    step: int = 0
+
+    @classmethod
+    def create(cls, *, model: nn.Module, tx: RecipeOptimizer,
+               seed: int) -> "TrainState":
+        return cls(model=model, tx=tx,
+                   opt_state=tx.init(dict(model.named_parameters())),
+                   seed=int(seed))
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The dropout generator of one step: seeded from ``(seed, step)``."""
+    state = np.random.SeedSequence([seed & 0xFFFFFFFF, step]).generate_state(2)
+    return torch.Generator().manual_seed(
+        int(state[0]) << 32 | int(state[1]))
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       label_smoothing: float = 0.0) -> torch.Tensor:
+    """Mean softmax cross-entropy in f32; label smoothing with optax's
+    ``smooth_labels`` (``(1 - a) * onehot + a / C``)."""
+    logits = logits.float()
+    if label_smoothing > 0.0:
+        c = logits.shape[-1]
+        target = (F.one_hot(labels, c).float() * (1.0 - label_smoothing)
+                  + label_smoothing / c)
+        losses = -(target * F.log_softmax(logits, -1)).sum(-1)
+    else:
+        losses = F.cross_entropy(logits, labels, reduction="none")
+    return losses.mean()
+
+
+def distill_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
+                 labels: torch.Tensor, *, t: float = 1.0, alpha: float = 0.5,
+                 label_smoothing: float = 0.0) -> torch.Tensor:
+    """Hinton distillation in f32: ``(1 - alpha) * CE + alpha * t^2 *
+    KL(softmax(teacher / t) || softmax(student / t))``; ``alpha = 0`` is
+    the plain CE, ``alpha = 1`` the soft term alone."""
+    t, alpha = float(t), float(alpha)
+    if alpha == 0.0:
+        return cross_entropy_loss(student_logits, labels, label_smoothing)
+    log_s = F.log_softmax(student_logits.float() / t, -1)
+    log_t = F.log_softmax(teacher_logits.float() / t, -1)
+    soft = (t * t) * (log_t.exp() * (log_t - log_s)).sum(-1).mean()
+    if alpha == 1.0:
+        return soft
+    hard = cross_entropy_loss(student_logits, labels, label_smoothing)
+    return (1.0 - alpha) * hard + alpha * soft
+
+
+def _device(model: nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def _to(batch: Batch, dev: torch.device) -> Dict[str, torch.Tensor]:
+    out = {k: torch.as_tensor(v) for k, v in batch.items()}
+    out["label"] = out["label"].long()
+    return {k: v.to(dev, non_blocking=True) for k, v in out.items()}
+
+
+def make_train_step(label_smoothing: float = 0.0, nan_guard: bool = False,
+                    distill_alpha: Optional[float] = None,
+                    distill_t: float = 1.0):
+    """Build the train step ``(state, batch) -> (state, metrics)``.
+
+    ``distill_alpha`` (not None) trains on :func:`distill_loss` against
+    ``batch["teacher_logits"]`` and adds ``teacher_agree`` to the metrics.
+    ``nan_guard``: a step whose loss or gradient norm is nonfinite applies
+    no update (params, optimizer state and schedule position stay), adds
+    zeros to the sums and reports ``skipped = 1``; ``state.step`` still
+    advances.
+    """
+
+    def train_step(state: TrainState, batch: Batch
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        model = state.model
+        model.train()
+        b = _to(batch, _device(model))
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        logits = model(b["image"], step_generator(state.seed, state.step))
+        if distill_alpha is not None:
+            loss = distill_loss(logits, b["teacher_logits"], b["label"],
+                                t=distill_t, alpha=distill_alpha,
+                                label_smoothing=label_smoothing)
+        else:
+            loss = cross_entropy_loss(logits, b["label"], label_smoothing)
+        loss.backward()
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in params.items()}
+        logits = logits.detach()
+        n = float(b["label"].shape[0])
+        metrics = {
+            "loss_sum": loss.detach() * n,
+            "correct": (logits.argmax(-1) == b["label"]).sum().float(),
+            "count": torch.tensor(n, device=logits.device),
+            "grad_norm": global_norm(grads.values()),
+        }
+        if distill_alpha is not None:
+            metrics["teacher_agree"] = (
+                logits.argmax(-1) == b["teacher_logits"].argmax(-1)
+            ).sum().float()
+        ok = True
+        if nan_guard:
+            # Host sync: whether to apply the update is decided on the
+            # host, so the step waits here for the loss and the norm.
+            ok = bool(torch.isfinite(loss) & torch.isfinite(
+                metrics["grad_norm"]))
+            metrics = {k: v if ok else torch.zeros_like(v)
+                       for k, v in metrics.items()}
+            metrics["skipped"] = torch.tensor(0.0 if ok else 1.0,
+                                              device=logits.device)
+        if ok:
+            state.tx.apply(params, grads, state.opt_state)
+        for p in params.values():
+            p.grad = None
+        state.step += 1
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_step():
+    """Build the eval step ``(state, batch) -> metrics``: plain CE (no
+    label smoothing), example-weighted over the ``mask = 1`` rows."""
+
+    def eval_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
+        model = state.model
+        model.eval()
+        b = _to(batch, _device(model))
+        with torch.inference_mode():
+            logits = model(b["image"]).float()
+            labels = b["label"]
+            losses = F.cross_entropy(logits, labels, reduction="none")
+            mask = b.get("mask")
+            mask = (torch.ones_like(losses) if mask is None
+                    else mask.float())
+            return {"loss_sum": (losses * mask).sum(),
+                    "correct": ((logits.argmax(-1) == labels) * mask).sum(),
+                    "count": mask.sum()}
+
+    return eval_step
+
+
+def _accumulate(total: Optional[Dict], m: Dict) -> Dict:
+    if total is None:
+        return dict(m)
+    return {k: total[k] + m[k] for k in total}
+
+
+def _finalize(total: Dict[str, torch.Tensor],
+              steps: int = 0) -> Dict[str, float]:
+    """One device fetch, then example-weighted means; a summed
+    ``grad_norm`` becomes a mean over applied (non-skipped) steps."""
+    keys = list(total)
+    vals = dict(zip(keys, torch.stack([total[k].float()
+                                       for k in keys]).tolist()))
+    n = max(vals["count"], 1.0)
+    out = {"loss": vals["loss_sum"] / n, "acc": vals["correct"] / n,
+           "count": n, "skipped": vals.get("skipped", 0.0)}
+    if steps and "grad_norm" in vals:
+        out["grad_norm"] = vals["grad_norm"] / max(steps - out["skipped"],
+                                                   1.0)
+    if "teacher_agree" in vals:
+        out["teacher_agree"] = vals["teacher_agree"] / n
+    return out
+
+
+_EMPTY = {"loss": 0.0, "acc": 0.0, "count": 0.0, "skipped": 0.0}
+
+
+def evaluate(state: TrainState, eval_batches: Callable[[], Iterable[Batch]],
+             *, eval_step: Optional[Callable] = None) -> Dict[str, float]:
+    """One pass over ``eval_batches``: example-weighted loss/accuracy."""
+    eval_step = eval_step or make_eval_step()
+    total = None
+    for batch in eval_batches():
+        total = _accumulate(total, eval_step(state, batch))
+    return _finalize(total) if total else dict(_EMPTY)
+
+
+def train(state: TrainState, train_batches: Callable[[], Iterable[Batch]],
+          eval_batches: Callable[[], Iterable[Batch]], *, epochs: int,
+          train_step: Optional[Callable] = None,
+          eval_step: Optional[Callable] = None, logger=None,
+          checkpointer=None, verbose: bool = True,
+          profile_dir: Optional[str] = None, start_epoch: int = 0,
+          telemetry=None,
+          stop_check: Optional[Callable[[int], bool]] = None
+          ) -> Tuple[TrainState, Dict[str, list]]:
+    """The epoch loop (reference ``engine.train``): per epoch the train
+    steps, then one eval pass; returns ``(state, {"train_loss", "train_acc",
+    "test_loss", "test_acc"})``. ``stop_check(global_step)`` is called
+    after every step; True stops at that step without the partial epoch's
+    eval. ``start_epoch`` continues the printed epoch numbers."""
+    for name, val, item in (("logger", logger, 6),
+                            ("checkpointer", checkpointer, 5),
+                            ("telemetry", telemetry, 6),
+                            ("profile_dir", profile_dir, 6)):
+        if val is not None:
+            raise NotImplementedError(
+                f"engine.train({name}=...) is not ported yet (ROADMAP "
+                f"Queue 1 item {item})")
+    train_step = train_step or make_train_step()
+    eval_step = eval_step or make_eval_step()
+    results = {"train_loss": [], "train_acc": [], "test_loss": [],
+               "test_acc": []}
+    global_step = state.step
+    for epoch in range(epochs):
+        t0 = time.perf_counter()
+        total, steps, stopped = None, 0, False
+        for batch in train_batches():
+            state, metrics = train_step(state, batch)
+            total = _accumulate(total, metrics)
+            steps += 1
+            global_step += 1
+            if stop_check is not None and stop_check(global_step):
+                stopped = True
+                break
+        if stopped:
+            break
+        train_m = _finalize(total, steps) if total else dict(_EMPTY)
+        train_time = time.perf_counter() - t0
+        if train_m["skipped"] and verbose:
+            print(f"[warn] nan-guard skipped {int(train_m['skipped'])} "
+                  f"nonfinite update(s) this epoch")
+        eval_m = evaluate(state, eval_batches, eval_step=eval_step)
+        results["train_loss"].append(train_m["loss"])
+        results["train_acc"].append(train_m["acc"])
+        results["test_loss"].append(eval_m["loss"])
+        results["test_acc"].append(eval_m["acc"])
+        if verbose:
+            print(f"Epoch: {start_epoch + epoch + 1} | "
+                  f"train_loss: {train_m['loss']:.4f} | "
+                  f"train_acc: {train_m['acc']:.4f} | "
+                  f"test_loss: {eval_m['loss']:.4f} | "
+                  f"test_acc: {eval_m['acc']:.4f} | "
+                  f"img/s: {train_m['count'] / max(train_time, 1e-9):.1f}")
+    return state, results

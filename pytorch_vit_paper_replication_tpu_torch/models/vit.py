@@ -17,14 +17,28 @@ same function on the same weights:
 
 ``mlp_impl="auto"`` picks the fused CUDA kernel on a CUDA tensor and the
 two-GEMM path on the CPU; ``attention_impl`` dispatches through
-:func:`..ops.attention.dot_product_attention`. Only the forward (serving)
-contract exists in this slice: training-mode dropout raises.
+:func:`..ops.attention.dot_product_attention`.
+
+Training (``model.train()``): the caller passes ``rng``, a
+``torch.Generator`` (the engine seeds one from ``(TrainConfig.seed,
+step)``, the counterpart of JAX's ``fold_in(state.rng, step)``). The
+backbone draws one int32 seed for the embedding dropout and two per
+encoder block (attention, MLP) from it *before* running the blocks, and
+passes each seed into its block: the fused MLP kernel and the flash kernel
+take it as their positional-hash seed; the plain-torch dropout sites seed a
+generator of their own with it. Remat (``config.remat``) checkpoints each
+block with ``torch.utils.checkpoint(use_reentrant=False)``; since the
+seeds are drawn outside the checkpointed call, the recomputation sees the
+same masks.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..configs import ViTConfig
@@ -37,6 +51,13 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 def _dtype(cfg: ViTConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
+
+
+def _generator(seed: Optional[int], device) -> Optional[torch.Generator]:
+    """A generator on ``device`` seeded with ``seed`` (None stays None)."""
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def _param(*shape, fill: float = 0.0) -> nn.Parameter:
@@ -121,7 +142,8 @@ class PatchEmbedding(nn.Module):
         self.pos_embedding = _param(1, cfg.seq_len, cfg.embedding_dim)
         self.dropout = Dropout(cfg.embedding_dropout)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor,
+                seed: Optional[int] = None) -> torch.Tensor:
         cfg = self.config
         b, h, w, _ = images.shape
         if h != cfg.image_size or w != cfg.image_size:
@@ -133,7 +155,7 @@ class PatchEmbedding(nn.Module):
             cls = self.cls_token.to(x.dtype).expand(b, 1, cfg.embedding_dim)
             x = torch.cat([cls, x], dim=1)
         x = x + self.pos_embedding.to(x.dtype)
-        return self.dropout(x)
+        return self.dropout(x, _generator(seed, x.device))
 
 
 class MultiHeadSelfAttentionBlock(nn.Module):
@@ -150,13 +172,14 @@ class MultiHeadSelfAttentionBlock(nn.Module):
         self.out = Dense((cfg.num_heads, cfg.head_dim),
                          (cfg.embedding_dim,), dt)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                seed: Optional[int] = None) -> torch.Tensor:
         cfg = self.config
         qkv = self.qkv(self.norm(x))              # [B, T, 3, H, Dh]
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         attn = dot_product_attention(
-            q, k, v, impl=cfg.attention_impl,
-            dropout_rate=cfg.attn_dropout, deterministic=not self.training,
+            q, k, v, impl=cfg.attention_impl, dropout_rate=cfg.attn_dropout,
+            seed=seed, deterministic=not self.training,
             softmax=cfg.attention_softmax,
             probs_dtype=cfg.attention_probs_dtype,
             residual_dtype=cfg.attention_probs_residual_dtype)
@@ -190,7 +213,8 @@ class MLPBlock(nn.Module):
         self.fc2 = Dense((cfg.mlp_size,), (cfg.embedding_dim,), dt)
         self.dropout = Dropout(cfg.mlp_dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                seed: Optional[int] = None) -> torch.Tensor:
         cfg = self.config
         if _mlp_fused(cfg, x):
             if not self.include_residual:
@@ -203,11 +227,12 @@ class MLPBlock(nn.Module):
                 x, self.norm.scale, self.norm.bias,
                 self.fc1.kernel.to(dt), self.fc1.bias.to(dt),
                 self.fc2.kernel.to(dt), self.fc2.bias.to(dt),
-                eps=cfg.ln_epsilon, dropout_rate=cfg.mlp_dropout,
+                eps=cfg.ln_epsilon, dropout_rate=cfg.mlp_dropout, seed=seed,
                 deterministic=not self.training)
+        gen = _generator(seed, x.device)
         y = self.fc1(self.norm(x))
-        y = self.dropout(F.gelu(y))
-        y = self.dropout(self.fc2(y))
+        y = self.dropout(F.gelu(y), gen)
+        y = self.dropout(self.fc2(y), gen)
         return y + x if self.include_residual else y
 
 
@@ -220,8 +245,12 @@ class TransformerEncoderBlock(nn.Module):
         self.msa = MultiHeadSelfAttentionBlock(cfg)
         self.mlp = MLPBlock(cfg, include_residual=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.mlp(self.msa(x) + x)
+    def forward(self, x: torch.Tensor,
+                seeds: Sequence[Optional[int]] = (None, None)
+                ) -> torch.Tensor:
+        """``seeds``: ``(attention seed, MLP seed)`` in training."""
+        attn_seed, mlp_seed = seeds
+        return self.mlp(self.msa(x, attn_seed) + x, mlp_seed)
 
 
 class ViTFeatureExtractor(nn.Module):
@@ -236,14 +265,29 @@ class ViTFeatureExtractor(nn.Module):
         self.encoder_norm = LayerNorm(cfg.embedding_dim, cfg.ln_epsilon,
                                       _dtype(cfg))
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        if self.config.remat and self.training:
-            raise NotImplementedError(
-                "remat is training-only and not ported yet (ROADMAP Queue 1, "
-                "slice 2: training)")
-        x = self.patch_embedding(images)
-        for i in range(self.config.num_layers):
-            x = getattr(self, f"encoder_block_{i}")(x)
+    def forward(self, images: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``rng`` (training only): the generator the per-step dropout
+        seeds are drawn from; required when a dropout rate is active."""
+        cfg = self.config
+        seeds = [None] * (1 + 2 * cfg.num_layers)
+        if self.training and rng is not None:
+            seeds = torch.randint(-2**31, 2**31, (len(seeds),),
+                                  generator=rng).tolist()
+        elif self.training and max(cfg.embedding_dropout, cfg.mlp_dropout,
+                                   cfg.attn_dropout) > 0.0:
+            raise ValueError("training with dropout needs an rng "
+                             "(torch.Generator)")
+        x = self.patch_embedding(images, seeds[0])
+        remat = cfg.remat and self.training and torch.is_grad_enabled()
+        for i in range(cfg.num_layers):
+            block = getattr(self, f"encoder_block_{i}")
+            block_seeds = seeds[1 + 2 * i:3 + 2 * i]
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    block, x, block_seeds, use_reentrant=False)
+            else:
+                x = block(x, block_seeds)
         return self.encoder_norm(x)
 
 
@@ -263,8 +307,9 @@ class ViT(nn.Module):
         self.head = Dense((cfg.embedding_dim,), (cfg.num_classes,),
                           torch.float32)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        tokens = self.backbone(images)
+    def forward(self, images: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        tokens = self.backbone(images, rng)
         return self.head(pool_tokens(self.config, tokens).float())
 
 

@@ -29,7 +29,9 @@ BUILD_DIR = _PKG / "_build"
 # shared header.
 SOURCES: Dict[str, str] = {
     "fused_mlp": "fused_mlp.cu",
+    "fused_mlp_bwd": "fused_mlp_bwd.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
 }
 _HEADERS = ("vit_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

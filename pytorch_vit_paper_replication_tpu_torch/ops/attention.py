@@ -8,7 +8,10 @@ Operands are ``[batch, seq, heads, head_dim]`` (the JAX layout):
                 stored in the compute dtype and scaled in that dtype, an f32
                 softmax (saturating or exact), weights cast to the compute
                 dtype before the ``P @ V`` product (left to ``torch.matmul``
-                as the JAX package leaves it to XLA).
+                as the JAX package leaves it to XLA). Training-mode dropout
+                applies to the f32 weights before the cast, with uint8 bits
+                from a generator seeded by ``seed``; autograd runs through
+                plain torch, as JAX leaves it to XLA.
 * ``"flash"`` — the hand-written CUDA flash kernel
                 (:mod:`.flash_attention`); its plain version on CPU tensors.
 * ``"auto"``  — xla unless the materialized logits would not fit
@@ -18,7 +21,7 @@ Operands are ``[batch, seq, heads, head_dim]`` (the JAX layout):
 
 Not ported yet (raise ``NotImplementedError`` naming the ROADMAP item):
 sequence parallelism, 8-bit softmax storage (``probs_dtype`` other than
-``"bf16"``), attention dropout on the xla path (training), flash masks.
+``"bf16"``), flash masks.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Optional
 import torch
 
 from ..configs import PROBS_DTYPES
+from .dropout import dropout
 
 _FLASH_MEMORY_BYTES = 4 * 1024**3
 _FLASH_MIN_SEQ = 512
@@ -57,6 +61,7 @@ def _softmax32(logits32: torch.Tensor, softmax: str) -> torch.Tensor:
 
 
 def _xla_attention(q, k, v, *, dropout_rate: float = 0.0,
+                   seed: Optional[int] = None,
                    deterministic: bool = True, mask=None,
                    softmax: str = "saturating", probs_dtype: str = "bf16",
                    residual_dtype: Optional[str] = None) -> torch.Tensor:
@@ -65,17 +70,19 @@ def _xla_attention(q, k, v, *, dropout_rate: float = 0.0,
         raise NotImplementedError(
             "8-bit attention-probs storage is not ported yet (ROADMAP "
             "Queue 1, model slice: _quantized_softmax_pv)")
-    if not deterministic and dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout on the xla path is training-only and not "
-            "ported yet (ROADMAP Queue 1, slice 2: training)")
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
     logits = logits * torch.tensor(scale, dtype=logits.dtype)
     if mask is not None:
         logits = torch.where(mask, logits,
                              torch.finfo(logits.dtype).min)
-    weights = _softmax32(logits.float(), softmax).to(q.dtype)
+    weights = _softmax32(logits.float(), softmax)
+    if not deterministic and dropout_rate > 0.0:
+        if seed is None:
+            raise ValueError("attention dropout needs a seed")
+        gen = torch.Generator(device=q.device).manual_seed(seed)
+        weights = dropout(weights, dropout_rate, gen)
+    weights = weights.to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
 
@@ -103,7 +110,8 @@ def dot_product_attention(q, k, v, *, impl: str = "auto",
     """Multi-head scaled dot-product attention over ``[B, T, H, Dh]``.
 
     Same contract as the JAX function; ``seed`` replaces the JAX
-    ``dropout_rng`` (the int32 positional-hash seed of the flash path).
+    ``dropout_rng``: the int32 positional-hash seed of the flash path, the
+    seed of the dropout generator on the xla path.
     ``heads_already_local`` only matters under sequence parallelism and is
     accepted for signature parity.
     """
@@ -121,7 +129,7 @@ def dot_product_attention(q, k, v, *, impl: str = "auto",
         return flash_attention(q, k, v, mask=mask,
                                dropout_rate=dropout_rate, seed=seed,
                                deterministic=deterministic)
-    return _xla_attention(q, k, v, dropout_rate=dropout_rate,
+    return _xla_attention(q, k, v, dropout_rate=dropout_rate, seed=seed,
                           deterministic=deterministic, mask=mask,
                           softmax=softmax, probs_dtype=probs_dtype,
                           residual_dtype=residual_dtype)

@@ -12,14 +12,18 @@ full ``uint32`` arithmetic on the CPU, so the hash is emulated in ``int64``
 with every product reduced ``& 0xFFFFFFFF`` (a 32x32-bit product is split
 into 16-bit halves so it never leaves the int64 range).
 
-Only the eval path exists in this slice: :class:`Dropout` is the identity
-outside training and raises in training mode (training comes with the
-backward kernels).
+Randomness comes from explicit ``torch.Generator``s. :func:`dropout` draws
+uint8 bits from one and keeps JAX's threshold compare; the bits differ from
+JAX's threefry stream (same statistics, different numbers), so the tests
+compare it by statistics. :func:`derive_positional_seed` draws the int32
+seed of the positional hash, the counterpart of the JAX function of that
+name.
 """
 
 from __future__ import annotations
 
 import warnings
+from typing import Optional
 
 import torch
 from torch import nn
@@ -88,18 +92,48 @@ def positional_keep_u8(seed, bh, row, col, threshold: int) -> torch.Tensor:
     return (avalanche_u32(x) & 0xFF) >= threshold
 
 
+def derive_positional_seed(generator: torch.Generator) -> int:
+    """An int32 seed for :func:`positional_keep_u8`, drawn from
+    ``generator``."""
+    return int(torch.randint(-2**31, 2**31, (1,), generator=generator,
+                             device=generator.device))
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """Functional dropout with a uint8-threshold mask.
+
+    Drops with probability ``quantized_rate(rate)`` (``bits <
+    round(rate * 256)`` on uint8 bits drawn from ``generator``, which must
+    live on ``x``'s device) and rescales survivors by ``1 / (1 - t/256)``
+    cast to ``x.dtype``, so the expectation is preserved. ``rate = 1``
+    drops everything.
+    """
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    threshold = _threshold(rate)
+    if threshold <= 0:
+        return x
+    bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
+                         generator=generator, device=x.device)
+    scale = torch.tensor(1.0 / (1.0 - threshold / 256.0), dtype=x.dtype,
+                         device=x.device)
+    return torch.where(bits >= threshold, x * scale, x.new_zeros(()))
+
+
 class Dropout(nn.Module):
-    """The uint8-threshold dropout at its evaluation contract: the
-    identity when the module is not training or the rate quantizes to 0.
-    Training-mode dropout comes with the training slice."""
+    """The uint8-threshold dropout as a module: the identity when the
+    module is not training or the rate quantizes to 0, else
+    :func:`dropout` with the ``generator`` the caller passes."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = float(rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if quantized_rate(self.rate) == 0.0 or not self.training:
             return x
-        raise NotImplementedError(
-            "training-mode dropout is not ported yet (ROADMAP Queue 1, "
-            "slice 2: training)")
+        if generator is None:
+            raise ValueError("training-mode Dropout needs a generator")
+        return dropout(x, self.rate, generator)

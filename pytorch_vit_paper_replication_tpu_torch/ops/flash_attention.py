@@ -1,4 +1,4 @@
-"""Flash attention forward as a hand-written CUDA kernel.
+"""Flash attention as hand-written CUDA kernels (forward, dq, dk/dv).
 
 Port of the JAX package's ``ops/flash_attention.py::flash_attention`` in
 its ``mask=None`` form. Inputs are ``[B, T, H, Dh]`` (the JAX layout);
@@ -15,9 +15,15 @@ semantics:
   ``(seed, b*h, row, col)`` zeroes dropped ones, and the output is
   divided by ``l * keep`` with ``keep = 1 - t/256``;
 * the row logsumexp ``m + log(l)`` is returned beside the output for the
-  training slice's backward.
+  backward.
 
-Forward only: a CUDA input that requires grad raises.
+Training: when an input requires grad the wrapper goes through
+:class:`_FlashFunction` (the JAX ``custom_vjp``), which saves ``(q, k, v,
+out, lse)`` and the seed; its backward computes ``delta = rowsum(dO * O)``
+in f32 and launches ``csrc/flash_attention_bwd.cu`` (the ports of
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) on CUDA tensors, or runs
+:func:`flash_attention_bwd_plain` on CPU tensors. All math is f32; the
+dropout mask enters through dP (and P for dV) with the forward's hash.
 """
 
 from __future__ import annotations
@@ -31,10 +37,16 @@ from . import _build
 from .dropout import _threshold, positional_keep_u8
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
-# Launches of the CUDA kernel (one per call on a CUDA tensor).
+# Head dims the backward kernels are instantiated for (shared memory holds
+# six [64, Dh] f32 tiles per CTA).
+BWD_HEAD_DIMS = (32, 64, 128)
+# Launches of the CUDA kernels (one per call on a CUDA tensor).
 launches = 0
+dq_launches = 0
+dkv_launches = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
+_BWD_FNS = {}
 
 
 def _fold_heads(x: torch.Tensor) -> torch.Tensor:
@@ -60,15 +72,42 @@ def flash_attention_plain(q, k, v, *, seed: int, threshold: int
     l = p.sum(-1, keepdim=True)
     l_safe = torch.where(l == 0.0, 1.0, l)
     if threshold:
-        dev = q.device
-        keep = positional_keep_u8(
-            seed, torch.arange(bh, device=dev)[:, None, None],
-            torch.arange(t, device=dev)[None, :, None],
-            torch.arange(k.shape[1], device=dev)[None, None, :], threshold)
-        p = torch.where(keep, p, 0.0)
+        p = torch.where(_keep_mask(seed, bh, t, k.shape[1], threshold,
+                                   q.device), p, 0.0)
     out = (p @ v.float()) / (l_safe * (1.0 - threshold / 256.0))
     lse = (m + torch.log(l_safe))[..., 0]
     return out.to(q.dtype), lse
+
+
+def _keep_mask(seed, bh, t, tk, threshold, device):
+    """The forward's positional keep mask over ``[BH, T, Tk]``."""
+    return positional_keep_u8(
+        seed, torch.arange(bh, device=device)[:, None, None],
+        torch.arange(t, device=device)[None, :, None],
+        torch.arange(tk, device=device)[None, None, :], threshold)
+
+
+def flash_attention_bwd_plain(q, k, v, dout, lse, delta, *, seed: int,
+                              threshold: int):
+    """The backward kernels' arithmetic in f32 on folded operands:
+    ``P = exp(s - lse)``, ``dS = P * (M/keep * dP - delta) * scale``;
+    returns ``(dq, dk, dv)`` in the operands' dtypes."""
+    bh, t, dh = q.shape
+    scale = dh ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    p = torch.exp((qf @ kf.transpose(1, 2)) * scale - lse[..., None])
+    dp = dof @ vf.transpose(1, 2)
+    p_drop = p
+    if threshold:
+        keep = _keep_mask(seed, bh, t, k.shape[1], threshold, q.device)
+        inv_keep = 256.0 / (256.0 - threshold)
+        dp = torch.where(keep, dp * inv_keep, 0.0)
+        p_drop = torch.where(keep, p * inv_keep, 0.0)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = ds @ kf
+    dk = ds.transpose(1, 2) @ qf
+    dv = p_drop.transpose(1, 2) @ dof
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _kernel():
@@ -84,23 +123,43 @@ def _kernel():
     return _FN
 
 
-def _launch(q, k, v, *, seed: int, threshold: int):
-    """Validate and launch the CUDA kernel on folded operands."""
-    global launches
-    bh, t, dh = q.shape
+def _bwd_kernel(name: str):
+    fn = _BWD_FNS.get(name)
+    if fn is None:
+        fn = getattr(_build.load("flash_attention_bwd"), name)
+        p = ctypes.c_void_p
+        n_ptr = 7 if name == "vit_flash_bwd_dq" else 8
+        fn.argtypes = [ctypes.c_int] + [p] * n_ptr + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_uint32, ctypes.c_int, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+        _BWD_FNS[name] = fn
+    return fn
+
+
+def _check(q, head_dims, **others):
+    """Raise unless q and ``others`` (same shape, dtype, device) are what
+    the kernels take."""
+    dh = q.shape[-1]
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
-    if dh not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash kernel takes Dh in {SUPPORTED_HEAD_DIMS}, "
-                         f"got {dh}")
-    for name, a in (("k", k), ("v", v)):
+    if dh not in head_dims:
+        raise ValueError(f"flash kernel takes Dh in {head_dims}, got {dh}")
+    for name, a in others.items():
         if a.shape != q.shape or a.dtype != q.dtype or a.device != q.device:
             raise ValueError(f"{name} must match q ({q.dtype} "
                              f"{tuple(q.shape)} on {q.device}), got "
                              f"{a.dtype} {tuple(a.shape)} on {a.device}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+    if not all(a.is_contiguous() for a in (q, *others.values())):
         raise ValueError("flash kernel operands must be contiguous")
+
+
+def _launch(q, k, v, *, seed: int, threshold: int):
+    """Validate and launch the forward kernel on folded operands."""
+    global launches
+    bh, t, dh = q.shape
+    _check(q, SUPPORTED_HEAD_DIMS, k=k, v=v)
     out = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -114,6 +173,80 @@ def _launch(q, k, v, *, seed: int, threshold: int):
     return out, lse
 
 
+def _bwd_args(q, lse, delta, seed, threshold):
+    bh, t, dh = q.shape
+    for name, a in (("lse", lse), ("delta", delta)):
+        if (a.shape != (bh, t) or a.dtype != torch.float32
+                or a.device != q.device or not a.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 "
+                             f"{(bh, t)} on {q.device}")
+    return (bh, t, dh, dh ** -0.5, seed & 0xFFFFFFFF, threshold,
+            256.0 / (256.0 - threshold),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _launch_bwd_dq(q, k, v, dout, lse, delta, *, seed: int, threshold: int):
+    """Validate and launch the dq kernel on folded operands."""
+    global dq_launches
+    _check(q, BWD_HEAD_DIMS, k=k, v=v, dout=dout)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _bwd_kernel("vit_flash_bwd_dq")(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_bwd_args(q, lse, delta, seed, threshold))
+    _build.check(err, "vit_flash_bwd_dq")
+    dq_launches += 1
+    return dq
+
+
+def _launch_bwd_dkv(q, k, v, dout, lse, delta, *, seed: int,
+                    threshold: int):
+    """Validate and launch the dk/dv kernel on folded operands."""
+    global dkv_launches
+    _check(q, BWD_HEAD_DIMS, k=k, v=v, dout=dout)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = _bwd_kernel("vit_flash_bwd_dkv")(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *_bwd_args(q, lse, delta, seed, threshold))
+    _build.check(err, "vit_flash_bwd_dkv")
+    dkv_launches += 1
+    return dk, dv
+
+
+class _FlashFunction(torch.autograd.Function):
+    """The JAX ``custom_vjp`` of ``_flash`` on folded operands: saves
+    ``(q, k, v, out, lse)``; the seed and threshold ride on ``ctx``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seed: int, threshold: int):
+        if q.is_cuda:
+            out, lse = _launch(q, k, v, seed=seed, threshold=threshold)
+        else:
+            out, lse = flash_attention_plain(q, k, v, seed=seed,
+                                             threshold=threshold)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.seed, ctx.threshold = seed, threshold
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        # delta = rowsum(dO * O) in f32 outside the kernels, as in JAX.
+        delta = (dout.float() * out.float()).sum(-1)
+        kw = dict(seed=ctx.seed, threshold=ctx.threshold)
+        if q.is_cuda:
+            dq = _launch_bwd_dq(q, k, v, dout, lse, delta, **kw)
+            dk, dv = _launch_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+        else:
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, dout, lse, delta,
+                                                   **kw)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, mask=None, dropout_rate: float = 0.0,
                     seed: Optional[int] = None,
                     deterministic: bool = True) -> torch.Tensor:
@@ -121,6 +254,7 @@ def flash_attention(q, k, v, *, mask=None, dropout_rate: float = 0.0,
 
     ``seed`` is the int32 positional-hash seed (required with dropout).
     ``mask`` is not ported yet and raises (no model path passes one).
+    Inputs that require grad go through :class:`_FlashFunction`.
     """
     if mask is not None:
         raise NotImplementedError(
@@ -137,13 +271,9 @@ def flash_attention(q, k, v, *, mask=None, dropout_rate: float = 0.0,
         raise ValueError("flash_attention dropout needs a seed")
     qf, kf, vf = _fold_heads(q), _fold_heads(k), _fold_heads(v)
     kw = dict(seed=int(seed or 0), threshold=threshold)
-    if q.is_cuda:
-        if torch.is_grad_enabled() and any(
-                a.requires_grad for a in (q, k, v)):
-            raise NotImplementedError(
-                "flash_attention on CUDA is forward-only: the backward "
-                "kernels come with the training slice (ROADMAP Queue 2 "
-                "rows 4-5); run under torch.inference_mode()")
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (q, k, v)):
+        out = _FlashFunction.apply(qf, kf, vf, kw["seed"], threshold)
+    elif q.is_cuda:
         out, _ = _launch(qf, kf, vf, **kw)
     else:
         out, _ = flash_attention_plain(qf, kf, vf, **kw)

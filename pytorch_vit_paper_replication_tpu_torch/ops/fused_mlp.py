@@ -1,4 +1,4 @@
-"""The encoder block's MLP half as one CUDA kernel (forward).
+"""The encoder block's MLP half as hand-written CUDA kernels, with autograd.
 
 ``x + drop1(fc2(drop0(gelu(fc1(LN(x))))))`` — the port of the JAX
 package's ``ops/fused_mlp.py::fused_ln_mlp_residual``. On a CUDA tensor the
@@ -15,8 +15,16 @@ arithmetic in PyTorch with the same rounding points:
   ``256 / (256 - t)``; ``g`` cast to the compute dtype before fc2;
 * ``+ b2`` in f32, output dropout (tag 1), residual added in f32, cast.
 
-Forward only: a CUDA input that requires grad raises (the backward
-kernel comes with the training slice).
+Training: when an input requires grad the wrapper goes through
+:class:`_LnMlpFunction` (the JAX ``custom_vjp``): its forward also saves
+``h = y @ W1 + b1`` rounded to the compute dtype, its backward launches
+``csrc/fused_mlp_bwd.cu`` (the port of ``_lnmlp_bwd``) on CUDA tensors and
+:func:`ln_mlp_residual_bwd_plain` on CPU tensors. The backward keeps the
+Pallas kernel's rounding points: LN statistics recomputed from x, ``df``
+and ``dh`` cast to the compute dtype before their products, ``db1``/
+``db2``/``dgamma``/``dbeta`` summed in f32, ``dx = dO + dx_ln`` in f32,
+GELU' = ``Phi(h) + h phi(h)`` with the A&S erf, and every gradient
+returned in the dtype of the parameter passed.
 """
 
 from __future__ import annotations
@@ -31,12 +39,16 @@ from . import _build
 from .dropout import _threshold, positional_keep_u8
 
 _SQRT_HALF = math.sqrt(0.5)
-# Launches of the CUDA kernel (one per call on a CUDA tensor).
+_INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
+# Launches of the CUDA kernels (one per wrapper call on a CUDA tensor):
+# the forward, and the backward (its four CUDA kernels count as one).
 launches = 0
+bwd_launches = 0
 # Embedding widths D the kernel is instantiated for (S/16, B/16).
 SUPPORTED_DIMS = (384, 768)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
+_BWD_FN = None
 
 
 def _erf(x: torch.Tensor) -> torch.Tensor:
@@ -53,6 +65,13 @@ def _gelu_exact(h: torch.Tensor) -> torch.Tensor:
     return h * 0.5 * (1.0 + _erf(h * _SQRT_HALF))
 
 
+def _gelu_grad(h: torch.Tensor) -> torch.Tensor:
+    """d/dh of the exact GELU: ``Phi(h) + h * phi(h)``."""
+    phi = torch.exp(-0.5 * h * h) * _INV_SQRT_2PI
+    cdf = 0.5 * (1.0 + _erf(h * _SQRT_HALF))
+    return cdf + h * phi
+
+
 def _keep(seed: int, tag: int, n: int, width: int, threshold: int,
           device) -> torch.Tensor:
     row = torch.arange(n, device=device, dtype=torch.int64)[:, None]
@@ -60,18 +79,28 @@ def _keep(seed: int, tag: int, n: int, width: int, threshold: int,
     return positional_keep_u8(seed, tag, row, col, threshold)
 
 
-def ln_mlp_residual_plain(x2, gamma, beta, w1, b1, w2, b2, *, eps: float,
-                          seed: int, threshold: int) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch on ``[N, D]`` rows (see the
-    module docstring). ``w1``/``b1``/``w2``/``b2`` in the compute dtype
-    (``x2.dtype``), ``gamma``/``beta`` in f32."""
-    dt = x2.dtype
-    x32 = x2.float()
+def _ln(x32, gamma, beta, eps):
+    """LayerNorm in f32 (two-pass mean / centred variance, as the kernels):
+    returns ``(xhat, rstd, y)``."""
     mu = x32.mean(-1, keepdim=True)
     c = x32 - mu
     var = (c * c).mean(-1, keepdim=True)
-    y = c * torch.rsqrt(var + eps) * gamma.float() + beta.float()
+    rstd = torch.rsqrt(var + eps)
+    xhat = c * rstd
+    return xhat, rstd, xhat * gamma.float() + beta.float()
+
+
+def ln_mlp_residual_plain(x2, gamma, beta, w1, b1, w2, b2, *, eps: float,
+                          seed: int, threshold: int, save_h: bool = False):
+    """The kernel's arithmetic in PyTorch on ``[N, D]`` rows (see the
+    module docstring). ``w1``/``b1``/``w2``/``b2`` in the compute dtype
+    (``x2.dtype``), ``gamma``/``beta`` in f32. With ``save_h`` returns
+    ``(out, h)``, ``h`` rounded to the compute dtype."""
+    dt = x2.dtype
+    x32 = x2.float()
+    _, _, y = _ln(x32, gamma, beta, eps)
     h = y.to(dt).float() @ w1.float() + b1.float()
+    h_saved = h.to(dt) if save_h else None
     g = _gelu_exact(h)
     inv_keep = 256.0 / (256.0 - threshold)
     if threshold:
@@ -81,7 +110,52 @@ def ln_mlp_residual_plain(x2, gamma, beta, w1, b1, w2, b2, *, eps: float,
     if threshold:
         keep2 = _keep(seed, 1, f.shape[0], f.shape[1], threshold, f.device)
         f = torch.where(keep2, f * inv_keep, 0.0)
-    return (x32 + f).to(dt)
+    out = (x32 + f).to(dt)
+    return (out, h_saved) if save_h else out
+
+
+def ln_mlp_residual_bwd_plain(x2, h, gamma, beta, w1, w2, dout, *,
+                              eps: float, seed: int, threshold: int):
+    """The backward kernel's arithmetic in PyTorch (the Pallas
+    ``_lnmlp_bwd_kernel`` step by step) from the saved ``h``; returns
+    ``(dx, dgamma, dbeta, dw1, db1, dw2, db2)`` in the dtypes of ``x2``,
+    ``gamma``, ``beta``, ``w1``, ``w1``, ``w2``, ``w2``."""
+    dt = x2.dtype
+    n, d = x2.shape
+    f = w1.shape[1]
+    x32 = x2.float()
+    xhat, rstd, y = _ln(x32, gamma, beta, eps)
+    do32 = dout.float()
+    inv_keep = 256.0 / (256.0 - threshold)
+    df = do32
+    if threshold:
+        keep2 = _keep(seed, 1, n, d, threshold, x2.device)
+        df = torch.where(keep2, do32 * inv_keep, 0.0)
+    df_c = df.to(dt).float()
+    h32 = h.float()
+    g_drop = _gelu_exact(h32)
+    if threshold:
+        keep = _keep(seed, 0, n, f, threshold, x2.device)
+        g_drop = torch.where(keep, g_drop * inv_keep, 0.0)
+    dw2 = g_drop.to(dt).float().t() @ df_c
+    db2 = df.sum(0)
+    dg = df_c @ w2.float().t()
+    if threshold:
+        dg = torch.where(keep, dg * inv_keep, 0.0)
+    dh = dg * _gelu_grad(h32)
+    dh_c = dh.to(dt).float()
+    dw1 = y.to(dt).float().t() @ dh_c
+    db1 = dh.sum(0)
+    dy = dh_c @ w1.float().t()
+    dgamma = (dy * xhat).sum(0)
+    dbeta = dy.sum(0)
+    dxhat = dy * gamma.float()
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = (do32 + rstd * (dxhat - m1 - xhat * m2)).to(dt)
+    return (dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
+            dw1.to(w1.dtype), db1.to(w1.dtype), dw2.to(w2.dtype),
+            db2.to(w2.dtype))
 
 
 def _kernel():
@@ -89,7 +163,7 @@ def _kernel():
     if _FN is None:
         fn = _build.load("fused_mlp").vit_lnmlp_fwd
         p = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int, p, p, p, p, p, p, p, p, ctypes.c_int,
+        fn.argtypes = [ctypes.c_int, p, p, p, p, p, p, p, p, p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_float,
                        ctypes.c_uint32, ctypes.c_int, ctypes.c_float, p]
         fn.restype = ctypes.c_int
@@ -97,9 +171,22 @@ def _kernel():
     return _FN
 
 
-def _launch(x2, gamma, beta, w1, b1, w2, b2, *, eps, seed, threshold):
-    """Validate and launch the CUDA kernel on ``[N, D]`` rows."""
-    global launches
+def _bwd_kernel():
+    global _BWD_FN
+    if _BWD_FN is None:
+        fn = _build.load("fused_mlp_bwd").vit_lnmlp_bwd
+        p = ctypes.c_void_p
+        fn.argtypes = [ctypes.c_int] + [p] * 16 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_uint32, ctypes.c_int, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+        _BWD_FN = fn
+    return _BWD_FN
+
+
+def _check_operands(x2, gamma, beta, w1, w2, **rest):
+    """Raise unless the operands are what the CUDA kernels take; ``rest``
+    holds any of ``b1``, ``b2``, ``h``, ``dout``."""
     n, d = x2.shape
     f = w1.shape[1]
     dt = x2.dtype
@@ -112,11 +199,13 @@ def _launch(x2, gamma, beta, w1, b1, w2, b2, *, eps, seed, threshold):
     if f % 64:
         raise ValueError(f"fused_ln_mlp_residual kernel needs mlp_size % 64 "
                          f"== 0, got {f}")
-    expect = {"gamma": (gamma, (d,), torch.float32),
-              "beta": (beta, (d,), torch.float32),
-              "w1": (w1, (d, f), dt), "b1": (b1, (f,), dt),
-              "w2": (w2, (f, d), dt), "b2": (b2, (d,), dt)}
-    for name, (t, shape, want) in expect.items():
+    shapes = {"gamma": (d,), "beta": (d,), "w1": (d, f), "w2": (f, d),
+              "b1": (f,), "b2": (d,), "h": (x2.shape[0], f),
+              "dout": tuple(x2.shape)}
+    for name, t in dict(gamma=gamma, beta=beta, w1=w1, w2=w2,
+                        **rest).items():
+        shape = shapes[name]
+        want = torch.float32 if name in ("gamma", "beta") else dt
         if t.device != x2.device:
             raise ValueError(f"{name} is on {t.device}, x on {x2.device}")
         if tuple(t.shape) != shape or t.dtype != want:
@@ -124,17 +213,94 @@ def _launch(x2, gamma, beta, w1, b1, w2, b2, *, eps, seed, threshold):
                              f"{t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(x2, gamma, beta, w1, b1, w2, b2, *, eps, seed, threshold,
+            save_h: bool = False):
+    """Validate and launch the forward kernel on ``[N, D]`` rows; with
+    ``save_h`` returns ``(out, h)``."""
+    global launches
+    _check_operands(x2, gamma, beta, w1, w2, b1=b1, b2=b2)
+    n, d = x2.shape
+    f = w1.shape[1]
     out = torch.empty_like(x2)
+    h = x2.new_empty((n, f)) if save_h else None
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     with torch.cuda.device(x2.device):
-        err = _kernel()(_DTYPE_CODE[dt], x2.data_ptr(), gamma.data_ptr(),
-                        beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, d,
-                        f, eps, seed & 0xFFFFFFFF, threshold,
+        err = _kernel()(_DTYPE_CODE[x2.dtype], x2.data_ptr(),
+                        gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
+                        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                        out.data_ptr(), h.data_ptr() if save_h else None, n,
+                        d, f, eps, seed & 0xFFFFFFFF, threshold,
                         256.0 / (256.0 - threshold), stream)
     _build.check(err, "vit_lnmlp_fwd")
     launches += 1
-    return out
+    return (out, h) if save_h else out
+
+
+def _launch_bwd(x2, h, gamma, beta, w1, w2, dout, *, eps, seed, threshold):
+    """Validate and launch the backward kernels; returns the seven
+    gradients as :func:`ln_mlp_residual_bwd_plain` does."""
+    global bwd_launches
+    n, d = x2.shape
+    f = w1.shape[1]
+    dt = x2.dtype
+    _check_operands(x2, gamma, beta, w1, w2, h=h, dout=dout)
+    tiles = -(-n // 32)
+    f32 = dict(dtype=torch.float32, device=x2.device)
+    dx = torch.empty_like(x2)
+    dgamma, dbeta, db2 = (torch.empty(d, **f32) for _ in range(3))
+    db1 = torch.empty(f, **f32)
+    dw1 = torch.empty((d, f), **f32)
+    dw2 = torch.empty((f, d), **f32)
+    work = x2.new_empty(2 * n * d + 2 * n * f)
+    partials = torch.empty(tiles * (3 * d + f), **f32)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    with torch.cuda.device(x2.device):
+        err = _bwd_kernel()(
+            _DTYPE_CODE[dt], x2.data_ptr(), h.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), w1.data_ptr(), w2.data_ptr(), dout.data_ptr(),
+            dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+            dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
+            work.data_ptr(), partials.data_ptr(), n, d, f, eps,
+            seed & 0xFFFFFFFF, threshold, 256.0 / (256.0 - threshold),
+            stream)
+    _build.check(err, "vit_lnmlp_bwd")
+    bwd_launches += 1
+    return (dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
+            dw1.to(w1.dtype), db1.to(w1.dtype), dw2.to(w2.dtype),
+            db2.to(w2.dtype))
+
+
+class _LnMlpFunction(torch.autograd.Function):
+    """The JAX ``custom_vjp`` of ``_lnmlp``: saves ``(x, h, gamma, beta,
+    W1, W2)`` and the seed; the backward is one kernel call on CUDA, the
+    plain version on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x2, gamma, beta, w1, b1, w2, b2, seed: int,
+                threshold: int, eps: float):
+        kw = dict(eps=eps, seed=seed, threshold=threshold, save_h=True)
+        if x2.is_cuda:
+            out, h = _launch(x2, gamma, beta, w1, b1, w2, b2, **kw)
+        else:
+            out, h = ln_mlp_residual_plain(x2, gamma, beta, w1, b1, w2, b2,
+                                           **kw)
+        ctx.save_for_backward(x2, h, gamma, beta, w1, w2)
+        ctx.seed, ctx.threshold, ctx.eps = seed, threshold, eps
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x2, h, gamma, beta, w1, w2 = ctx.saved_tensors
+        kw = dict(eps=ctx.eps, seed=ctx.seed, threshold=ctx.threshold)
+        if x2.is_cuda:
+            grads = _launch_bwd(x2, h, gamma, beta, w1, w2,
+                                dout.contiguous(), **kw)
+        else:
+            grads = ln_mlp_residual_bwd_plain(x2, h, gamma, beta, w1, w2,
+                                              dout, **kw)
+        return (*grads, None, None, None)
 
 
 def fused_ln_mlp_residual(x: torch.Tensor, gamma: torch.Tensor,
@@ -153,7 +319,8 @@ def fused_ln_mlp_residual(x: torch.Tensor, gamma: torch.Tensor,
     ``deterministic``; ``seed`` is the int32 positional-hash seed (the
     JAX package derives it from a PRNG key with
     ``derive_positional_seed``). CPU tensors run the plain PyTorch
-    version; CUDA tensors launch the kernel or raise.
+    version; CUDA tensors launch the kernel or raise. Inputs that require
+    grad go through :class:`_LnMlpFunction`.
     """
     *_, d = x.shape
     if w2.shape[1] != d:
@@ -167,15 +334,13 @@ def fused_ln_mlp_residual(x: torch.Tensor, gamma: torch.Tensor,
         raise ValueError("fused_ln_mlp_residual dropout needs a seed")
     seed = int(seed or 0)
     x2 = x.reshape(-1, d)
-    args = (x2, gamma, beta, w1, b1, w2, b2)
     if x.is_cuda:
-        if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-            raise NotImplementedError(
-                "fused_ln_mlp_residual on CUDA is forward-only: the "
-                "backward kernel comes with the training slice (ROADMAP "
-                "Queue 2 row 2); run under torch.inference_mode()")
-        out = _launch(x2.contiguous(), *args[1:], eps=eps, seed=seed,
-                      threshold=threshold)
+        x2 = x2.contiguous()
+    args = (x2, gamma, beta, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        out = _LnMlpFunction.apply(*args, seed, threshold, eps)
+    elif x.is_cuda:
+        out = _launch(*args, eps=eps, seed=seed, threshold=threshold)
     else:
         out = ln_mlp_residual_plain(*args, eps=eps, seed=seed,
                                     threshold=threshold)

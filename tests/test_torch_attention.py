@@ -89,9 +89,13 @@ def test_unported_forms_raise():
     q, k, v = (torch.from_numpy(a) for a in _qkv(5))
     with pytest.raises(NotImplementedError):
         tatt.dot_product_attention(q, k, v, impl="xla", probs_dtype="u8")
-    with pytest.raises(NotImplementedError):
+    # Training-mode dropout on the xla path is ported: it needs a seed.
+    with pytest.raises(ValueError, match="seed"):
         tatt.dot_product_attention(q, k, v, impl="xla", dropout_rate=0.1,
                                    deterministic=False)
+    out = tatt.dot_product_attention(q, k, v, impl="xla", dropout_rate=0.1,
+                                     seed=1, deterministic=False)
+    assert out.shape == q.shape and torch.isfinite(out).all()
     with pytest.raises(NotImplementedError):
         with tatt.sequence_parallel(None):
             pass

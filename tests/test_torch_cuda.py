@@ -8,14 +8,37 @@ also runs on a card machine without it::
 
 Tolerances: f32 1e-4; bf16 2e-2 (one bf16 ulp at |x| < 4 — kernel and
 plain version sum in different orders before the same final rounding).
+Gradients are compared relative to the largest element of each gradient:
+f32 1e-4, bf16 2e-2 (a bf16 rounding of df or dh that falls the other
+way in kernel and plain version moves that element by one ulp). The
+backward kernels must also be bitwise deterministic.
 """
 
+import numpy as np
 import pytest
 import torch
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _rel(a, b):
+    """max |a - b| over max |b| (in f32)."""
+    a, b = a.float(), b.float()
+    assert torch.isfinite(a).all()
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def _mlp_args(dev, dtype, n, d=384, f=1536, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    return dict(x2=r(n, d).to(dev, dtype), gamma=(1 + 0.1 * r(d)).to(dev),
+                beta=(0.1 * r(d)).to(dev),
+                w1=(r(d, f) / d ** 0.5).to(dev, dtype),
+                b1=(0.1 * r(f)).to(dev, dtype),
+                w2=(r(f, d) / f ** 0.5).to(dev, dtype),
+                b2=(0.1 * r(d)).to(dev, dtype))
 
 
 @pytest.fixture
@@ -67,12 +90,82 @@ def test_flash_kernel_matches_plain(dev, dh, threshold):
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
 
 
-def test_kernels_refuse_autograd_inputs(dev):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("threshold", [0, 26])
+@pytest.mark.parametrize("n", [1, 100])
+def test_fused_mlp_bwd_kernel_matches_plain(dev, dtype, threshold, n):
+    from pytorch_vit_paper_replication_tpu_torch.ops import fused_mlp
+    p = _mlp_args(dev, dtype, n, seed=n + threshold)
+    kw = dict(eps=1e-6, seed=-77, threshold=threshold)
+    _, h = fused_mlp._launch(**p, **kw, save_h=True)
+    _, h_ref = fused_mlp.ln_mlp_residual_plain(**p, **kw, save_h=True)
+    assert _rel(h, h_ref) < TOL[dtype]
+    dout = torch.randn(p["x2"].shape, generator=torch.Generator().manual_seed(
+        1)).to(dev, dtype)
+    args = (p["x2"], h_ref, p["gamma"], p["beta"], p["w1"], p["w2"], dout)
+    before = fused_mlp.bwd_launches
+    got = fused_mlp._launch_bwd(*args, **kw)
+    again = fused_mlp._launch_bwd(*args, **kw)
+    want = fused_mlp.ln_mlp_residual_bwd_plain(*args, **kw)
+    assert fused_mlp.bwd_launches == before + 2
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == c.dtype and a.shape == c.shape
+        assert torch.equal(a, b)               # deterministic
+        assert _rel(a, c) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("threshold", [0, 26])
+@pytest.mark.parametrize("t", [17, 197])
+def test_flash_bwd_kernels_match_plain(dev, dh, threshold, t):
     from pytorch_vit_paper_replication_tpu_torch.ops import (
         flash_attention as fa)
-    q = torch.randn(1, 8, 1, 32, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        fa.flash_attention(q, q, q)
+    g = torch.Generator().manual_seed(dh + t)
+    q, k, v, do = [torch.randn(6, t, dh, generator=g).to(dev, torch.bfloat16)
+                   for _ in range(4)]
+    kw = dict(seed=11, threshold=threshold)
+    out, lse = fa._launch(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    d0, k0 = fa.dq_launches, fa.dkv_launches
+    dq = fa._launch_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa._launch_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    assert (fa.dq_launches, fa.dkv_launches) == (d0 + 1, k0 + 1)
+    assert torch.equal(dq, fa._launch_bwd_dq(q, k, v, do, lse, delta, **kw))
+    assert all(torch.equal(a, b) for a, b in zip(
+        (dk, dv), fa._launch_bwd_dkv(q, k, v, do, lse, delta, **kw)))
+    want = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta, **kw)
+    for a, b in zip((dq, dk, dv), want):
+        assert _rel(a, b) < 2e-2
+
+
+def test_kernels_autograd_matches_plain(dev):
+    """Both autograd Functions on CUDA tensors launch the backward kernels
+    and agree with the same Functions on CPU tensors (plain versions);
+    two backward passes are bitwise equal."""
+    from pytorch_vit_paper_replication_tpu_torch.ops import (
+        flash_attention as fa, fused_mlp)
+    p = _mlp_args(torch.device("cpu"), torch.float32, 40, seed=3)
+    q, k, v = [torch.randn(2, 50, 3, 64, generator=torch.Generator()
+                           .manual_seed(i)) for i in range(3)]
+
+    def grads(device):
+        leaves = {n: t.to(device).requires_grad_() for n, t in p.items()}
+        qkv = [a.to(device).requires_grad_() for a in (q, k, v)]
+        x = leaves.pop("x2")
+        out = fused_mlp.fused_ln_mlp_residual(
+            x, **leaves, dropout_rate=0.1, seed=5, deterministic=False)
+        att = fa.flash_attention(*qkv, dropout_rate=0.1, seed=6,
+                                 deterministic=False)
+        (out.square().sum() + att.square().sum()).backward()
+        return [t.grad.cpu() for t in (x, *leaves.values(), *qkv)]
+
+    b1, b2 = fused_mlp.bwd_launches, fa.dq_launches
+    got, again = grads(dev), grads(dev)
+    assert fused_mlp.bwd_launches == b1 + 2 and fa.dq_launches == b2 + 2
+    want = grads(torch.device("cpu"))
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert _rel(a, c) < 1e-4
 
 
 def test_model_on_cuda_matches_cpu_plain_path(dev):
@@ -99,3 +192,114 @@ def test_model_on_cuda_matches_cpu_plain_path(dev):
         got = gpu(x.to(dev)).cpu()
     assert fused_mlp.launches - k1 == 2 and fa.launches - k2 == 2
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+def _split_qkv_bias(tree):
+    """The qkv biases ``[3, H, Dh]`` split into their Q and V slices (kept
+    as leaves) and their K slices, whose gradient is analytically zero
+    (softmax is invariant to a row's shift ``q . b_k``): rounding noise on
+    both sides, which the first Adam step turns into +-lr moves."""
+    leaves, k_slices = {}, {}
+    for name, v in tree.items():
+        if name.endswith("qkv.bias"):
+            leaves[name + "[q]"], leaves[name + "[v]"] = v[0], v[2]
+            k_slices[name] = v[1]
+        else:
+            leaves[name] = v
+    return leaves, k_slices
+
+
+def test_train_step_on_cuda_matches_cpu_plain_path(dev):
+    """One f32 training step (dropout on) of a 2-layer D = 384 ViT: the
+    card runs the fused MLP and flash kernels forward and backward, the
+    CPU the plain versions; same seeds, so the same positional masks.
+    (The embedding dropout is off: its bits come from a generator on the
+    tensor's device, and CPU and CUDA generators give different streams.)
+    The loss, the gradient norm and the gradients the optimizer receives
+    agree within 2e-3, the Q and V slices of the qkv bias included. The
+    updated params agree in the form of tests/test_torch_engine.py's
+    trajectory test: per-leaf drift under 0.5% of how far the leaf moved,
+    global drift under 0.2%, and the K slices of the qkv bias within
+    2 lr in absolute terms."""
+    from pytorch_vit_paper_replication_tpu_torch import engine, optim
+    from pytorch_vit_paper_replication_tpu_torch.configs import (
+        TrainConfig, ViTConfig)
+    from pytorch_vit_paper_replication_tpu_torch.convert import seeded_params
+    from pytorch_vit_paper_replication_tpu_torch.models import ViT
+    cfg = ViTConfig(image_size=64, patch_size=16, num_layers=2, num_heads=6,
+                    embedding_dim=384, mlp_size=1536, num_classes=10,
+                    dtype="float32", attention_impl="flash",
+                    mlp_impl="fused", attn_dropout=0.1,
+                    embedding_dropout=0.0)
+    tcfg = TrainConfig(warmup_fraction=0.0)
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.standard_normal((4, 64, 64, 3)).astype("float32"),
+             "label": rng.integers(0, 10, 4)}
+    p0 = seeded_params(cfg, 1)
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        m = ViT(cfg)
+        m.load_state_dict(p0)
+        m.to(device)
+        st = engine.TrainState.create(
+            model=m, seed=3, tx=optim.make_optimizer(tcfg, 10))
+        grads, apply = {}, st.tx.apply
+
+        def capture(params, g, opt_state, apply=apply, grads=grads):
+            grads.update({k: v.detach().cpu().clone() for k, v in g.items()})
+            return apply(params, g, opt_state)
+        st.tx.apply = capture
+        st, metrics = engine.make_train_step()(st, batch)
+        after = {k: v.detach().cpu() for k, v in m.named_parameters()}
+        runs.append(({k: float(v) for k, v in metrics.items()}, grads,
+                     after))
+    (mg, gg, pg), (mc, gc, pc) = runs
+    assert abs(mg["loss_sum"] - mc["loss_sum"]) <= 1e-4 * abs(mc["loss_sum"])
+    assert abs(mg["grad_norm"] - mc["grad_norm"]) <= 2e-3 * mc["grad_norm"]
+    diff = sum(float((gg[k] - gc[k]).double().square().sum()) for k in gc)
+    ref = sum(float(gc[k].double().square().sum()) for k in gc)
+    assert (diff / ref) ** 0.5 < 2e-3
+    (g_card, _), (g_cpu, _) = _split_qkv_bias(gg), _split_qkv_bias(gc)
+    for name in g_cpu:
+        assert _rel(g_card[name], g_cpu[name]) < 2e-3, name
+    (p_card, k_card), (p_cpu, k_cpu) = _split_qkv_bias(pg), _split_qkv_bias(pc)
+    start, _ = _split_qkv_bias({k: p0[k].float() for k in pc})
+    num = den = 0.0
+    for name in p_cpu:
+        drift = float((p_card[name] - p_cpu[name]).double().norm())
+        move = float((p_cpu[name] - start[name]).double().norm())
+        num, den = num + drift ** 2, den + move ** 2
+        assert drift <= 5e-3 * move, name
+    assert (num / den) ** 0.5 < 2e-3
+    for name in k_cpu:
+        diff_k = float((k_card[name] - k_cpu[name]).abs().max())
+        assert diff_k <= 2 * tcfg.learning_rate, name
+
+
+def test_remat_on_cuda_gives_identical_grads(dev):
+    """Remat (torch.utils.checkpoint per block) with the fused MLP and
+    flash kernels on the card: the recomputed forward relaunches the
+    kernels with the same seeds, so the grads equal the no-remat ones
+    bit for bit."""
+    from pytorch_vit_paper_replication_tpu_torch.configs import ViTConfig
+    from pytorch_vit_paper_replication_tpu_torch.convert import seeded_params
+    from pytorch_vit_paper_replication_tpu_torch.models import ViT
+    from pytorch_vit_paper_replication_tpu_torch.ops import fused_mlp
+    x = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(4))
+    grads, fwd = [], []
+    for remat in (False, True):
+        cfg = ViTConfig(image_size=64, patch_size=16, num_layers=2,
+                        num_heads=6, embedding_dim=384, mlp_size=1536,
+                        num_classes=10, attention_impl="flash",
+                        attn_dropout=0.1, remat=remat)
+        m = ViT(cfg)
+        m.load_state_dict(seeded_params(cfg, 2))
+        m.to(dev).train()
+        before = fused_mlp.launches
+        m(x.to(dev), torch.Generator().manual_seed(7)).square().sum() \
+            .backward()
+        fwd.append(fused_mlp.launches - before)
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    assert fwd == [2, 4]          # remat recomputes each block's forward
+    for name, g in grads[0].items():
+        assert torch.equal(g, grads[1][name]), name

@@ -22,7 +22,8 @@ from pytorch_vit_paper_replication_tpu.models import (
     ViTFeatureExtractor as JFeat)
 from pytorch_vit_paper_replication_tpu_torch import configs as tcfg
 from pytorch_vit_paper_replication_tpu_torch.convert import (
-    load_params_npz, params_from_flax, save_params_npz, seeded_params)
+    flatten_tree, load_params_npz, params_from_flax, params_to_flax,
+    save_params_npz, seeded_params)
 from pytorch_vit_paper_replication_tpu_torch.models import (
     ViT, ViTFeatureExtractor, create_model)
 
@@ -151,3 +152,61 @@ def test_fused_mlp_without_residual_refuses():
                    include_residual=False)
     with pytest.raises(NotImplementedError):
         blk(torch.zeros(1, 3, 64))
+
+
+def test_params_to_flax_roundtrip_on_jax_tree():
+    """``params_to_flax`` inverts ``params_from_flax`` on a JAX-initialised
+    tree: same nesting, keys, shapes and values, and the JAX model runs on
+    the result."""
+    jm, params, tm = _pair()
+    back = params_to_flax(tm.state_dict())
+    assert jax.tree_util.tree_structure(back) == \
+        jax.tree_util.tree_structure(jax.device_get(params))
+    for key, val in flatten_tree(params).items():
+        np.testing.assert_array_equal(flatten_tree(back)[key], val)
+    x = _images(4)
+    np.testing.assert_array_equal(
+        np.asarray(jm.apply({"params": back}, jnp.asarray(x))),
+        np.asarray(jm.apply({"params": params}, jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("mlp_impl", ["xla", "fused"])
+@pytest.mark.parametrize("attention_impl", ["xla", "flash"])
+def test_remat_gives_identical_grads(mlp_impl, attention_impl):
+    """Remat on and off, the same rng seed, every dropout at 0.1: the
+    seeds are drawn outside the checkpointed blocks, so the recomputed
+    forward sees the same masks and the f32 grads are identical."""
+    grads = []
+    for remat in (False, True):
+        cfg = tcfg.ViTConfig(**SMALL, dtype="float32", mlp_impl=mlp_impl,
+                             attention_impl=attention_impl, remat=remat,
+                             attn_dropout=0.1)
+        model = ViT(cfg).train()
+        model.load_state_dict(seeded_params(cfg, 2))
+        out = model(torch.from_numpy(_images(5)),
+                    torch.Generator().manual_seed(11))
+        out.square().sum().backward()
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    for name, g in grads[0].items():
+        assert torch.equal(g, grads[1][name]), name
+    assert any(g.abs().sum() > 0 for g in grads[0].values())
+
+
+def test_training_mode_needs_rng_and_dropout_is_seeded():
+    cfg = tcfg.ViTConfig(**SMALL, dtype="float32")
+    model = ViT(cfg).train()
+    model.load_state_dict(seeded_params(cfg, 0))
+    x = torch.from_numpy(_images(6))
+    with pytest.raises(ValueError, match="rng"):
+        model(x)
+    a = model(x, torch.Generator().manual_seed(1))
+    b = model(x, torch.Generator().manual_seed(1))
+    c = model(x, torch.Generator().manual_seed(2))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    with torch.no_grad():
+        e = model.eval()(x)
+    assert not torch.equal(a, e)
+    no_drop = ViT(cfg.replace(mlp_dropout=0.0, embedding_dropout=0.0))
+    no_drop.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        torch.testing.assert_close(no_drop.train()(x), e, rtol=0, atol=0)
