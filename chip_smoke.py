@@ -42,7 +42,33 @@ final ``ok`` line is never printed:
              breakdown of one step, and one f32 step of a 2-layer B/16 on
              the card against the same step through the plain versions on
              the CPU: loss, gradients and the updated params.
-5. the kernel list, the card's name and power limit, and the ``ok`` line.
+5. parallel — the data x tensor x pipeline path through the port's
+             ``parallel.spawn``, four rank processes sharing the one card
+             (gloo, every transfer through host memory; the phase prints
+             the transport): (a) ViT-B/16 at full width and depth, bf16,
+             ``mlp_impl``/``attention_impl`` auto, default dropouts, on
+             dp = 1 x tp = 2 x pp = 2 with M = 2 microbatches of a batch
+             of 8: 3 steps + one eval pass, loss finite and falling, the
+             MLP core kernels (rows 6 and 7) launched (12 / 2) * 2 times
+             per step forward and backward on every rank and the LN-MLP
+             kernels (rows 1 and 2) never; (b) a 2-layer f32 ViT-B/16,
+             dropout off, biases perturbed per channel, on dp = 2 x
+             tp = 2: 2 steps against the single-process port on the card
+             (losses rtol 1e-5, the JAX package's pipeline x TP bound;
+             gradients per leaf and params elementwise, see
+             TP_DP_LOSS_RTOL; the gap to the JAX elementwise param bound
+             is printed). Wall times there are four ranks sharing one
+             H100, not parallel-training throughput.
+6. the kernel list, the card's name and power limit, and the ``ok`` line.
+
+Phase 2 also holds the MLP core kernels (rows 6 and 7, ``csrc/
+fused_mlp_core.cu``) against their plain versions at N = 32*197, D = 768,
+F in {3072, 1536} (bf16 t = 0 and 26, f32 t = 0) and at the parallel
+phase's own shape (N = 4*197, F = 1536, bf16 t = 26): forward keep masks
+bit-identical, the forward within the tolerance below, the saved h
+within one bf16 ulp of the plain h (above a magnitude floor, see
+H_ULP_FLOOR), the backward within 2e-2 (bf16) / 1e-4 (f32) of each
+gradient's largest element and bitwise deterministic over two launches.
 
 Numerical settings: float32 matmuls run in full f32
 (``allow_tf32 = False`` for matmul and cuDNN) so the plain versions are
@@ -345,6 +371,166 @@ def check_flash_bwd(gen, card_peaks, dev):
             rows.append(row)
             del q4, k4, v4, o4
     return rows
+
+
+MLP_CORE_GRADS = ("dx", "dw1", "db1", "dw2", "db2")
+# (rows, hidden width, dtype name, threshold): the B/16 batch-32 rows at
+# the full and the tp = 2 hidden width, then the parallel phase's own
+# per-microbatch shape (batch 8 / M = 2 -> 4 * 197 rows, F / tp = 1536).
+CORE_CASES = [(32 * 197, f, dt, t) for f in (3072, 1536)
+              for dt, t in (("bfloat16", 0), ("bfloat16", 26),
+                            ("float32", 0))] + [(4 * 197, 1536, "bfloat16",
+                                                 26)]
+CORE_MAIN_PATH = (4 * 197, 1536, "bfloat16", 26)
+
+
+def check_fused_mlp_core(gen, card_peaks, dev):
+    """Rows 6 and 7 (the MLP core, forward with and without the saved h,
+    and the backward) against their plain versions at CORE_CASES; times
+    with CUDA events beside the bound."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.ops import fused_mlp
+    d = 768
+    bf16_rate, f32_rate, hbm = card_peaks
+    rows = []
+    for n, f, name, t in CORE_CASES:
+        dtype = getattr(torch, name)
+        p = _mlp_inputs(gen, n, d, f, dtype, dev)
+        args = (p["x2"], p["w1"], p["b1"], p["w2"], p["b2"])
+        kw = dict(seed=20261018, threshold=t)
+        dout = torch.randn(n, d, generator=gen).to(dev, dtype)
+        with torch.inference_mode():
+            out = fused_mlp._launch_core(*args, **kw)
+            out_h, h = fused_mlp._launch_core(*args, **kw, save_h=True)
+            torch.cuda.synchronize()
+            ref, h_ref = fused_mlp.mlp_core_plain(*args, **kw, save_h=True)
+            if not torch.equal(out, out_h):
+                raise AssertionError("MLP core forward differs with save_h")
+            err = close(out, ref, TOL[name])
+            h_check = saved_h_check(h, h_ref, p)
+            bwd = (p["x2"], h_ref, p["w1"], p["b1"], p["w2"], dout)
+            got = fused_mlp._launch_core_bwd(*bwd, **kw)
+            again = fused_mlp._launch_core_bwd(*bwd, **kw)
+            torch.cuda.synchronize()
+            want = fused_mlp.mlp_core_bwd_plain(*bwd, **kw)
+            errs, abs_errs = {}, []
+            for g_name, a, b, c in zip(MLP_CORE_GRADS, got, again, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"MLP core backward {g_name} is "
+                                         "not deterministic")
+                errs[g_name] = rel_err(a, c)
+                abs_errs.append((a.float() - c.float()).abs().max().item())
+            tol = 2e-2 if name == "bfloat16" else 1e-4
+            bad = {k: v for k, v in errs.items() if v > tol}
+            if bad:
+                raise AssertionError(f"MLP core backward {name} t={t} "
+                                     f"F={f}: {bad} exceed {tol}")
+            ms = time_ms(lambda: fused_mlp._launch_core(*args, **kw), 20)
+            h_ms = time_ms(lambda: fused_mlp._launch_core(
+                *args, **kw, save_h=True), 10)
+            plain_ms = time_ms(lambda: fused_mlp.mlp_core_plain(*args, **kw),
+                               5)
+            bwd_ms = time_ms(lambda: fused_mlp._launch_core_bwd(*bwd, **kw),
+                             10)
+            bwd_plain_ms = time_ms(
+                lambda: fused_mlp.mlp_core_bwd_plain(*bwd, **kw), 3)
+        s_ = dtype.itemsize
+        rate = bf16_rate if name == "bfloat16" else f32_rate
+        # forward in: x, W1, b1, W2, b2; out: out (+ h).
+        f_bytes = 2 * n * d * s_ + 2 * d * f * s_ + (f + d) * s_
+        b_ms, b_by = bound(4.0 * n * d * f, f_bytes, rate, hbm)
+        hb_ms, hb_by = bound(4.0 * n * d * f, f_bytes + n * f * s_, rate,
+                             hbm)
+        # backward in: x, h, dO, W1, W2; out: dx, dW1, dW2, db1, db2.
+        g_bytes = (3 * n * d + n * f) * s_ + 4 * d * f * s_ + (f + d) * s_
+        g_ms, g_by = bound(8.0 * n * d * f, g_bytes, rate, hbm)
+        row = {"phase": "kernels", "kernel": "fused_mlp_core",
+               "dtype": name, "threshold": t, "shape": [n, d, f],
+               "max_abs_err": err, "tolerance": TOL[name],
+               **h_check,
+               "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "save_h_fwd_ms": h_ms, "save_h_fwd_bound_ms": hb_ms,
+               "save_h_fwd_bound_by": hb_by,
+               "bwd_max_abs_err": max(abs_errs),
+               "bwd_max_rel_err_by_grad": errs, "bwd_tolerance_rel": tol,
+               "bwd_deterministic": True, "bwd_ms": bwd_ms,
+               "bwd_plain_ms": bwd_plain_ms, "bwd_bound_ms": g_ms,
+               "bwd_bound_by": g_by}
+        if t:
+            row["masks_bit_identical"] = core_masks(p, kw, dev)
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+# The saved h is x @ W1 + b1 summed in f32 and rounded once to the compute
+# dtype; the kernel and the plain version sum in different orders, so where
+# the f32 sums straddle a rounding boundary they round to adjacent values.
+# Each h must be within one bf16 ulp of the plain h, the ulp taken at
+# max(|plain h|, H_ULP_FLOOR): below the floor h comes from cancellation,
+# and f32 summation-order noise spans many ulps of so small a value. The
+# worst element without the floor is printed with the exact (f64) h.
+H_ULP_FLOOR = 2.0 ** -8
+H_MAX_ULPS = 1.0
+
+
+def bf16_ulps(a, b, floor: float):
+    """|a - b| per element in bf16 ulps (8 significant bits) of
+    max(|b|, floor)."""
+    import torch
+    scale = b.float().abs().clamp_min(floor)
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    return (a.float() - b.float()).abs() / ulp
+
+
+def saved_h_check(h, h_ref, p) -> dict:
+    """The kernel's saved h against the plain h (see H_ULP_FLOOR)."""
+    import torch
+    ulps = bf16_ulps(h, h_ref, H_ULP_FLOOR)
+    raw = bf16_ulps(h, h_ref, 2.0 ** -126)
+    i = int(raw.argmax())
+    row, col = divmod(i, h.shape[1])
+    exact = float(p["x2"][row].double() @ p["w1"][:, col].double()
+                  + p["b1"][col].double())
+    out = {"save_h_max_abs_err": (h.float() - h_ref.float()).abs().max()
+           .item(),
+           "save_h_max_ulps": ulps.max().item(),
+           "save_h_ulp_floor": H_ULP_FLOOR,
+           "save_h_max_ulps_without_floor": raw[row, col].item(),
+           "save_h_there": {"plain": h_ref[row, col].item(),
+                            "kernel": h[row, col].item(), "exact": exact}}
+    if not bool(torch.isfinite(h).all()) or \
+            out["save_h_max_ulps"] > H_MAX_ULPS:
+        raise AssertionError(f"MLP core saved h off the plain h: {out}")
+    return out
+
+
+def core_masks(p, kw, dev) -> bool:
+    """The MLP core's hidden keep mask recovered by feeding ones: x = 0,
+    w1 = 0, b1 = 1 make h = 1 everywhere; b2 = 0 and w2 = a block selector
+    [I; 0] shifted by k*D give out[:, j] = keep[:, k*D + j] * const, so
+    every hidden column is read once. The zero pattern must equal the
+    plain version's bit for bit."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.ops import fused_mlp
+    n, d = p["x2"].shape
+    f = p["w1"].shape[1]
+    dt = p["x2"].dtype
+    ones = dict(x2=torch.zeros_like(p["x2"]), w1=torch.zeros_like(p["w1"]),
+                b1=torch.ones_like(p["b1"]), b2=torch.zeros_like(p["b2"]))
+    with torch.inference_mode():
+        for k in range(f // d):
+            sel = torch.zeros(f, d, dtype=dt, device=dev)
+            sel[k * d:(k + 1) * d] = torch.eye(d, dtype=dt, device=dev)
+            a = fused_mlp._launch_core(**ones, w2=sel, **kw) == 0
+            b = fused_mlp.mlp_core_plain(**ones, w2=sel, **kw) == 0
+            if not torch.equal(a, b):
+                raise AssertionError("MLP core dropout keep mask differs "
+                                     "from the plain version's")
+            if not 0.05 < a.float().mean().item() < 0.16:
+                raise AssertionError("MLP core dropout rate off")
+    return True
 
 
 def fused_mlp_masks(p, kw, dev) -> bool:
@@ -663,6 +849,7 @@ def _counters():
 def reset_counts() -> None:
     fused_mlp, fa = _counters()
     fused_mlp.launches = fused_mlp.bwd_launches = 0
+    fused_mlp.core_launches = fused_mlp.core_bwd_launches = 0
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
 
 
@@ -670,6 +857,8 @@ def read_counts() -> dict:
     fused_mlp, fa = _counters()
     return {"fused_ln_mlp_residual": fused_mlp.launches,
             "fused_ln_mlp_residual_bwd": fused_mlp.bwd_launches,
+            "fused_mlp_core": fused_mlp.core_launches,
+            "fused_mlp_core_bwd": fused_mlp.core_bwd_launches,
             "flash_attention": fa.launches,
             "flash_attention_bwd_dq": fa.dq_launches,
             "flash_attention_bwd_dkv": fa.dkv_launches}
@@ -739,6 +928,7 @@ def _check_run(tag, metrics, counts, steps, flash: bool,
     forwards = steps + EVAL_BATCHES
     want = {"fused_ln_mlp_residual": 12 * forwards,
             "fused_ln_mlp_residual_bwd": 12 * steps,
+            "fused_mlp_core": 0, "fused_mlp_core_bwd": 0,
             "flash_attention": 12 * forwards if flash else 0,
             "flash_attention_bwd_dq": 12 * steps if flash else 0,
             "flash_attention_bwd_dkv": 12 * steps if flash else 0}
@@ -835,6 +1025,17 @@ STEP_TOL = {"loss": 2e-3, "grad_norm": 2e-3, "grads_global": 2e-3,
             "params_global_drift": 2e-3, "qkv_bias_k_max_abs_over_lr": 2.0}
 
 
+def _capture_grads(state, out: dict) -> None:
+    """Make ``state.tx.apply`` copy the gradients it receives into
+    ``out`` (the last step's stay)."""
+    apply = state.tx.apply
+
+    def capture(params, grads, opt_state, **kw):
+        out.update({k: v.detach().cpu().clone() for k, v in grads.items()})
+        return apply(params, grads, opt_state, **kw)
+    state.tx.apply = capture
+
+
 def f32_step_vs_cpu(dev) -> dict:
     """One f32 train step of a 2-layer ViT-B/16 (fused MLP and flash,
     mlp and attention dropout 0.1) on the card against the same step on
@@ -866,12 +1067,7 @@ def f32_step_vs_cpu(dev) -> dict:
         st = engine.TrainState.create(
             model=model, seed=1, tx=optim.make_optimizer(tcfg, 10))
         grads = {}
-        apply = st.tx.apply
-
-        def capture(params, g, opt_state, apply=apply, grads=grads):
-            grads.update({k: v.detach().cpu().clone() for k, v in g.items()})
-            return apply(params, g, opt_state)
-        st.tx.apply = capture
+        _capture_grads(st, grads)
         st, m = engine.make_train_step()(st, batch)
         after = {k: v.detach().cpu().clone()
                  for k, v in model.named_parameters()}
@@ -934,11 +1130,284 @@ def phase_train(dev) -> dict:
 
 
 # ------------------------------------------------------------- phase 5
-def kernel_list(k_rows, launches, serve_launches):
-    """The five ported kernels with their main-path numbers (batch 32,
-    bf16, dropout off, T = 197), then the TPU kernels still to port.
-    ``launches`` are the training runs' counts (the flash kernels' from
-    the flash run), ``serve_launches`` the serve phase's."""
+PAR_BATCH = 8
+PAR_MICRO = 2
+PAR_STEPS = 3
+TP_DP_STEPS = 2
+PAR_TIMEOUT_S = 300
+# (b)'s gate, on the same weights with every bias shifted per channel
+# (a replicated out/fc2 bias counted twice shows only then). The losses of
+# both steps within the JAX package's pipeline x TP bound
+# (tests/test_pipeline.py: rtol 1e-5). The last step's gradients per leaf,
+# and their global norm, within TP_DP_GRAD_TOL of the leaf's largest
+# element (the qkv bias's K slice, analytically zero, aside). The params
+# after the steps elementwise within the JAX test's bound (rtol 1e-5, atol
+# 1e-6) plus Adam's share of the gradient noise: the step of an element
+# whose effective gradient (clipped, plus the coupled L2 term) is a share
+# s of its leaf's largest moves by about lr * noise / s when the
+# gradient's noise is that share of the leaf's largest, so the bound adds
+# lr * min(2, TP_DP_GRAD_TOL / s). Where s >= 1e-2 that term is below the
+# JAX atol (1e-6 = 1e-3 lr here); where the gradient is near zero, Adam's
+# normalisation makes the summation-order noise a visible part of its
+# step. The K slices within JAX's qkv-bias atol 5e-3. The elements over
+# the JAX bound alone are counted and printed.
+TP_DP_LOSS_RTOL = 1e-5
+TP_DP_GRAD_TOL = 1e-5
+JAX_PARAMS_BOUND = {"rtol": 1e-5, "atol": 1e-6, "qkv_bias_atol": 5e-3}
+
+
+def _par_batch(cfg, n: int, seed: int) -> dict:
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return {"image": rng.standard_normal(
+                (n, cfg.image_size, cfg.image_size, 3)).astype(np.float32),
+            "label": rng.integers(0, cfg.num_classes, n)}
+
+
+def _rank_state(mesh, cfg, params, tcfg, total_steps: int):
+    """make_pipeline_apply, the rank's slices of the full ``params``,
+    shard_train_state (the order JAX's dryrun_multichip builds them)."""
+    from pytorch_vit_paper_replication_tpu_torch import engine, optim
+    from pytorch_vit_paper_replication_tpu_torch.convert import (
+        rank_local_params)
+    from pytorch_vit_paper_replication_tpu_torch.parallel import api, pipeline
+    model = pipeline.make_pipeline_apply(cfg, mesh,
+                                         num_microbatches=PAR_MICRO)
+    model.load_state_dict(rank_local_params(params, mesh))
+    return api.shard_train_state(engine.TrainState.create(
+        model=model, tx=optim.make_optimizer(tcfg, total_steps), seed=7),
+        mesh)
+
+
+def pp_tp_rank(mesh) -> dict:
+    """One rank of (a): ViT-B/16, dp 1 x tp 2 x pp 2, PAR_STEPS steps and
+    one eval pass, the launch counters set to 0 right before and read
+    right after."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.configs import (
+        PRESETS, TrainConfig)
+    from pytorch_vit_paper_replication_tpu_torch.parallel import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = PRESETS[PRESET](num_classes=NUM_CLASSES)
+    from pytorch_vit_paper_replication_tpu_torch.convert import seeded_params
+    state = _rank_state(mesh, cfg, seeded_params(cfg, 3), TrainConfig(),
+                        PAR_STEPS)
+    batch = api.shard_batch(_par_batch(cfg, PAR_BATCH, 4), mesh)
+    step = api.make_parallel_train_step(state, mesh)
+    eval_step = api.make_parallel_eval_step(state, mesh)
+    metrics, walls = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    for _ in range(PAR_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    ev = {k: float(v) for k, v in eval_step(state, batch).items()}
+    torch.cuda.synchronize()
+    return {"coords": mesh.coords, "transport": mesh.transport,
+            "device": str(mesh.device), "launches": read_counts(),
+            "metrics": metrics, "eval": ev, "step_walls_s": walls,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _tp_dp_cfg():
+    from pytorch_vit_paper_replication_tpu_torch.configs import vit_b16
+    return vit_b16(num_classes=NUM_CLASSES, num_layers=2, dtype="float32",
+                   mlp_dropout=0.0, embedding_dropout=0.0, attn_dropout=0.0)
+
+
+def _tp_dp_params(cfg) -> dict:
+    """convert.seeded_params with every bias shifted per channel, as
+    tests/test_pipeline.py does (a uniform shift would hide a bias counted
+    twice behind LayerNorm)."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.convert import seeded_params
+    return {k: v + 0.02 * torch.arange(v.shape[-1]) / v.shape[-1]
+            if k.endswith(".bias") else v
+            for k, v in seeded_params(cfg, 9).items()}
+
+
+def _tp_dp_train():
+    from pytorch_vit_paper_replication_tpu_torch.configs import TrainConfig
+    return TrainConfig(warmup_fraction=0.1)
+
+
+def tp_dp_rank(mesh) -> dict:
+    """One rank of (b): the 2-layer f32 ViT-B/16 on dp 2 x tp 2,
+    TP_DP_STEPS steps; rank 0 returns the full params after the steps and
+    the last step's full gradients, gathered from every rank."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.parallel import (api,
+                                                                  sharding)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _tp_dp_cfg()
+    state = _rank_state(mesh, cfg, _tp_dp_params(cfg), _tp_dp_train(), 10)
+    batch = api.shard_batch(_par_batch(cfg, PAR_BATCH, 5), mesh)
+    step = api.make_parallel_train_step(state, mesh)
+    grads = {}
+    _capture_grads(state, grads)
+    metrics = []
+    for _ in range(TP_DP_STEPS):
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    params = sharding.gather_state_dict(
+        dict(state.model.named_parameters()), mesh)
+    grads = sharding.gather_state_dict(grads, mesh)
+    return {"coords": mesh.coords, "metrics": metrics,
+            "params": params if mesh.rank == 0 else None,
+            "grads": grads if mesh.rank == 0 else None}
+
+
+def tp_dp_errors(p0, par, single, tcfg) -> dict:
+    """(b)'s readings (see TP_DP_GRAD_TOL). ``par`` and ``single`` are
+    ``(metrics, grads, params after)`` of the last step, ``p0`` the params
+    before the steps, all on the CPU. ``params_worst_over_bound`` is the
+    largest |parallel - single| over the gate's elementwise bound;
+    ``largest_grad_share_over`` the largest share s among the elements
+    over the JAX bound alone."""
+    (mp, gp, pp), (ms, gs, ps) = par, single
+    lr = tcfg.learning_rate
+    g_par, _ = split_qkv_bias(gp)
+    g_one, _ = split_qkv_bias(gs)
+    clip = min(1.0, tcfg.grad_clip_norm / ms["grad_norm"])
+    g_eff, _ = split_qkv_bias({
+        k: g * clip + (tcfg.weight_decay * p0[k] if g.ndim > 1 else 0.0)
+        for k, g in gs.items()})
+    (q_par, k_par), (q_one, k_one) = split_qkv_bias(pp), split_qkv_bias(ps)
+    worst_gate, worst_jax, n_over, share = 0.0, 0.0, 0, 0.0
+    for k, w in q_one.items():
+        d = (q_par[k] - w).abs()
+        jax = JAX_PARAMS_BOUND["atol"] + JAX_PARAMS_BOUND["rtol"] * w.abs()
+        g = g_eff[k].abs()
+        s = g / g.max().clamp_min(1e-30)
+        noise = lr * (TP_DP_GRAD_TOL / s).clamp(max=2.0)
+        worst_gate = max(worst_gate, float((d / (jax + noise)).max()))
+        worst_jax = max(worst_jax, float((d / jax).max()))
+        over = d > jax
+        n_over += int(over.sum())
+        if over.any():
+            share = max(share, float(s[over].max()))
+    return {
+        "grad_norm": abs(mp["grad_norm"] - ms["grad_norm"]) / ms["grad_norm"],
+        "grads_max_leaf": max(rel_err(g_par[k], g_one[k]) for k in g_one),
+        "params_worst_over_bound": worst_gate,
+        "qkv_bias_k_max_abs": max(float((k_par[k] - k_one[k]).abs().max())
+                                  for k in k_one),
+        "jax_bound": {**JAX_PARAMS_BOUND, "worst_ratio": worst_jax,
+                      "elements_over": n_over,
+                      "elements": int(sum(v.numel() for v in q_one.values())),
+                      "largest_grad_share_over": share}}
+
+
+def tp_dp_vs_single(ranks, dev) -> dict:
+    """(b)'s ranks against the single-process port on the card: the same
+    weights, batch, recipe and steps."""
+    from pytorch_vit_paper_replication_tpu_torch import engine, optim
+    from pytorch_vit_paper_replication_tpu_torch.models import ViT
+    cfg = _tp_dp_cfg()
+    p0 = _tp_dp_params(cfg)
+    model = ViT(cfg)
+    model.load_state_dict(p0)
+    model.to(dev)
+    tcfg = _tp_dp_train()
+    state = engine.TrainState.create(model=model, seed=7,
+                                     tx=optim.make_optimizer(tcfg, 10))
+    grads = {}
+    _capture_grads(state, grads)
+    step = engine.make_train_step()
+    batch = _par_batch(cfg, PAR_BATCH, 5)
+    single = []
+    for _ in range(TP_DP_STEPS):
+        state, m = step(state, batch)
+        single.append({k: float(v) for k, v in m.items()})
+    after = {k: v.detach().cpu() for k, v in model.named_parameters()}
+    loss_gap = max(abs(r["metrics"][i]["loss_sum"] - single[i]["loss_sum"])
+                   / abs(single[i]["loss_sum"])
+                   for r in ranks for i in range(len(single)))
+    par = ranks[0]
+    if set(par["params"]) != set(after) or set(par["grads"]) != set(grads):
+        raise AssertionError("gathered params name other leaves than the "
+                             "single-process model's")
+    errs = tp_dp_errors(p0, (par["metrics"][-1], par["grads"],
+                             par["params"]), (single[-1], grads, after), tcfg)
+    tol = {"grad_norm": TP_DP_GRAD_TOL, "grads_max_leaf": TP_DP_GRAD_TOL,
+           "params_worst_over_bound": 1.0,
+           "qkv_bias_k_max_abs": JAX_PARAMS_BOUND["qkv_bias_atol"]}
+    out = {"single_losses": [m["loss_sum"] for m in single],
+           "parallel_losses": [m["loss_sum"] for m in par["metrics"]],
+           "loss_max_rel_gap": loss_gap, "loss_rtol": TP_DP_LOSS_RTOL,
+           "errors": errs, "tolerance": tol}
+    bad = {k: errs[k] for k, v in tol.items() if not errs[k] <= v}
+    if not loss_gap <= TP_DP_LOSS_RTOL or bad:
+        raise AssertionError(f"dp2 x tp2 vs single process: {out}")
+    return out
+
+
+def phase_parallel(dev) -> dict:
+    """(a) then (b) through parallel.spawn on this card; returns (a)'s
+    launch counts of rank 0."""
+    import math
+    from pytorch_vit_paper_replication_tpu_torch.configs import (MeshConfig,
+                                                                 PRESETS)
+    from pytorch_vit_paper_replication_tpu_torch.parallel import spawn
+    t0 = time.perf_counter()
+    ranks = spawn(pp_tp_rank, MeshConfig(data=1, model=2, pipe=2),
+                  device=dev.type, timeout_s=PAR_TIMEOUT_S)
+    a_s = time.perf_counter() - t0
+    layers = PRESETS[PRESET]().num_layers // 2
+    want = {"fused_ln_mlp_residual": 0, "fused_ln_mlp_residual_bwd": 0,
+            "fused_mlp_core": layers * PAR_MICRO * (PAR_STEPS + 1),
+            "fused_mlp_core_bwd": layers * PAR_MICRO * PAR_STEPS,
+            "flash_attention": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
+    for r in ranks:
+        if r["launches"] != want:
+            raise AssertionError(f"rank {r['coords']}: launches "
+                                 f"{r['launches']} != {want}")
+        losses = [m["loss_sum"] / m["count"] for m in r["metrics"]]
+        if not all(math.isfinite(v) for v in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"rank {r['coords']}: losses {losses} not "
+                                 "finite and falling")
+        if r["metrics"] != ranks[0]["metrics"] or \
+                r["eval"] != ranks[0]["eval"]:
+            raise AssertionError("ranks disagree on the global metrics")
+    emit({"phase": "parallel", "run": "a", "ok": True,
+          "layout": "dp1 x tp2 x pp2", "model": PRESET,
+          "batch": PAR_BATCH, "microbatches": PAR_MICRO,
+          "transport": ranks[0]["transport"],
+          "losses": [m["loss_sum"] / m["count"] for m in ranks[0]["metrics"]],
+          "grad_norms": [m["grad_norm"] for m in ranks[0]["metrics"]],
+          "eval": ranks[0]["eval"], "launches_per_rank": ranks[0]["launches"],
+          "step_walls_s": [r["step_walls_s"] for r in ranks],
+          "step_walls_are": (
+              "four ranks sharing one card: a measure of the host, not of "
+              "parallel-training throughput"
+              if len({r["device"] for r in ranks}) == 1
+              else "one card per rank"),
+          "peak_memory_gib_per_rank": [r["peak_memory_gib"] for r in ranks],
+          "seconds_incl_rank_start": round(a_s, 3)})
+    t1 = time.perf_counter()
+    b_ranks = spawn(tp_dp_rank, MeshConfig(data=2, model=2, pipe=1),
+                    device=dev.type, timeout_s=PAR_TIMEOUT_S)
+    cmp = tp_dp_vs_single(b_ranks, dev)
+    emit({"phase": "parallel", "run": "b", "ok": True,
+          "layout": "dp2 x tp2 x pp1", "model": "ViT-B/16, 2 layers, f32",
+          "steps": TP_DP_STEPS, **cmp,
+          "seconds_incl_rank_start": round(time.perf_counter() - t1, 3)})
+    return ranks[0]["launches"]
+
+
+# ------------------------------------------------------------- phase 6
+def kernel_list(k_rows, launches, serve_launches, par_launches):
+    """The seven ported kernels with their main-path numbers: rows 1-5 at
+    batch 32, bf16, dropout off, T = 197; rows 6 and 7 (the MLP core) at
+    the parallel phase's per-microbatch shape (4 * 197 rows, F / tp =
+    1536, bf16, t = 26). ``launches`` are the training runs' counts (the
+    flash kernels' from the flash run), ``serve_launches`` the serve
+    phase's, ``par_launches`` rank 0's in the parallel phase (a)."""
     def pick(kernel, **match):
         return next(r for r in k_rows if r["kernel"] == kernel and all(
             r[k] == v for k, v in match.items()))
@@ -981,6 +1450,21 @@ def kernel_list(k_rows, launches, serve_launches):
          fl_b["dkv_ms"], fl_b["plain_ms"], fl_b["dkv_bound_ms"],
          fl_b["dkv_bound_by"], fl_b["library_ms"]),
     ]
+    n, f, dt, t = CORE_MAIN_PATH
+    core = pick("fused_mlp_core", shape=[n, 768, f], dtype=dt, threshold=t)
+    core_rows = [r for r in k_rows if r["kernel"] == "fused_mlp_core"
+                 and r["dtype"] == "bfloat16"]
+    rows += [
+        ("fused_mlp_core", "fused_mlp_core.cu", "fused_mlp.py:236",
+         max(r["max_abs_err"] for r in core_rows), core["kernel_ms"],
+         core["plain_ms"], core["bound_ms"], core["bound_by"], None),
+        ("fused_mlp_core_bwd", "fused_mlp_core.cu", "fused_mlp.py:278",
+         max(r["bwd_max_abs_err"] for r in core_rows), core["bwd_ms"],
+         core["bwd_plain_ms"], core["bwd_bound_ms"], core["bwd_bound_by"],
+         None),
+    ]
+    launches = {**launches, "fused_mlp_core": par_launches["fused_mlp_core"],
+                "fused_mlp_core_bwd": par_launches["fused_mlp_core_bwd"]}
     out = [{"name": name, "route": "cuda", "source": f"{base}/{src}",
             "replaces": f"{ref}/{rep}", "status": "ported and checked",
             "launches": launches[name],
@@ -988,11 +1472,7 @@ def kernel_list(k_rows, launches, serve_launches):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
            for name, src, rep, err, ms, plain_ms, b_ms, b_by, lib in rows]
-    todo = [("fused_mlp forward", "fused_mlp.py:236"),
-            ("fused_mlp backward", "fused_mlp.py:278")]
-    return {"kernels": out, "to_port": [
-        {"name": n, "replaces": f"{ref}/{r}", "status": "still to port"}
-        for n, r in todo]}
+    return {"kernels": out, "to_port": []}
 
 
 def main() -> int:
@@ -1017,7 +1497,8 @@ def main() -> int:
     k_rows = check_fused_mlp(gen, card_peaks, dev) + \
         check_flash(gen, card_peaks, dev) + \
         check_fused_mlp_bwd(gen, card_peaks, dev) + \
-        check_flash_bwd(gen, card_peaks, dev)
+        check_flash_bwd(gen, card_peaks, dev) + \
+        check_fused_mlp_core(gen, card_peaks, dev)
     torch.cuda.empty_cache()
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -1027,11 +1508,13 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     launches = phase_train(dev)
+    torch.cuda.empty_cache()
+    par_launches = phase_parallel(dev)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             3)})
     print(card, flush=True)
-    print(json.dumps(kernel_list(k_rows, launches, serve_launches)),
-          flush=True)
+    print(json.dumps(kernel_list(k_rows, launches, serve_launches,
+                                 par_launches)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -59,9 +59,11 @@ class ViTConfig:
     attention_impl: str = "auto"
     # MLP-half execution path: "xla" = LayerNorm + two GEMMs with the
     # hidden activation materialized; "fused" = the CUDA
-    # LN->fc1->GELU->dropout->fc2->dropout->residual kernel
-    # (ops/fused_mlp.py, hidden tile stays on chip); "auto" = fused on a
-    # CUDA tensor, xla on the CPU. Param trees are identical across paths.
+    # LN->fc1->GELU->dropout->fc2->dropout->residual kernel, or LN and the
+    # CUDA MLP core kernel in tensor-parallel blocks and the standalone
+    # MLPBlock (ops/fused_mlp.py, hidden tile stays on chip); "auto" =
+    # fused on a CUDA tensor, xla on the CPU. Param trees are identical
+    # across paths.
     mlp_impl: str = "auto"
     # XLA-path softmax flavor: "saturating" (default) = exp(min(s - 16,
     # 80)) / (sum + 1e-35), no row-max pass, exact for logits <= ~96;
@@ -242,3 +244,40 @@ class TrainConfig:
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Process-mesh layout for distributed training (the JAX package's
+    ``MeshConfig``, same fields and rules).
+
+    Axes: ``data`` (batch sharded, gradients all-reduced), ``model``
+    (tensor parallelism over attention heads and the MLP hidden width),
+    ``seq`` (sequence parallelism; not ported, validation refuses > 1),
+    ``pipe`` (pipeline parallelism, encoder layers staged with GPipe
+    microbatching). A dimension of 1 disables that axis; ``data = -1``
+    takes all remaining processes.
+    """
+
+    data: int = -1
+    model: int = 1
+    seq: int = 1
+    pipe: int = 1
+
+    def axis_sizes(self, n_devices: int) -> tuple:
+        """``(data, model, seq, pipe)`` for ``n_devices`` processes."""
+        model = max(1, self.model)
+        seq = max(1, self.seq)
+        pipe = max(1, self.pipe)
+        data = self.data
+        rest = model * seq * pipe
+        if data == -1:
+            if n_devices % rest != 0:
+                raise ValueError(
+                    f"{n_devices} devices not divisible by model*seq*pipe="
+                    f"{rest}")
+            data = n_devices // rest
+        if data * rest != n_devices:
+            raise ValueError(
+                f"mesh {data}x{model}x{seq}x{pipe} != {n_devices} devices")
+        return data, model, seq, pipe

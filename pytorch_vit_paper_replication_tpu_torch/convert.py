@@ -8,6 +8,8 @@ whose keys are the ``/``-joined Flax paths — the same names either way.
 
 Reading an Orbax checkpoint needs JAX and tensorstore; converting a JAX
 ``save_model`` export to ``params.npz`` is a later slice (ROADMAP).
+:func:`rank_local_params` takes a tree (standard or pipeline-stacked) to
+one rank's slices on a parallel mesh.
 """
 
 from __future__ import annotations
@@ -114,3 +116,17 @@ def _kernel_in_shape(name: str, shape):
     if name.endswith("patch_conv.kernel"):
         return shape[:3]
     return shape[:1]
+
+
+def rank_local_params(tree: Mapping[str, Any],
+                      mesh) -> Dict[str, torch.Tensor]:
+    """One rank's parameters on a dp x tp x pp ``mesh``: ``tree`` is a JAX
+    param tree in the standard or the pipeline-stacked layout
+    (``encoder_blocks`` with a leading ``[L]`` axis), or a full port
+    ``state_dict``; returns this rank's slices
+    (:func:`.parallel.sharding.shard_state_dict`), f32 CPU tensors."""
+    from .parallel.pipeline import unstack_block_params
+    from .parallel.sharding import shard_state_dict
+
+    return shard_state_dict(unstack_block_params(params_from_flax(tree)),
+                            mesh)

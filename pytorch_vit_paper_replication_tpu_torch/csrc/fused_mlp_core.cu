@@ -1,0 +1,73 @@
+// The MLP core without LayerNorm and residual, forward and backward:
+//     out = fc2(drop0(gelu(fc1(x))))          (D_out = D)
+//
+// Replaces the JAX package's Pallas kernels ops/fused_mlp.py::_fwd_kernel
+// (pallas_call in _fused_call, with and without the saved h) and
+// _bwd_kernel (pallas_call in _fused_bwd). The JAX package runs them for
+// manual Megatron tensor parallelism: each rank's hidden slice (F / tp
+// columns of fc1, rows of fc2) with the all-reduce of the fc2 partial sums
+// outside the kernel, and for the standalone MLPBlock without residual.
+// There is no output dropout here: under tensor parallelism it follows the
+// all-reduce.
+//
+// What bounds it on an H100: forward 4*N*D*F FLOP, backward 8*N*D*F
+// (dg, dx, dW1, dW2), compute-bound at ViT-B/16 shapes (N = B*197,
+// D = 768, F = 3072 or its tensor-parallel slice 1536).
+//
+// The kernels are those of rows 1 and 2 with LN and the residual switched
+// off (mlp_fwd.cuh and mlp_bwd.cuh with LN = false): the hidden tile stays
+// on chip in the forward; the backward is the same three deterministic
+// passes (row kernel writing g_c, dh_c and column partials; output-tiled
+// GEMMs dW1 = x^T dh_c and dW2 = g_c^T dO; fixed-order column sums), with
+// x and dO as the GEMM operands.
+#include "mlp_bwd.cuh"
+#include "mlp_fwd.cuh"
+
+// Forward. dtype: 0 = float32, 1 = bf16; x, w1, b1, w2, b2, out and h
+// (null: not saved) in that dtype. Returns the cudaError_t of the launch.
+extern "C" int vit_mlp_fwd(int dtype, const void* x, const void* w1,
+                           const void* b1, const void* w2, const void* b2,
+                           void* out, void* h, int n, int d, int f,
+                           uint32_t seed, int threshold, float inv_keep,
+                           void* stream) {
+  return static_cast<int>(vit::mlp_fwd::run<false>(
+      dtype, x, nullptr, nullptr, w1, b1, w2, b2, out, h, n, d, f, 0.0f, seed,
+      threshold, inv_keep, static_cast<cudaStream_t>(stream)));
+}
+
+// Backward. x, dout, dx [n, d], h [n, f], w1 [d, f], w2 [f, d] in the
+// dtype; work: 2*n*f elements of the dtype (g_c, dh_c); partials:
+// ceil(n/32) * (d + f) floats. dw1 [d, f], db1 [f], dw2 [f, d], db2 [d]
+// leave in float32. Returns the first cudaError_t that is not 0, else 0.
+extern "C" int vit_mlp_bwd(int dtype, const void* x, const void* h,
+                           const void* w1, const void* w2, const void* dout,
+                           void* dx, float* dw1, float* db1, float* dw2,
+                           float* db2, void* work, float* partials, int n,
+                           int d, int f, uint32_t seed, int threshold,
+                           float inv_keep, void* stream) {
+  using namespace vit::mlp_bwd;
+  if (!valid_shape(dtype, n, d, f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tiles = row_tiles(n);
+  const size_t es = dtype == 1 ? 2 : 4;
+  unsigned char* wb = static_cast<unsigned char*>(work);
+  const size_t nf = static_cast<size_t>(n) * f;
+  Scratch sc{};
+  sc.g_c = wb;
+  sc.dh_c = wb + nf * es;
+  sc.p_db2 = partials;
+  sc.p_db1 = partials + static_cast<size_t>(tiles) * d;
+  cudaError_t err = rows<false>(dtype, d, x, h, nullptr, nullptr, w1, w2,
+                                dout, dx, sc, n, f, 0.0f, seed, threshold,
+                                inv_keep, tiles, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((err = gemm_tn(dtype, x, sc.dh_c, dw1, n, d, f, s)) != cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = gemm_tn(dtype, sc.g_c, dout, dw2, n, f, d, s)) != cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = reduce(sc.p_db2, db2, tiles, d, s)) != cudaSuccess ||
+      (err = reduce(sc.p_db1, db1, tiles, f, s)) != cudaSuccess)
+    return static_cast<int>(err);
+  return 0;
+}

@@ -30,6 +30,11 @@ generator of their own with it. Remat (``config.remat``) checkpoints each
 block with ``torch.utils.checkpoint(use_reentrant=False)``; since the
 seeds are drawn outside the checkpointed call, the recomputation sees the
 same masks.
+
+Tensor parallelism: the blocks take ``tp``, a ``torch.distributed``
+process group (the JAX ``tp_axis``), and then run Megatron's split over it
+(:mod:`..parallel.collectives`); :mod:`..parallel.pipeline` builds them
+from a head-local config.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from torch import nn
 from ..configs import ViTConfig
 from ..ops.attention import dot_product_attention
 from ..ops.dropout import Dropout
+from ..parallel.collectives import copy_to_tp, reduce_from_tp
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -101,11 +107,14 @@ class Dense(nn.Module):
         self.bias = _param(*self.out_shape)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.matmul(x) + self.bias.to(self.dtype)
+
+    def matmul(self, x: torch.Tensor) -> torch.Tensor:
+        """The product without the bias, ``[*lead, *out_shape]``."""
         lead = x.shape[:x.ndim - len(self.in_shape)]
         k_in = self.kernel.shape[:len(self.in_shape)].numel()
         y = x.to(self.dtype).reshape(*lead, k_in) @ \
             self.kernel.to(self.dtype).reshape(k_in, -1)
-        y = y + self.bias.to(self.dtype).reshape(-1)
         return y.reshape(*lead, *self.out_shape)
 
 
@@ -160,11 +169,18 @@ class PatchEmbedding(nn.Module):
 
 class MultiHeadSelfAttentionBlock(nn.Module):
     """Pre-norm multi-head self-attention; returns the attention output
-    only (the residual add lives in :class:`TransformerEncoderBlock`)."""
+    only (the residual add lives in :class:`TransformerEncoderBlock`).
 
-    def __init__(self, cfg: ViTConfig):
+    ``tp``: Megatron tensor parallelism over a process group (the JAX
+    ``tp_axis``). The block is then built from a head-local config (the
+    rank's ``num_heads / tp`` heads, ``head_dim_override`` set), computes
+    its local heads, all-reduces the out projection's partial sum and adds
+    the replicated out bias once, after the all-reduce."""
+
+    def __init__(self, cfg: ViTConfig, tp=None):
         super().__init__()
         self.config = cfg
+        self.tp = tp
         dt = _dtype(cfg)
         self.norm = LayerNorm(cfg.embedding_dim, cfg.ln_epsilon, dt)
         self.qkv = Dense((cfg.embedding_dim,),
@@ -175,15 +191,22 @@ class MultiHeadSelfAttentionBlock(nn.Module):
     def forward(self, x: torch.Tensor,
                 seed: Optional[int] = None) -> torch.Tensor:
         cfg = self.config
-        qkv = self.qkv(self.norm(x))              # [B, T, 3, H, Dh]
+        y = self.norm(x)
+        if self.tp is not None:
+            y = copy_to_tp(y, self.tp)
+        qkv = self.qkv(y)                         # [B, T, 3, H, Dh]
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         attn = dot_product_attention(
             q, k, v, impl=cfg.attention_impl, dropout_rate=cfg.attn_dropout,
             seed=seed, deterministic=not self.training,
+            heads_already_local=self.tp is not None,
             softmax=cfg.attention_softmax,
             probs_dtype=cfg.attention_probs_dtype,
             residual_dtype=cfg.attention_probs_residual_dtype)
-        return self.out(attn)
+        if self.tp is None:
+            return self.out(attn)
+        return (reduce_from_tp(self.out.matmul(attn), self.tp)
+                + self.out.bias.to(_dtype(cfg)))
 
 
 def _mlp_fused(cfg: ViTConfig, x: torch.Tensor) -> bool:
@@ -194,19 +217,29 @@ def _mlp_fused(cfg: ViTConfig, x: torch.Tensor) -> bool:
 class MLPBlock(nn.Module):
     """Pre-norm MLP: LN -> fc1 -> GELU -> Dropout -> fc2 -> Dropout.
 
-    ``include_residual``: the block owns the ``+ x`` residual add, which
-    unlocks the fused half-block kernel
-    (:func:`..ops.fused_mlp.fused_ln_mlp_residual`). Both paths declare
-    identical params (``norm``, ``fc1``, ``fc2``). The JAX package's
-    fused MLP core without LN and residual (``fused_mlp``, used by manual
-    tensor parallelism) is not ported: ``mlp_impl="fused"`` without
-    ``include_residual`` raises.
+    ``mlp_impl`` fused (``"fused"``, or ``"auto"`` on a CUDA tensor) runs
+    the CUDA kernels: the whole half-block kernel
+    (:func:`..ops.fused_mlp.fused_ln_mlp_residual`) when the block owns the
+    residual (``include_residual``) and is not tensor-parallel; otherwise
+    LN, then the MLP core kernel (:func:`..ops.fused_mlp.fused_mlp`), then
+    the output dropout (and the residual). Both paths declare identical
+    params (``norm``, ``fc1``, ``fc2``).
+
+    ``tp``: Megatron tensor parallelism over a process group (the JAX
+    ``tp_axis``): fc1/fc2 arrive hidden-sliced, the block runs ``LN ->
+    copy_to_tp -> core on the local hidden slice -> all-reduce -> + fc2
+    bias -> Dropout -> + x``. The all-reduce comes before the output
+    dropout, so every rank drops the same elements of the same replicated
+    tensor; the hidden dropout keys on the local hidden column, so every
+    hidden slice reuses the same column keys, as the JAX package does.
     """
 
-    def __init__(self, cfg: ViTConfig, include_residual: bool = False):
+    def __init__(self, cfg: ViTConfig, include_residual: bool = False,
+                 tp=None):
         super().__init__()
         self.config = cfg
         self.include_residual = include_residual
+        self.tp = tp
         dt = _dtype(cfg)
         self.norm = LayerNorm(cfg.embedding_dim, cfg.ln_epsilon, dt)
         self.fc1 = Dense((cfg.embedding_dim,), (cfg.mlp_size,), dt)
@@ -216,13 +249,10 @@ class MLPBlock(nn.Module):
     def forward(self, x: torch.Tensor,
                 seed: Optional[int] = None) -> torch.Tensor:
         cfg = self.config
-        if _mlp_fused(cfg, x):
-            if not self.include_residual:
-                raise NotImplementedError(
-                    "the fused MLP core without LN/residual (JAX fused_mlp) "
-                    "is not ported yet (ROADMAP Queue 2 row 6)")
+        dt = _dtype(cfg)
+        fused = _mlp_fused(cfg, x)
+        if fused and self.include_residual and self.tp is None:
             from ..ops.fused_mlp import fused_ln_mlp_residual
-            dt = _dtype(cfg)
             return fused_ln_mlp_residual(
                 x, self.norm.scale, self.norm.bias,
                 self.fc1.kernel.to(dt), self.fc1.bias.to(dt),
@@ -230,20 +260,36 @@ class MLPBlock(nn.Module):
                 eps=cfg.ln_epsilon, dropout_rate=cfg.mlp_dropout, seed=seed,
                 deterministic=not self.training)
         gen = _generator(seed, x.device)
-        y = self.fc1(self.norm(x))
-        y = self.dropout(F.gelu(y), gen)
-        y = self.dropout(self.fc2(y), gen)
+        y = self.norm(x)
+        if self.tp is not None:
+            y = copy_to_tp(y, self.tp)
+        # Under TP the fc2 bias is added once, after the all-reduce.
+        if fused:
+            from ..ops.fused_mlp import fused_mlp
+            b2 = self.fc2.bias.to(dt)
+            y = fused_mlp(y, self.fc1.kernel.to(dt), self.fc1.bias.to(dt),
+                          self.fc2.kernel.to(dt),
+                          b2 if self.tp is None else torch.zeros_like(b2),
+                          dropout_rate=cfg.mlp_dropout, seed=seed,
+                          deterministic=not self.training)
+        else:
+            y = self.dropout(F.gelu(self.fc1(y)), gen)
+            y = self.fc2(y) if self.tp is None else self.fc2.matmul(y)
+        if self.tp is not None:
+            y = reduce_from_tp(y, self.tp) + self.fc2.bias.to(dt)
+        y = self.dropout(y, gen)
         return y + x if self.include_residual else y
 
 
 class TransformerEncoderBlock(nn.Module):
     """Pre-norm residual encoder block: ``x = msa(x) + x; x = mlp(x) + x``
-    (the MLP half's residual is owned by :class:`MLPBlock`)."""
+    (the MLP half's residual is owned by :class:`MLPBlock`). ``tp``: the
+    tensor-parallel process group of both halves (head-local config)."""
 
-    def __init__(self, cfg: ViTConfig):
+    def __init__(self, cfg: ViTConfig, tp=None):
         super().__init__()
-        self.msa = MultiHeadSelfAttentionBlock(cfg)
-        self.mlp = MLPBlock(cfg, include_residual=True)
+        self.msa = MultiHeadSelfAttentionBlock(cfg, tp=tp)
+        self.mlp = MLPBlock(cfg, include_residual=True, tp=tp)
 
     def forward(self, x: torch.Tensor,
                 seeds: Sequence[Optional[int]] = (None, None)

@@ -26,14 +26,15 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # library name -> its .cu source; every library also depends on the
-# shared header.
+# shared headers.
 SOURCES: Dict[str, str] = {
     "fused_mlp": "fused_mlp.cu",
     "fused_mlp_bwd": "fused_mlp_bwd.cu",
+    "fused_mlp_core": "fused_mlp_core.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
 }
-_HEADERS = ("vit_common.cuh",)
+_HEADERS = ("vit_common.cuh", "mlp_fwd.cuh", "mlp_bwd.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")

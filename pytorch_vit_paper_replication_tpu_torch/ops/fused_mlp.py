@@ -25,6 +25,21 @@ and ``dh`` cast to the compute dtype before their products, ``db1``/
 ``db2``/``dgamma``/``dbeta`` summed in f32, ``dx = dO + dx_ln`` in f32,
 GELU' = ``Phi(h) + h phi(h)`` with the A&S erf, and every gradient
 returned in the dtype of the parameter passed.
+
+The MLP core without LN and residual, ``fc2(drop0(gelu(fc1(x))))`` — the
+port of the JAX ``fused_mlp`` that manual tensor parallelism runs on each
+rank's hidden slice — is :func:`fused_mlp`: the CUDA kernels of
+``csrc/fused_mlp_core.cu`` (forward with optional saved ``h``, backward) on
+CUDA tensors, :func:`mlp_core_plain` / :func:`mlp_core_bwd_plain` on CPU
+tensors, wired by :class:`_MlpFunction`, with launch counters of their own
+(``core_launches``, ``core_bwd_launches``). Its rounding points are the
+Pallas ``_fwd_kernel``/``_bwd_kernel``'s: ``h = x @ W1 + b1`` in f32 (``h``
+saved in the compute dtype), GELU in f32, hidden dropout (tag 0, keyed on
+the flattened row and the *local* hidden column), ``g`` cast before fc2,
+``+ b2`` in f32; backward ``dg = dO W2^T`` masked and scaled, ``dh = dg
+GELU'(h)``, ``dh_c`` cast, ``dx = dh_c W1^T``, ``dW1 = x^T dh_c`` and ``dW2
+= g_c^T dO`` in f32, ``db1 = sum dh`` and ``db2 = sum dO`` over f32 values;
+``db2`` leaves in ``dO``'s dtype, the others in their parameters'.
 """
 
 from __future__ import annotations
@@ -44,11 +59,16 @@ _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 # the forward, and the backward (its four CUDA kernels count as one).
 launches = 0
 bwd_launches = 0
+# ... and of the MLP core's (csrc/fused_mlp_core.cu), counted apart.
+core_launches = 0
+core_bwd_launches = 0
 # Embedding widths D the kernel is instantiated for (S/16, B/16).
 SUPPORTED_DIMS = (384, 768)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
 _BWD_FN = None
+_CORE_FN = None
+_CORE_BWD_FN = None
 
 
 def _erf(x: torch.Tensor) -> torch.Tensor:
@@ -345,3 +365,217 @@ def fused_ln_mlp_residual(x: torch.Tensor, gamma: torch.Tensor,
         out = ln_mlp_residual_plain(*args, eps=eps, seed=seed,
                                     threshold=threshold)
     return out.reshape(x.shape)
+
+
+# --------------------------------------------------------------------------
+# The MLP core without LN and residual (JAX ``fused_mlp``)
+# --------------------------------------------------------------------------
+
+def mlp_core_plain(x2, w1, b1, w2, b2, *, seed: int, threshold: int,
+                   save_h: bool = False):
+    """The core forward kernel's arithmetic on ``[N, D]`` rows:
+    ``fc2(drop0(gelu(fc1(x))))`` with ``w1 [D, F]``, ``w2 [F, D_out]`` and
+    the biases in the compute dtype (``x2.dtype``). With ``save_h`` returns
+    ``(out, h)``, ``h`` rounded to the compute dtype."""
+    dt = x2.dtype
+    h = x2.float() @ w1.float() + b1.float()
+    h_saved = h.to(dt) if save_h else None
+    g = _gelu_exact(h)
+    if threshold:
+        keep = _keep(seed, 0, g.shape[0], g.shape[1], threshold, g.device)
+        g = torch.where(keep, g * (256.0 / (256.0 - threshold)), 0.0)
+    out = (g.to(dt).float() @ w2.float() + b2.float()).to(dt)
+    return (out, h_saved) if save_h else out
+
+
+def mlp_core_bwd_plain(x2, h, w1, b1, w2, dout, *, seed: int,
+                       threshold: int):
+    """The core backward kernel's arithmetic (the Pallas ``_bwd_kernel``
+    step by step) from the saved ``h``; returns ``(dx, dw1, db1, dw2,
+    db2)`` in the dtypes of ``x2``, ``w1``, ``b1``, ``w2`` and ``dout``."""
+    dt = x2.dtype
+    n, f = h.shape
+    h32 = h.float()
+    do32 = dout.float()
+    inv_keep = 256.0 / (256.0 - threshold)
+    g_drop = _gelu_exact(h32)
+    dg = do32 @ w2.float().t()
+    if threshold:
+        keep = _keep(seed, 0, n, f, threshold, x2.device)
+        g_drop = torch.where(keep, g_drop * inv_keep, 0.0)
+        dg = torch.where(keep, dg * inv_keep, 0.0)
+    dh = dg * _gelu_grad(h32)
+    dh_c = dh.to(dt).float()
+    dx = (dh_c @ w1.float().t()).to(dt)
+    dw1 = x2.float().t() @ dh_c
+    dw2 = g_drop.to(dt).float().t() @ do32
+    return (dx, dw1.to(w1.dtype), dh.sum(0).to(b1.dtype), dw2.to(w2.dtype),
+            do32.sum(0).to(dout.dtype))
+
+
+def _core_kernel():
+    global _CORE_FN
+    if _CORE_FN is None:
+        fn = _build.load("fused_mlp_core").vit_mlp_fwd
+        p = ctypes.c_void_p
+        fn.argtypes = [ctypes.c_int] + [p] * 7 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
+            ctypes.c_int, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+        _CORE_FN = fn
+    return _CORE_FN
+
+
+def _core_bwd_kernel():
+    global _CORE_BWD_FN
+    if _CORE_BWD_FN is None:
+        fn = _build.load("fused_mlp_core").vit_mlp_bwd
+        p = ctypes.c_void_p
+        fn.argtypes = [ctypes.c_int] + [p] * 12 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
+            ctypes.c_int, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+        _CORE_BWD_FN = fn
+    return _CORE_BWD_FN
+
+
+def _check_core(x2, w1, w2, **rest):
+    """Raise unless the operands are what the core kernels take; ``rest``
+    holds any of ``b1``, ``b2``, ``h``, ``dout``."""
+    n, d = x2.shape
+    f = w1.shape[1]
+    dt = x2.dtype
+    if dt not in _DTYPE_CODE:
+        raise TypeError(f"fused_mlp kernel takes float32 or bfloat16, got "
+                        f"{dt}")
+    if d not in SUPPORTED_DIMS:
+        raise ValueError(f"fused_mlp kernel is built for D in "
+                         f"{SUPPORTED_DIMS}, got {d}")
+    if f % 64:
+        raise ValueError(f"fused_mlp kernel needs a hidden width % 64 == 0, "
+                         f"got {f}")
+    shapes = {"w1": (d, f), "w2": (f, d), "b1": (f,), "b2": (d,),
+              "h": (n, f), "dout": (n, d)}
+    for name, t in dict(w1=w1, w2=w2, **rest).items():
+        if t.device != x2.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x2.device}")
+        if tuple(t.shape) != shapes[name] or t.dtype != dt:
+            raise ValueError(f"{name} must be {dt} {shapes[name]} (the "
+                             f"kernel takes D_out = D), got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _launch_core(x2, w1, b1, w2, b2, *, seed, threshold,
+                 save_h: bool = False):
+    """Validate and launch the core forward kernel on ``[N, D]`` rows; with
+    ``save_h`` returns ``(out, h)``."""
+    global core_launches
+    _check_core(x2, w1, w2, b1=b1, b2=b2)
+    n, d = x2.shape
+    f = w1.shape[1]
+    out = torch.empty_like(x2)
+    h = x2.new_empty((n, f)) if save_h else None
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    with torch.cuda.device(x2.device):
+        err = _core_kernel()(
+            _DTYPE_CODE[x2.dtype], x2.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            h.data_ptr() if save_h else None, n, d, f, seed & 0xFFFFFFFF,
+            threshold, 256.0 / (256.0 - threshold), stream)
+    _build.check(err, "vit_mlp_fwd")
+    core_launches += 1
+    return (out, h) if save_h else out
+
+
+def _launch_core_bwd(x2, h, w1, b1, w2, dout, *, seed, threshold):
+    """Validate and launch the core backward kernels; returns the five
+    gradients as :func:`mlp_core_bwd_plain` does."""
+    global core_bwd_launches
+    n, d = x2.shape
+    f = w1.shape[1]
+    _check_core(x2, w1, w2, h=h, dout=dout)
+    f32 = dict(dtype=torch.float32, device=x2.device)
+    dx = torch.empty_like(x2)
+    dw1 = torch.empty((d, f), **f32)
+    dw2 = torch.empty((f, d), **f32)
+    db1 = torch.empty(f, **f32)
+    db2 = torch.empty(d, **f32)
+    work = x2.new_empty(2 * n * f)
+    partials = torch.empty(-(-n // 32) * (d + f), **f32)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    with torch.cuda.device(x2.device):
+        err = _core_bwd_kernel()(
+            _DTYPE_CODE[x2.dtype], x2.data_ptr(), h.data_ptr(),
+            w1.data_ptr(), w2.data_ptr(), dout.data_ptr(), dx.data_ptr(),
+            dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
+            work.data_ptr(), partials.data_ptr(), n, d, f,
+            seed & 0xFFFFFFFF, threshold, 256.0 / (256.0 - threshold),
+            stream)
+    _build.check(err, "vit_mlp_bwd")
+    core_bwd_launches += 1
+    return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+            db2.to(dout.dtype))
+
+
+class _MlpFunction(torch.autograd.Function):
+    """The JAX ``custom_vjp`` of ``_fused``: saves ``(x, h, W1, b1, W2)``
+    and the seed; the backward is one kernel call on CUDA, the plain
+    version on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2, seed: int, threshold: int):
+        kw = dict(seed=seed, threshold=threshold, save_h=True)
+        if x2.is_cuda:
+            out, h = _launch_core(x2, w1, b1, w2, b2, **kw)
+        else:
+            out, h = mlp_core_plain(x2, w1, b1, w2, b2, **kw)
+        ctx.save_for_backward(x2, h, w1, b1, w2)
+        ctx.seed, ctx.threshold = seed, threshold
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x2, h, w1, b1, w2 = ctx.saved_tensors
+        kw = dict(seed=ctx.seed, threshold=ctx.threshold)
+        if x2.is_cuda:
+            grads = _launch_core_bwd(x2, h, w1, b1, w2, dout.contiguous(),
+                                     **kw)
+        else:
+            grads = mlp_core_bwd_plain(x2, h, w1, b1, w2, dout, **kw)
+        return (*grads, None, None)
+
+
+def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor, b2: torch.Tensor, *,
+              dropout_rate: float = 0.0, seed: Optional[int] = None,
+              deterministic: bool = True) -> torch.Tensor:
+    """Fused ``gelu(x @ w1 + b1) -> dropout -> @ w2 + b2`` over ``[..., D]``
+    input (the JAX ``fused_mlp``); returns ``[..., D_out]`` in ``x.dtype``.
+
+    ``w1 [D, F]``, ``b1 [F]``, ``w2 [F, D_out]``, ``b2 [D_out]`` in the
+    compute dtype. ``dropout_rate`` applies to the hidden activation when
+    not ``deterministic``; ``seed`` is its int32 positional-hash seed. CPU
+    tensors run the plain PyTorch version (any ``D_out``); CUDA tensors
+    launch the kernel (``D_out = D`` in ``SUPPORTED_DIMS``) or raise.
+    Inputs that require grad go through :class:`_MlpFunction`.
+    """
+    *lead, d = x.shape
+    threshold = 0
+    if not deterministic and dropout_rate > 0.0:
+        threshold = _threshold(dropout_rate)
+    if threshold and seed is None:
+        raise ValueError("fused_mlp dropout needs a seed")
+    seed = int(seed or 0)
+    x2 = x.reshape(-1, d)
+    if x.is_cuda:
+        x2 = x2.contiguous()
+    args = (x2, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        out = _MlpFunction.apply(*args, seed, threshold)
+    elif x.is_cuda:
+        out = _launch_core(*args, seed=seed, threshold=threshold)
+    else:
+        out = mlp_core_plain(*args, seed=seed, threshold=threshold)
+    return out.reshape(*lead, w2.shape[1])

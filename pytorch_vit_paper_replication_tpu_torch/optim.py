@@ -68,8 +68,40 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms)).float()
 
 
+def sharded_global_norm(grads: Mapping[str, torch.Tensor],
+                        mesh) -> torch.Tensor:
+    """:func:`global_norm` of the whole unsharded gradient, from one rank's
+    local gradients on a dp x tp x pp ``mesh`` (collective over its
+    ``model`` and ``pipe`` groups). Squares are summed in f64: a leaf
+    sharded over ``model`` (its TP rule names the axis) is summed over
+    ``model`` and ``pipe``; the other encoder-block leaves (LayerNorms, the
+    replicated out/fc2 biases) over ``pipe`` only, as each stage owns its
+    layers; the replicated embedding and tail count once. A per-rank norm
+    would clip each shard by a different factor."""
+    from .parallel.collectives import all_reduce
+    from .parallel.sharding import block_index, pspec_for_path
+
+    names = list(grads)
+    sq = torch.stack(torch._foreach_norm(
+        [grads[n].float() for n in names], 2, dtype=torch.float64)).square()
+    kinds = torch.tensor([0 if block_index(n) is None else
+                          2 if "model" in pspec_for_path(n) else 1
+                          for n in names], device=sq.device)
+    once, staged, sharded = (sq[kinds == k].sum() for k in range(3))
+    if mesh.shape["model"] > 1:
+        sharded = all_reduce(sharded, mesh.groups["model"])
+    staged = staged + sharded
+    if mesh.shape["pipe"] > 1:
+        staged = all_reduce(staged, mesh.groups["pipe"])
+    return torch.sqrt(once + staged).float()
+
+
 def decay_mask(params: Mapping[str, torch.Tensor]) -> Dict[str, bool]:
-    """True for params that receive weight decay: ``ndim > 1``."""
+    """True for params that receive weight decay: ``ndim > 1``. The
+    port's pipeline keeps one module per layer (no stacked ``[L]`` axis),
+    so this rule also holds there, where the JAX package needs
+    ``pipeline_decay_mask``; a tensor-parallel slice has its full
+    parameter's ``ndim``."""
     return {name: p.ndim > 1 for name, p in params.items()}
 
 
@@ -118,8 +150,17 @@ class RecipeOptimizer:
 
     @torch.no_grad()
     def apply(self, params: Mapping[str, torch.Tensor],
-              grads: Mapping[str, torch.Tensor], state: OptState) -> bool:
-        """One (micro-)step; returns whether params were updated."""
+              grads: Mapping[str, torch.Tensor], state: OptState, *,
+              norm: Optional[torch.Tensor] = None) -> bool:
+        """One (micro-)step; returns whether params were updated. ``norm``
+        is the clip's norm of the trainable gradients when the caller has
+        it (a sharded step passes the norm of the unsharded gradient), else
+        :func:`global_norm` of ``grads``; with accumulation the clip takes
+        the norm of the accumulated mean, so ``norm`` must be None."""
+        if norm is not None and self.accum > 1:
+            raise ValueError("norm= is the norm of this step's gradient; "
+                             "with grad_accum_steps > 1 the clip takes the "
+                             "norm of the accumulated mean")
         names = list(state.mu)
         gs = [grads[n].float() for n in names]
         if self.accum > 1:
@@ -136,7 +177,8 @@ class RecipeOptimizer:
                 a.zero_()
             state.mini_step = 0
         cfg = self.cfg
-        norm = global_norm(gs)
+        if norm is None:
+            norm = global_norm(gs)
         clipped = [torch.where(norm < cfg.grad_clip_norm, g,
                                g / norm * cfg.grad_clip_norm) for g in gs]
         mask = decay_mask({n: params[n] for n in names})

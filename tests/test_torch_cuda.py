@@ -303,3 +303,134 @@ def test_remat_on_cuda_gives_identical_grads(dev):
     assert fwd == [2, 4]          # remat recomputes each block's forward
     for name, g in grads[0].items():
         assert torch.equal(g, grads[1][name]), name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("threshold", [0, 26])
+@pytest.mark.parametrize("n,d,f", [(1, 384, 1536), (100, 768, 1536),
+                                   (70, 768, 3072)])
+def test_fused_mlp_core_kernel_matches_plain(dev, dtype, threshold, n, d, f):
+    """The MLP core forward (row 6), with and without the saved h, against
+    its plain version; the hidden keep mask, recovered by feeding ones
+    (x = 0, w1 = 0, b1 = 1, w2 = a one-hot column block), bit for bit."""
+    from pytorch_vit_paper_replication_tpu_torch.ops import fused_mlp
+    p = _mlp_args(dev, dtype, n, d, f, seed=n + threshold)
+    args = (p["x2"], p["w1"], p["b1"], p["w2"], p["b2"])
+    kw = dict(seed=-321, threshold=threshold)
+    before = fused_mlp.core_launches
+    out = fused_mlp._launch_core(*args, **kw)
+    out_h, h = fused_mlp._launch_core(*args, **kw, save_h=True)
+    assert fused_mlp.core_launches == before + 2
+    ref, h_ref = fused_mlp.mlp_core_plain(*args, **kw, save_h=True)
+    assert torch.equal(out, out_h)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert _rel(h, h_ref) < TOL[dtype]
+    if threshold:
+        ones = dict(x2=torch.zeros_like(p["x2"]),
+                    w1=torch.zeros_like(p["w1"]),
+                    b1=torch.ones_like(p["b1"]),
+                    b2=torch.zeros_like(p["b2"]))
+        for k in range(f // d):
+            sel = torch.zeros_like(p["w2"])
+            sel[k * d:(k + 1) * d] = torch.eye(d, dtype=dtype, device=dev)
+            a = fused_mlp._launch_core(**ones, w2=sel, **kw) == 0
+            b = fused_mlp.mlp_core_plain(**ones, w2=sel, **kw) == 0
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("threshold", [0, 26])
+@pytest.mark.parametrize("n,d,f", [(1, 384, 1536), (100, 768, 1536)])
+def test_fused_mlp_core_bwd_kernel_matches_plain(dev, dtype, threshold, n, d,
+                                                 f):
+    """The MLP core backward (row 7) against its plain version, each
+    gradient relative to its largest element; two launches bitwise
+    equal."""
+    from pytorch_vit_paper_replication_tpu_torch.ops import fused_mlp
+    p = _mlp_args(dev, dtype, n, d, f, seed=7 * n + threshold)
+    kw = dict(seed=99, threshold=threshold)
+    _, h = fused_mlp.mlp_core_plain(p["x2"], p["w1"], p["b1"], p["w2"],
+                                    p["b2"], **kw, save_h=True)
+    dout = torch.randn(n, d, generator=torch.Generator().manual_seed(2)).to(
+        dev, dtype)
+    args = (p["x2"], h, p["w1"], p["b1"], p["w2"], dout)
+    before = fused_mlp.core_bwd_launches
+    got = fused_mlp._launch_core_bwd(*args, **kw)
+    again = fused_mlp._launch_core_bwd(*args, **kw)
+    want = fused_mlp.mlp_core_bwd_plain(*args, **kw)
+    assert fused_mlp.core_bwd_launches == before + 2
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == c.dtype and a.shape == c.shape
+        assert torch.equal(a, b)
+        assert _rel(a, c) < TOL[dtype]
+
+
+def test_fused_mlp_core_autograd_matches_cpu(dev):
+    """``fused_mlp`` through ``_MlpFunction`` on the card (kernels) and on
+    the CPU (plain versions), f32 with hidden dropout: outputs and the
+    five gradients agree within 1e-4 relative."""
+    from pytorch_vit_paper_replication_tpu_torch.ops import fused_mlp
+    p = _mlp_args(torch.device("cpu"), torch.float32, 45, seed=5)
+    names = ("x2", "w1", "b1", "w2", "b2")
+
+    def run(device):
+        leaves = [p[k].to(device).requires_grad_() for k in names]
+        out = fused_mlp.fused_mlp(*leaves, dropout_rate=0.1, seed=8,
+                                  deterministic=False)
+        out.square().sum().backward()
+        return out.detach().cpu(), [t.grad.cpu() for t in leaves]
+
+    b0 = fused_mlp.core_bwd_launches
+    got, got_g = run(dev)
+    assert fused_mlp.core_bwd_launches == b0 + 1
+    want, want_g = run(torch.device("cpu"))
+    assert _rel(got, want) < 1e-4
+    for a, c in zip(got_g, want_g):
+        assert _rel(a, c) < 1e-4
+
+
+def test_tp_blocks_on_card_match_single_process(dev):
+    """Two gloo ranks sharing the card run the tensor-parallel MLPBlock
+    (standalone) and TransformerEncoderBlock, f32, D = 384: every rank
+    launches the MLP core kernels on its hidden half (1536 / 2), and the
+    outputs, the input gradients and the assembled parameter gradients
+    equal the single-process blocks on the card (which run the MLP core
+    and the LN-MLP kernels on the full width) within 1e-4 of each
+    tensor's largest element."""
+    import torch_parallel_worker as worker
+    from pytorch_vit_paper_replication_tpu_torch.configs import MeshConfig
+    from pytorch_vit_paper_replication_tpu_torch.convert import seeded_params
+    from pytorch_vit_paper_replication_tpu_torch.parallel import (sharding,
+                                                                  spawn)
+    fields = dict(image_size=32, patch_size=8, num_layers=1, num_heads=6,
+                  embedding_dim=384, mlp_size=1536, num_classes=3,
+                  dtype="float32", attn_dropout=0.0, mlp_dropout=0.0,
+                  embedding_dropout=0.0)
+    from pytorch_vit_paper_replication_tpu_torch.configs import ViTConfig
+    state = seeded_params(ViTConfig(**fields), 4)
+    rng = np.random.default_rng(1)
+    block = {k.split(".", 2)[2]: (v.numpy() + 0.05 * rng.standard_normal(
+        v.shape)).astype(np.float32) for k, v in state.items()
+        if k.startswith("backbone.encoder_block_0.")}
+    mlp = {k[len("mlp."):]: v for k, v in block.items()
+           if k.startswith("mlp.")}
+    x = rng.standard_normal((2, 50, 384)).astype(np.float32)
+    ct = rng.standard_normal((2, 50, 384)).astype(np.float32)
+    ranks = spawn(worker.tp_blocks, MeshConfig(data=1, model=2),
+                  device="cuda", timeout_s=300, args=(fields, mlp, block, x,
+                                                      ct))
+    want = worker.single_blocks(fields, mlp, block, x, ct, dev)
+    for name in ("mlp", "block"):
+        for r in ranks:
+            assert r["core_launches"] == (2, 2)
+            out, _, dx = r[name]
+            assert _rel(torch.from_numpy(out),
+                        torch.from_numpy(want[name][0])) < 1e-4
+            assert _rel(torch.from_numpy(dx),
+                        torch.from_numpy(want[name][2])) < 1e-4
+        full = sharding.assemble_state_dict([(r["coords"], {
+            k: torch.from_numpy(v) for k, v in r[name][1].items()})
+            for r in ranks])
+        for k, g in want[name][1].items():
+            assert _rel(full[k], torch.from_numpy(g)) < 1e-4, k

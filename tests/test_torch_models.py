@@ -147,11 +147,48 @@ def test_port_config_mirrors_jax_config():
 
 
 def test_fused_mlp_without_residual_refuses():
+    """The standalone fused ``MLPBlock`` (``include_residual=False``, the
+    reference's own contract), which the port once refused, now runs the
+    MLP core (plain version on the CPU) and equals JAX's ``MLPBlock(cfg,
+    mlp_impl="fused")`` (Pallas core in interpret mode): f32 forward
+    within 1e-4, and every parameter's and the input's gradient within
+    2e-3 of its largest element."""
+    from pytorch_vit_paper_replication_tpu.models.vit import (
+        MLPBlock as JMLPBlock)
     from pytorch_vit_paper_replication_tpu_torch.models.vit import MLPBlock
-    blk = MLPBlock(tcfg.ViTConfig(**SMALL, mlp_impl="fused"),
-                   include_residual=False)
-    with pytest.raises(NotImplementedError):
-        blk(torch.zeros(1, 3, 64))
+    jcfg = JCfg(**SMALL, dtype="float32", mlp_impl="fused")
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 17, 64)).astype(np.float32)
+    jblk = JMLPBlock(jcfg)
+    params = jblk.init(jax.random.key(1), jnp.asarray(x))["params"]
+    leaves, tree = jax.tree_util.tree_flatten(params)
+    params = jax.tree_util.tree_unflatten(tree, [
+        np.asarray(a) + 0.05 * rng.standard_normal(a.shape).astype(np.float32)
+        for a in leaves])
+    ct = rng.standard_normal((2, 17, 64)).astype(np.float32)
+
+    def jloss(p, xx):
+        return (jblk.apply({"params": p}, xx) * ct).sum()
+
+    want = np.asarray(jax.jit(jblk.apply)({"params": params},
+                                          jnp.asarray(x)))
+    jg_p, jg_x = jax.jit(jax.grad(jloss, argnums=(0, 1)))(params,
+                                                          jnp.asarray(x))
+    blk = MLPBlock(tcfg.ViTConfig(**SMALL, dtype="float32", mlp_impl="fused"),
+                   include_residual=False).eval()
+    blk.load_state_dict(params_from_flax(params))
+    xt = torch.from_numpy(x).requires_grad_()
+    got = blk(xt)
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-4,
+                               rtol=1e-4)
+    (got * torch.from_numpy(ct)).sum().backward()
+    want_g = {**{k: np.asarray(v) for k, v in flatten_tree(jg_p).items()},
+              "x": np.asarray(jg_x)}
+    got_g = {**{k.replace(".", "/"): p.grad.numpy()
+                for k, p in blk.named_parameters()}, "x": xt.grad.numpy()}
+    assert set(got_g) == set(want_g)
+    for k, w in want_g.items():
+        assert np.abs(got_g[k] - w).max() <= 2e-3 * np.abs(w).max(), k
 
 
 def test_params_to_flax_roundtrip_on_jax_tree():

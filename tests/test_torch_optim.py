@@ -125,3 +125,23 @@ def test_grad_accumulation_matches_optax_multisteps():
     for name, w in want.items():
         np.testing.assert_allclose(got[name].numpy(), w, rtol=1e-5,
                                    atol=1e-6, err_msg=name)
+
+
+def test_apply_with_the_callers_norm_equals_its_own():
+    """``apply(..., norm=)`` (a sharded step's clip norm) updates exactly
+    as ``apply`` computing the norm itself, above the clip too; with
+    accumulation the clip needs the mean's norm, so ``norm=`` raises."""
+    rng = np.random.default_rng(3)
+    params = params_from_flax(_tree(rng))
+    grads = {k: torch.from_numpy(10.0 * rng.standard_normal(
+        tuple(v.shape)).astype(np.float32)) for k, v in params.items()}
+    out = []
+    for norm in (None, toptim.global_norm(grads.values())):
+        tx = toptim.make_optimizer(TrainConfig(weight_decay=0.3), 10)
+        p = {k: v.clone() for k, v in params.items()}
+        tx.apply(p, grads, tx.init(p), norm=norm)
+        out.append(p)
+    assert all(torch.equal(out[0][k], out[1][k]) for k in params)
+    tx = toptim.make_optimizer(TrainConfig(), 10, grad_accum_steps=2)
+    with pytest.raises(ValueError, match="accumulated mean"):
+        tx.apply(params, grads, tx.init(params), norm=torch.tensor(1.0))
