@@ -20,10 +20,14 @@ final ``ok`` line is never printed:
              flash dq and dk/dv: bf16, T in {197, 577}, t = 0 and 26) are
              held against their plain versions per output and must be
              bitwise deterministic over two launches; the ``save_h``
-             forward's h against the plain h. Times come from CUDA events;
-             the flash backward is timed beside the backward of
-             ``F.scaled_dot_product_attention`` (timed only, never called
-             by the port).
+             forward's h against the plain h. The flash kernels also run
+             one f32 case (T = 197, t = 0: the SIMT kernels f32 keeps) at
+             1e-4, and the phase counts the HGMMA (wgmma) instructions that
+             ``cuobjdump -sass`` finds in the bf16 forward and dk/dv kernels
+             (raises on 0). Times come from CUDA events; each row prints
+             ``bound_share`` = bound / kernel time; the flash kernels are
+             timed beside ``F.scaled_dot_product_attention`` forward and
+             backward (timed only, never called by the port).
 3. serve   — a seeded ViT-B/16 export (1000 classes) served through
              ``InferenceEngine.from_checkpoint(..., device="cuda")`` with
              the ladder 1,8,32 and ~40 requests over the probs / features /
@@ -39,7 +43,9 @@ final ``ok`` line is never printed:
              launch counters are set to 0 right before each run and read
              right after; losses and grad norms must be finite and the loss
              must fall. Then step time, img/s and a ``torch.profiler``
-             breakdown of one step, and one f32 step of a 2-layer B/16 on
+             breakdown of one step of each run (the flash step's with the
+             device time of the wrapper's ``_fold_heads`` copies of q, k,
+             v), and one f32 step of a 2-layer B/16 on
              the card against the same step through the plain versions on
              the CPU: loss, gradients and the updated params.
 5. parallel — the data x tensor x pipeline path through the port's
@@ -134,6 +140,37 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20):
+    """Device time per call of ``fn``: CUDA events around ``reps`` calls
+    queued behind a spin kernel of 10^8 cycles (over 50 ms), so the card
+    runs them back to back and the host's time between launches (which
+    :func:`time_ms` of a small kernel includes) drops out. None when
+    queueing the calls outlasted the spin (then it would count again)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued_s = time.perf_counter() - t0
+    end.synchronize()
+    return start.elapsed_time(end) / reps if queued_s < 0.04 else None
+
+
+def dev_us(e, total: bool = False) -> float:
+    """Device microseconds of a ``torch.profiler`` average: its own, or
+    with ``total`` its own and its children's."""
+    names = (("device_time_total", "cuda_time_total") if total else
+             ("self_device_time_total", "self_cuda_time_total"))
+    return float(next((getattr(e, n) for n in names if getattr(e, n, None)),
+                      0) or 0)
 
 
 def bound(flops: float, nbytes: float, flop_rate: float, byte_rate: float):
@@ -303,73 +340,86 @@ def check_fused_mlp_bwd(gen, card_peaks, dev):
 
 
 def check_flash_bwd(gen, card_peaks, dev):
-    """The dq and dk/dv kernels at B = 32, H = 12, Dh = 64, bf16, against
-    the plain backward (f32 math), tolerance 2e-2 relative to each
-    gradient's largest element; two launches must be bitwise equal."""
+    """The dq and dk/dv kernels at B = 32, H = 12, Dh = 64 (FLASH_CASES)
+    against the plain backward (f32 math), tolerance 2e-2 (bf16) / 1e-4
+    (f32) relative to each gradient's largest element; two launches must
+    be bitwise equal."""
     import torch
     import torch.nn.functional as F
     from pytorch_vit_paper_replication_tpu_torch.ops import (
         flash_attention as fa)
     b, h, dh = 32, 12, 64
-    bf16_rate, _, hbm = card_peaks
+    bf16_rate, f32_rate, hbm = card_peaks
     rows = []
-    for t_len in (197, 577):
-        for t in (0, 26):
-            q, k, v, do = [torch.randn(b * h, t_len, dh, generator=gen).to(
-                dev, torch.bfloat16) for _ in range(4)]
-            kw = dict(seed=4242, threshold=t)
-            with torch.inference_mode():
-                out, lse = fa._launch(q, k, v, **kw)
-                delta = (do.float() * out.float()).sum(-1)
-                bwd = (q, k, v, do, lse, delta)
-                dq = fa._launch_bwd_dq(*bwd, **kw)
-                dk, dv = fa._launch_bwd_dkv(*bwd, **kw)
-                dq2 = fa._launch_bwd_dq(*bwd, **kw)
-                dk2, dv2 = fa._launch_bwd_dkv(*bwd, **kw)
-                torch.cuda.synchronize()
-                if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
-                        and torch.equal(dv, dv2)):
-                    raise AssertionError("flash backward not deterministic")
-                want = fa.flash_attention_bwd_plain(*bwd, **kw)
-                errs = {g: rel_err(a, c) for g, a, c in
-                        zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
-                abs_err = {g: (a.float() - c.float()).abs().max().item()
-                           for g, a, c in zip(("dq", "dk", "dv"),
-                                              (dq, dk, dv), want)}
-                if max(errs.values()) > 2e-2:
-                    raise AssertionError(f"flash backward T={t_len} t={t}: "
-                                         f"{errs} exceed 2e-2")
-                dq_ms = time_ms(lambda: fa._launch_bwd_dq(*bwd, **kw), 20)
-                dkv_ms = time_ms(lambda: fa._launch_bwd_dkv(*bwd, **kw), 20)
-                plain_ms = time_ms(
-                    lambda: fa.flash_attention_bwd_plain(*bwd, **kw), 3)
-            q4, k4, v4 = (a.view(b, h, t_len, dh).detach().requires_grad_()
-                          for a in (q, k, v))
-            o4 = F.scaled_dot_product_attention(q4, k4, v4,
-                                                dropout_p=t / 256.0)
-            do4 = do.view(b, h, t_len, dh)
-            lib_ms = time_ms(lambda: torch.autograd.grad(
-                o4, (q4, k4, v4), do4, retain_graph=True), 20)
-            elem = b * h * t_len * dh
-            io = 4 * elem * 2 + 2 * b * h * t_len * 4
-            dq_b = bound(6.0 * b * h * t_len * t_len * dh, io + elem * 2,
-                         bf16_rate, hbm)
-            dkv_b = bound(8.0 * b * h * t_len * t_len * dh, io + 2 * elem * 2,
-                          bf16_rate, hbm)
-            lib_b = bound(10.0 * b * h * t_len * t_len * dh,
-                          io + 3 * elem * 2, bf16_rate, hbm)
-            row = {"phase": "kernels", "kernel": "flash_attention_bwd",
-                   "dtype": "bfloat16", "threshold": t,
-                   "shape": [b, t_len, h, dh], "max_rel_err": errs,
-                   "max_abs_err": abs_err, "tolerance_rel": 2e-2,
-                   "deterministic": True, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
-                   "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "dq_bound_ms": dq_b[0], "dq_bound_by": dq_b[1],
-                   "dkv_bound_ms": dkv_b[0], "dkv_bound_by": dkv_b[1],
-                   "bwd_bound_ms": lib_b[0]}
-            emit(row)
-            rows.append(row)
-            del q4, k4, v4, o4
+    for t_len, t, dt in FLASH_CASES:
+        q, k, v, do = [torch.randn(b * h, t_len, dh, generator=gen).to(
+            dev, getattr(torch, dt)) for _ in range(4)]
+        kw = dict(seed=4242, threshold=t)
+        with torch.inference_mode():
+            out, lse = fa._launch(q, k, v, **kw)
+            delta = (do.float() * out.float()).sum(-1)
+            bwd = (q, k, v, do, lse, delta)
+            dq = fa._launch_bwd_dq(*bwd, **kw)
+            dk, dv = fa._launch_bwd_dkv(*bwd, **kw)
+            dq2 = fa._launch_bwd_dq(*bwd, **kw)
+            dk2, dv2 = fa._launch_bwd_dkv(*bwd, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                    and torch.equal(dv, dv2)):
+                raise AssertionError("flash backward not deterministic")
+            want = fa.flash_attention_bwd_plain(*bwd, **kw)
+            errs = {g: rel_err(a, c) for g, a, c in
+                    zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+            abs_err = {g: (a.float() - c.float()).abs().max().item()
+                       for g, a, c in zip(("dq", "dk", "dv"),
+                                          (dq, dk, dv), want)}
+            if max(errs.values()) > TOL[dt]:
+                raise AssertionError(f"flash backward {dt} T={t_len} t={t}: "
+                                     f"{errs} exceed {TOL[dt]}")
+            dq_ms = time_ms(lambda: fa._launch_bwd_dq(*bwd, **kw), 20)
+            dkv_ms = time_ms(lambda: fa._launch_bwd_dkv(*bwd, **kw), 20)
+            dq_dev = device_ms(lambda: fa._launch_bwd_dq(*bwd, **kw))
+            dkv_dev = device_ms(lambda: fa._launch_bwd_dkv(*bwd, **kw))
+            plain_ms = time_ms(
+                lambda: fa.flash_attention_bwd_plain(*bwd, **kw), 3)
+        q4, k4, v4 = (a.view(b, h, t_len, dh).detach().requires_grad_()
+                      for a in (q, k, v))
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, dropout_p=t / 256.0)
+        do4 = do.view(b, h, t_len, dh)
+
+        def lib():
+            return torch.autograd.grad(o4, (q4, k4, v4), do4,
+                                       retain_graph=True)
+        lib_ms = time_ms(lib, 20)
+        lib_dev = device_ms(lib)
+        elem, size = b * h * t_len * dh, q.element_size()
+        rate = bf16_rate if dt == "bfloat16" else f32_rate
+        io = 4 * elem * size + 2 * b * h * t_len * 4
+        dq_b = bound(6.0 * b * h * t_len * t_len * dh, io + elem * size,
+                     rate, hbm)
+        dkv_b = bound(8.0 * b * h * t_len * t_len * dh,
+                      io + 2 * elem * size, rate, hbm)
+        lib_b = bound(10.0 * b * h * t_len * t_len * dh,
+                      io + 3 * elem * size, rate, hbm)
+        row = {"phase": "kernels", "kernel": "flash_attention_bwd",
+               "design": {"dq": "simt", "dkv": FLASH_DESIGN[dt]},
+               "dtype": dt, "threshold": t,
+               "shape": [b, t_len, h, dh], "max_rel_err": errs,
+               "max_abs_err": abs_err, "tolerance_rel": TOL[dt],
+               "deterministic": True, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "dq_bound_ms": dq_b[0], "dq_bound_by": dq_b[1],
+               "dq_bound_share": dq_b[0] / dq_ms,
+               "dkv_bound_ms": dkv_b[0], "dkv_bound_by": dkv_b[1],
+               "dkv_bound_share": dkv_b[0] / dkv_ms,
+               "dq_device_ms": dq_dev, "dkv_device_ms": dkv_dev,
+               "library_device_ms": lib_dev,
+               "dkv_device_bound_share": (dkv_b[0] / dkv_dev if dkv_dev
+                                          else None),
+               "bwd_bound_ms": lib_b[0]}
+        emit(row)
+        rows.append(row)
+        del q4, k4, v4, o4
     return rows
 
 
@@ -566,45 +616,93 @@ def fused_mlp_masks(p, kw, dev) -> bool:
     return True
 
 
+# The flash cases: bf16 (the wgmma kernels) at the B/16 shapes, dropout
+# off and at t = 26, and one f32 case (the SIMT kernels).
+FLASH_CASES = [(t_len, t, "bfloat16") for t_len in (197, 577)
+               for t in (0, 26)] + [(197, 0, "float32")]
+FLASH_DESIGN = {"bfloat16": "wgmma+tma", "float32": "simt"}
+
+
+def hgmma_counts() -> dict:
+    """HGMMA (wgmma) instructions per kernel function of the built flash
+    libraries, read from ``cuobjdump -sass``; raises if the bf16 forward
+    (``vit_flash_fwd``) or dk/dv (``vit_flash_bwd_dkv``) kernels have
+    none."""
+    import re
+    from pytorch_vit_paper_replication_tpu_torch.ops import _build
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    per_fn = {}
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(_build.library_path(lib))],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                m = re.search(r"(flash_(?:fwd|bwd)_\w+?)I\w*?Li(\d+)E",
+                              line)
+                fn = f"{m.group(1)}<{m.group(2)}>" if m else line.split(
+                    "Function :")[1].strip()
+                per_fn.setdefault(fn, 0)
+            elif fn is not None and "HGMMA" in line:
+                per_fn[fn] += 1
+    out = {"vit_flash_fwd": sum(n for f, n in per_fn.items()
+                                if "flash_fwd_wgmma" in f),
+           "vit_flash_bwd_dkv": sum(n for f, n in per_fn.items()
+                                    if "flash_bwd_dkv_wgmma" in f)}
+    if not all(out.values()):
+        raise AssertionError(f"no HGMMA in a bf16 flash kernel: {per_fn}")
+    return {**out, "per_function": per_fn}
+
+
 def check_flash(gen, card_peaks, dev):
     import torch
     import torch.nn.functional as F
     from pytorch_vit_paper_replication_tpu_torch.ops import (
         flash_attention as fa)
+    emit({"phase": "kernels", "check": "hgmma", "counts": hgmma_counts()})
     b, h, dh = 32, 12, 64
-    bf16_rate, _, hbm = card_peaks
+    bf16_rate, f32_rate, hbm = card_peaks
     rows = []
-    for t_len in (197, 577):
-        for t in (0, 26):
-            q, k, v = [torch.randn(b * h, t_len, dh, generator=gen).to(
-                dev, torch.bfloat16) for _ in range(3)]
-            kw = dict(seed=777, threshold=t)
-            with torch.inference_mode():
-                out, lse = fa._launch(q, k, v, **kw)
-                torch.cuda.synchronize()
-                ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw)
-                err = close(out, ref, TOL["bfloat16"])
-                lse_err = close(lse, ref_lse, 1e-4)
-                ms = time_ms(lambda: fa._launch(q, k, v, **kw), 20)
-                plain_ms = time_ms(
-                    lambda: fa.flash_attention_plain(q, k, v, **kw), 5)
-                q4, k4, v4 = (a.view(b, h, t_len, dh) for a in (q, k, v))
-                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                    q4, k4, v4, dropout_p=t / 256.0), 20)
-            nbytes = 4 * b * h * t_len * dh * 2 + b * h * t_len * 4
-            b_ms, b_by = bound(4.0 * b * h * t_len * t_len * dh, nbytes,
-                               bf16_rate, hbm)
-            row = {"phase": "kernels", "kernel": "flash_attention",
-                   "dtype": "bfloat16", "threshold": t,
-                   "shape": [b, t_len, h, dh], "max_abs_err": err,
-                   "lse_max_abs_err": lse_err,
-                   "tolerance": TOL["bfloat16"], "kernel_ms": ms,
-                   "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": b_ms, "bound_by": b_by}
-            if t:
-                row["masks_bit_identical"] = flash_masks(t_len, kw, dev)
-            emit(row)
-            rows.append(row)
+    for t_len, t, dt in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = [torch.randn(b * h, t_len, dh, generator=gen).to(
+            dev, dtype) for _ in range(3)]
+        kw = dict(seed=777, threshold=t)
+        with torch.inference_mode():
+            out, lse = fa._launch(q, k, v, **kw)
+            torch.cuda.synchronize()
+            ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw)
+            err = close(out, ref, TOL[dt])
+            lse_err = close(lse, ref_lse, 1e-4)
+            ms = time_ms(lambda: fa._launch(q, k, v, **kw), 20)
+            plain_ms = time_ms(
+                lambda: fa.flash_attention_plain(q, k, v, **kw), 5)
+            q4, k4, v4 = (a.view(b, h, t_len, dh) for a in (q, k, v))
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    q4, k4, v4, dropout_p=t / 256.0)
+            lib_ms = time_ms(lib, 20)
+            k_dev = device_ms(lambda: fa._launch(q, k, v, **kw))
+            lib_dev = device_ms(lib)
+        size = q.element_size()
+        nbytes = 4 * b * h * t_len * dh * size + b * h * t_len * 4
+        b_ms, b_by = bound(4.0 * b * h * t_len * t_len * dh, nbytes,
+                           bf16_rate if dt == "bfloat16" else f32_rate, hbm)
+        row = {"phase": "kernels", "kernel": "flash_attention",
+               "design": FLASH_DESIGN[dt], "dtype": dt, "threshold": t,
+               "shape": [b, t_len, h, dh], "max_abs_err": err,
+               "lse_max_abs_err": lse_err, "tolerance": TOL[dt],
+               "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "bound_share": b_ms / ms, "kernel_device_ms": k_dev,
+               "library_device_ms": lib_dev,
+               "device_bound_share": b_ms / k_dev if k_dev else None}
+        if t:
+            row["masks_bit_identical"] = flash_masks(t_len, kw, dev)
+        emit(row)
+        rows.append(row)
     return rows
 
 
@@ -782,10 +880,6 @@ def profile_rung(eng, batch) -> None:
         eng._run(batch)
         torch.cuda.synchronize()
 
-    def dev_us(e):
-        return float(getattr(e, "self_device_time_total", None)
-                     or getattr(e, "self_cuda_time_total", 0) or 0)
-
     # Device-side events only (kernels and copies); the CPU-side ops
     # that launched them carry the same time again as "self device".
     from torch.autograd import DeviceType
@@ -938,29 +1032,51 @@ def _check_run(tag, metrics, counts, steps, flash: bool,
     return losses
 
 
-def profile_step(state, batch) -> dict:
-    """One train step under ``torch.profiler``: device time by kernel."""
+def profile_step(state, batch, fold: bool = False) -> dict:
+    """One train step under ``torch.profiler``: device time by kernel.
+    With ``fold``, every call of the flash wrapper's ``_fold_heads`` (the
+    ``[B, T, H, Dh] -> [B*H, T, Dh]`` copies of q, k and v) runs inside a
+    ``flash_fold_heads`` profiler range: the result adds the calls and the
+    range's device time."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     from pytorch_vit_paper_replication_tpu_torch import engine
+    from pytorch_vit_paper_replication_tpu_torch.ops import (
+        flash_attention as fa)
 
     step = engine.make_train_step()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(state, batch)
-        torch.cuda.synchronize()
+    fold_heads, calls = fa._fold_heads, []
 
-    def dev_us(e):
-        return float(getattr(e, "self_device_time_total", None)
-                     or getattr(e, "self_cuda_time_total", 0) or 0)
-    events = [e for e in prof.key_averages()
+    def traced_fold(x):
+        calls.append(x.shape)
+        with record_function("flash_fold_heads"):
+            return fold_heads(x)
+
+    if fold:
+        fa._fold_heads = traced_fold
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(state, batch)
+            torch.cuda.synchronize()
+    finally:
+        fa._fold_heads = fold_heads
+
+    averages = prof.key_averages()
+    events = [e for e in averages
               if getattr(e, "device_type", None) == DeviceType.CUDA]
     top = sorted(events, key=dev_us, reverse=True)[:15]
-    return {"device_events": len(events),
-            "device_ms_total": sum(dev_us(e) for e in events) / 1e3,
-            "top_device_ms": [[e.key[:90], dev_us(e) / 1e3, e.count]
-                              for e in top]}
+    out = {"device_events": len(events),
+           "device_ms_total": sum(dev_us(e) for e in events) / 1e3,
+           "top_device_ms": [[e.key[:90], dev_us(e) / 1e3, e.count]
+                             for e in top]}
+    if fold:
+        rng = [e for e in averages if e.key == "flash_fold_heads"]
+        out["fold_heads"] = {
+            "calls": len(calls),
+            "device_ms": dev_us(rng[0], total=True) / 1e3 if rng else None}
+    return out
 
 
 def split_qkv_bias(tree: dict):
@@ -1097,11 +1213,12 @@ def phase_train(dev) -> dict:
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     del state
     torch.cuda.empty_cache()
-    f_metrics, f_results, f_counts, f_walls, f_state, _ = _train_run(
+    f_metrics, f_results, f_counts, f_walls, f_state, f_batch = _train_run(
         cfg.replace(attention_impl="flash"), dev, FLASH_STEPS, seed=2)
     # Three steps are too few to require a falling loss; finite is required.
     f_losses = _check_run("train(flash)", f_metrics, f_counts, FLASH_STEPS,
                           True, loss_must_fall=False)
+    f_prof = profile_step(f_state, f_batch, fold=True)
     del f_state
     torch.cuda.empty_cache()
     emit({"phase": "train", "ok": True, "batch": TRAIN_BATCH,
@@ -1116,6 +1233,7 @@ def phase_train(dev) -> dict:
           "flash_steps": FLASH_STEPS, "flash_losses": f_losses,
           "flash_launches": f_counts,
           "flash_step_ms_median": statistics.median(f_walls[1:]) * 1e3,
+          "profile_one_flash_step": f_prof,
           "flash_results": f_results,
           "seconds": round(time.perf_counter() - t0, 3)})
     t1 = time.perf_counter()
@@ -1401,6 +1519,14 @@ def phase_parallel(dev) -> dict:
 
 
 # ------------------------------------------------------------- phase 6
+# How each kernel multiplies on the card, bf16 (f32 runs SIMT everywhere).
+KERNEL_DESIGN = {
+    "fused_ln_mlp_residual": "wmma", "fused_ln_mlp_residual_bwd": "wmma",
+    "flash_attention": "wgmma+tma", "flash_attention_bwd_dq": "simt",
+    "flash_attention_bwd_dkv": "wgmma+tma", "fused_mlp_core": "wmma",
+    "fused_mlp_core_bwd": "wmma"}
+
+
 def kernel_list(k_rows, launches, serve_launches, par_launches):
     """The seven ported kernels with their main-path numbers: rows 1-5 at
     batch 32, bf16, dropout off, T = 197; rows 6 and 7 (the MLP core) at
@@ -1425,8 +1551,10 @@ def kernel_list(k_rows, launches, serve_launches, par_launches):
     ref = "pytorch_vit_paper_replication_tpu/ops"
     mlp = pick("fused_ln_mlp_residual", dtype="bfloat16", threshold=0)
     mlp_b = pick("fused_ln_mlp_residual_bwd", dtype="bfloat16", threshold=0)
-    fl = pick("flash_attention", threshold=0, shape=[32, 197, 12, 64])
-    fl_b = pick("flash_attention_bwd", threshold=0, shape=[32, 197, 12, 64])
+    fl = pick("flash_attention", dtype="bfloat16", threshold=0,
+              shape=[32, 197, 12, 64])
+    fl_b = pick("flash_attention_bwd", dtype="bfloat16", threshold=0,
+                shape=[32, 197, 12, 64])
     rows = [
         ("fused_ln_mlp_residual", "fused_mlp.cu", "fused_mlp.py:461",
          max_err("fused_ln_mlp_residual"), mlp["kernel_ms"], mlp["plain_ms"],
@@ -1467,10 +1595,11 @@ def kernel_list(k_rows, launches, serve_launches, par_launches):
                 "fused_mlp_core_bwd": par_launches["fused_mlp_core_bwd"]}
     out = [{"name": name, "route": "cuda", "source": f"{base}/{src}",
             "replaces": f"{ref}/{rep}", "status": "ported and checked",
-            "launches": launches[name],
+            "design": KERNEL_DESIGN[name], "launches": launches[name],
             "serve_launches": serve_launches.get(name, 0),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+            "library_ms": lib}
            for name, src, rep, err, ms, plain_ms, b_ms, b_by, lib in rows]
     return {"kernels": out, "to_port": []}
 

@@ -9,20 +9,34 @@
 // once; at T = 197 the bytes bound it, at T = 577 the two are close. The
 // flash design point is that the [T, T] logits never go to device memory.
 //
-// Design (a first, simple kernel; all math in f32 like the Pallas kernel,
-// which upcasts q, k and v before both products):
-//   * One CTA of 256 threads per (b*h, 64-row query block); it streams
-//     64-key blocks of K (stored transposed) and V through shared memory.
-//   * Thread (rg, cg) owns query rows 4*rg..4*rg+3, logit columns
-//     4*cg..4*cg+3 and output columns cg*Dh/16..; the row max and row sum
-//     reduce across the 16 threads of a row group with shuffles.
-//   * Ragged T: keys past T get logit -1e30 (as the Pallas kv padding);
-//     query rows past T compute on zero q and are not stored.
-//   * Dropout: keep bit from the positional hash on (seed, b*h, row, col)
+// Two kernels, chosen by the operands' dtype (not a fallback: each dtype
+// has exactly one kernel, and a kernel that fails raises):
+//
+// bf16 — flash_fwd_wgmma, the Hopper design (csrc/hopper.cuh):
+//   * One CTA per (b*h, 64-row query block): one consumer warpgroup (4
+//     warps) that owns the 64 rows and one producer warp that issues TMA
+//     tile loads. Q is loaded once; K/V blocks of 64 keys stream through a
+//     2-stage ring (full/empty mbarriers), so the next block is in flight
+//     while the current one is multiplied.
+//   * S = Q K^T and O += P V are wgmma (bf16 operands, f32 accumulators in
+//     registers); Q, K from shared memory K-major, V MN-major, P from
+//     registers (the S accumulator rounded to bf16: the one rounding point
+//     the Pallas kernel, which multiplies in f32, does not have).
+//   * Tiles use the 128-byte swizzle (64-byte for Dh = 32) named by both
+//     the TMA map and the wgmma descriptors; the maps are 3-D (Dh, T, B*H)
+//     so rows past T of a head load as zeros. Keys past T get logit -1e30.
+//   * Softmax in the accumulator layout: a row is spread over the 4
+//     threads of a quad (2 shuffles). Dropout: the keep bit from the
+//     positional hash on (seed, b*h, row, col) of each accumulator element,
 //     after the undropped normalizer is updated; out = acc / (l * keep).
-//   * l == 0 guard as in the Pallas kernel; lse = m + log(l) per row in
-//     f32 for the training slice's backward.
-// Tensor cores are not used yet: both products are SIMT f32 FMA.
+//   * l == 0 guard as in the Pallas kernel; lse = m + log(l) per row.
+//
+// f32 — flash_fwd_simt: all math in f32 like the Pallas kernel (which
+// upcasts q, k and v before both products), SIMT FMA,
+// 256 threads per 64-row block (thread (rg, cg) owns rows 4 rg.., logit
+// columns 4 cg.. and output columns cg Dh/16..). TF32 would break the f32
+// bounds, so f32 keeps it.
+#include "hopper.cuh"
 #include "vit_common.cuh"
 
 using vit::bf16;
@@ -44,12 +58,12 @@ struct FlashSmem {
   static constexpr size_t bytes = p_off + kBQ * kLdp * 4;
 };
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ out,
-              float* __restrict__ lse, int t_len, float scale, uint32_t seed,
-              int threshold, float keep_prob) {
+    flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ out,
+                   float* __restrict__ lse, int t_len, float scale,
+                   uint32_t seed, int threshold, float keep_prob) {
   using L = FlashSmem<DH>;
   constexpr int CW = DH / 16;  // output columns per thread
   extern __shared__ __align__(128) unsigned char smem[];
@@ -67,7 +81,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = tid; i < kBQ * DH; i += kThreads) {
     const int r = i / DH, d = i % DH;
     q_s[i] = (q0 + r < t_len)
-                 ? vit::to_f32(q[base + static_cast<size_t>(q0 + r) * DH + d])
+                 ? q[base + static_cast<size_t>(q0 + r) * DH + d]
                  : 0.0f;
   }
 
@@ -86,13 +100,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int c = i % kBK, d = i / kBK;
       kt_s[d * kBK + c] =
           (k0 + c < t_len)
-              ? vit::to_f32(k[base + static_cast<size_t>(k0 + c) * DH + d])
+              ? k[base + static_cast<size_t>(k0 + c) * DH + d]
               : 0.0f;
     }
     for (int i = tid; i < kBK * DH; i += kThreads) {
       const int c = i / DH, d = i % DH;
       v_s[i] = (k0 + c < t_len)
-                   ? vit::to_f32(v[base + static_cast<size_t>(k0 + c) * DH + d])
+                   ? v[base + static_cast<size_t>(k0 + c) * DH + d]
                    : 0.0f;
     }
     __syncthreads();
@@ -173,56 +187,253 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float denom = l_safe * keep_prob;
     const size_t o = base + static_cast<size_t>(row) * DH + cg * CW;
 #pragma unroll
-    for (int c = 0; c < CW; ++c) out[o + c] = vit::from_f32<T>(acc[i][c] / denom);
+    for (int c = 0; c < CW; ++c) out[o + c] = acc[i][c] / denom;
     if (cg == 0) lse[static_cast<size_t>(bh) * t_len + row] = m[i] + logf(l_safe);
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int bh, int t_len, float scale, uint32_t seed,
-                   int threshold, float keep_prob, cudaStream_t stream) {
-  const size_t smem = FlashSmem<DH>::bytes;
+
+// ------------------------------------------------------------ bf16 wgmma
+constexpr int kWgThreads = 160;  // warps 0-3: consumers, warp 4: producer
+
+template <int DH>
+struct WgSmem {
+  using L = hopper::Tile<DH>;
+  static constexpr int q_off = 0;
+  static constexpr int k_off = q_off + L::BYTES;      // [2] stages
+  static constexpr int v_off = k_off + 2 * L::BYTES;  // [2] stages
+  static constexpr int bar_off = v_off + 2 * L::BYTES;
+  // q_full, kv_full[2], kv_empty[2]; + 1024 to align the base.
+  static constexpr int bytes = bar_off + 5 * 8 + 1024;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    bf16* __restrict__ out, float* __restrict__ lse, int t_len,
+                    float scale, uint32_t seed, int threshold,
+                    float keep_prob) {
+  using L = hopper::Tile<DH>;
+  using S = WgSmem<DH>;
+  constexpr int NC = L::C / 2;  // accumulator registers per output box
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::bar_off);
+  uint64_t* q_full = bars;
+  uint64_t* kv_full = bars + 1;
+  uint64_t* kv_empty = bars + 3;
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * 64;
+  const int nk = (t_len + 63) / 64;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&kv_full[s], 1);
+      hopper::mbar_init(&kv_empty[s], 128);
+    }
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {  // producer warp: one thread issues every load
+    if (tid == 128) {
+      hopper::mbar_expect_tx(q_full, L::BYTES);
+      hopper::tma_load_tile<DH>(smem + S::q_off, &map_q, q_full, q0, bh);
+      for (int it = 0; it < nk; ++it) {
+        const int st = it & 1;
+        hopper::mbar_wait(&kv_empty[st], ((it >> 1) & 1) ^ 1);
+        hopper::mbar_expect_tx(&kv_full[st], 2 * L::BYTES);
+        hopper::tma_load_tile<DH>(smem + S::k_off + st * L::BYTES, &map_k,
+                                  &kv_full[st], it * 64, bh);
+        hopper::tma_load_tile<DH>(smem + S::v_off + st * L::BYTES, &map_v,
+                                  &kv_full[st], it * 64, bh);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup. Thread (w, g, tq) holds rows 16 w + g (h = 0) and
+  // 16 w + g + 8 (h = 1) of the block; accumulator element 4 j + e sits at
+  // row half e / 2, column 8 j + 2 tq + e % 2.
+  const int w = tid / 32, g = (tid % 32) / 4, tq = tid % 4;
+  const uint32_t q_s = hopper::smem_u32(smem + S::q_off);
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.0f, 0.0f};
+  float o[L::NBOX][NC];
+  float s[32];
+#pragma unroll
+  for (int b = 0; b < L::NBOX; ++b)
+#pragma unroll
+    for (int i = 0; i < NC; ++i) o[b][i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+
+  hopper::mbar_wait(q_full, 0);
+  for (int it = 0; it < nk; ++it) {
+    const int st = it & 1;
+    const int k0 = it * 64;
+    const uint32_t k_s = hopper::smem_u32(smem + S::k_off + st * L::BYTES);
+    const uint32_t v_s = hopper::smem_u32(smem + S::v_off + st * L::BYTES);
+    hopper::mbar_wait(&kv_full[st], (it >> 1) & 1);
+
+    // S = Q K^T over DH in k-steps of 16.
+    hopper::fence_regs(s);
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      hopper::Wgmma<64>::ss<0>(s, hopper::kmajor_desc<DH>(q_s, kk),
+                               hopper::kmajor_desc<DH>(k_s, kk), kk > 0);
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+    hopper::fence_regs(s);
+
+    // Online softmax on the two rows this thread holds.
+    float rmax[2] = {-1e30f, -1e30f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = k0 + 8 * (i / 4) + 2 * tq + (i % 2);
+      s[i] = col < t_len ? s[i] * scale : -1e30f;
+      rmax[(i / 2) % 2] = fmaxf(rmax[(i / 2) % 2], s[i]);
+    }
+    float corr[2], rsum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rmax[h] = fmaxf(rmax[h], __shfl_xor_sync(0xFFFFFFFFu, rmax[h], 1));
+      rmax[h] = fmaxf(rmax[h], __shfl_xor_sync(0xFFFFFFFFu, rmax[h], 2));
+      rmax[h] = fmaxf(m[h], rmax[h]);
+      corr[h] = expf(m[h] - rmax[h]);
+      m[h] = rmax[h];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = expf(s[i] - m[(i / 2) % 2]);
+      rsum[(i / 2) % 2] += s[i];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rsum[h] += __shfl_xor_sync(0xFFFFFFFFu, rsum[h], 1);
+      rsum[h] += __shfl_xor_sync(0xFFFFFFFFu, rsum[h], 2);
+      l[h] = l[h] * corr[h] + rsum[h];
+    }
+#pragma unroll
+    for (int b = 0; b < L::NBOX; ++b)
+#pragma unroll
+      for (int i = 0; i < NC; ++i) o[b][i] *= corr[(i / 2) % 2];
+    if (threshold) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int row = q0 + 16 * w + g + 8 * ((i / 2) % 2);
+        const int col = k0 + 8 * (i / 4) + 2 * tq + (i % 2);
+        if (!vit::positional_keep(seed, bh, row, col, threshold)) s[i] = 0.0f;
+      }
+    }
+
+    // O += P V: P from registers (bf16), V MN-major, one wgmma per box.
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hopper::acc_to_a(s, kk, pa[kk]);
+#pragma unroll
+    for (int b = 0; b < L::NBOX; ++b) hopper::fence_regs(o[b]);
+    hopper::wg_fence();
+#pragma unroll
+    for (int b = 0; b < L::NBOX; ++b)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::Wgmma<L::C>::template rs<1>(o[b], pa[kk],
+                                   hopper::mnmajor_desc<DH>(v_s, b, kk), 1);
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+#pragma unroll
+    for (int b = 0; b < L::NBOX; ++b) hopper::fence_regs(o[b]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hopper::fence_regs(pa[kk]);
+    hopper::mbar_arrive(&kv_empty[st]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * w + g + 8 * h;
+    if (row >= t_len) continue;
+    const float l_safe = (l[h] == 0.0f) ? 1.0f : l[h];
+    const float denom = l_safe * keep_prob;
+    bf16* orow = out + (static_cast<size_t>(bh) * t_len + row) * DH;
+#pragma unroll
+    for (int b = 0; b < L::NBOX; ++b)
+#pragma unroll
+      for (int j = 0; j < L::C / 8; ++j) {
+        const int col = b * L::C + 8 * j + 2 * tq;
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+            o[b][4 * j + 2 * h] / denom, o[b][4 * j + 2 * h + 1] / denom);
+      }
+    if (tq == 0) lse[static_cast<size_t>(bh) * t_len + row] = m[h] + logf(l_safe);
+  }
+}
+
+template <int DH>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* out, float* lse, int bh, int t_len, float scale,
+                         uint32_t seed, int threshold, float keep_prob,
+                         cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!hopper::make_tile_map<DH>(&mq, q, bh, t_len) ||
+      !hopper::make_tile_map<DH>(&mk, k, bh, t_len) ||
+      !hopper::make_tile_map<DH>(&mv, v, bh, t_len))
+    return cudaErrorInvalidValue;
+  const int smem = WgSmem<DH>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_wgmma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((t_len + kBQ - 1) / kBQ, bh);
-  flash_fwd<T, DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, t_len, scale, seed,
-      threshold, keep_prob);
+  dim3 grid((t_len + 63) / 64, bh);
+  flash_fwd_wgmma<DH><<<grid, kWgThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(out), lse, t_len, scale, seed, threshold,
+      keep_prob);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dh(int dh, const void* q, const void* k, const void* v,
+// ------------------------------------------------------------- f32 SIMT
+template <int DH>
+cudaError_t launch_simt(const void* q, const void* k, const void* v,
                         void* out, float* lse, int bh, int t_len, float scale,
                         uint32_t seed, int threshold, float keep_prob,
-                        cudaStream_t s) {
-  switch (dh) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, lse, bh, t_len, scale, seed,
-                           threshold, keep_prob, s);
-    case 64:
-      return launch<T, 64>(q, k, v, out, lse, bh, t_len, scale, seed,
-                           threshold, keep_prob, s);
-    case 128:
-      return launch<T, 128>(q, k, v, out, lse, bh, t_len, scale, seed,
+                        cudaStream_t stream) {
+  const size_t smem = FlashSmem<DH>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_simt<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((t_len + kBQ - 1) / kBQ, bh);
+  flash_fwd_simt<DH><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, t_len,
+      scale, seed, threshold, keep_prob);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
+                   void* out, float* lse, int bh, int t_len, float scale,
+                   uint32_t seed, int threshold, float keep_prob,
+                   cudaStream_t s) {
+  if (dtype == 1)
+    return launch_wgmma<DH>(q, k, v, out, lse, bh, t_len, scale, seed,
                             threshold, keep_prob, s);
-    case 256:
-      return launch<T, 256>(q, k, v, out, lse, bh, t_len, scale, seed,
-                            threshold, keep_prob, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (dtype == 0)
+    return launch_simt<DH>(q, k, v, out, lse, bh, t_len, scale, seed,
+                           threshold, keep_prob, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). q, k, v, out: [bh, t, dh]
-// contiguous in dtype (0 = float32, 1 = bf16); lse: [bh, t] float32.
-// Returns the cudaError_t of the attribute call / launch (0 on success).
+// contiguous in dtype (0 = float32: the SIMT kernel; 1 = bf16: the wgmma
+// kernel, operands 16-byte aligned for TMA), dh in {32, 64, 128, 256};
+// lse: [bh, t] float32. Returns the cudaError_t of the map encoding,
+// attribute call or launch (0 on success).
 extern "C" int vit_flash_fwd(int dtype, const void* q, const void* k,
                              const void* v, void* out, float* lse, int bh,
                              int t_len, int dh, float scale, uint32_t seed,
@@ -230,13 +441,26 @@ extern "C" int vit_flash_fwd(int dtype, const void* q, const void* k,
   if (bh <= 0 || bh > 65535 || t_len <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return static_cast<int>(dispatch_dh<bf16>(dh, q, k, v, out, lse, bh,
-                                              t_len, scale, seed, threshold,
-                                              keep_prob, s));
-  if (dtype == 0)
-    return static_cast<int>(dispatch_dh<float>(dh, q, k, v, out, lse, bh,
-                                               t_len, scale, seed, threshold,
-                                               keep_prob, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  switch (dh) {
+    case 32:
+      err = launch<32>(dtype, q, k, v, out, lse, bh, t_len, scale, seed,
+                       threshold, keep_prob, s);
+      break;
+    case 64:
+      err = launch<64>(dtype, q, k, v, out, lse, bh, t_len, scale, seed,
+                       threshold, keep_prob, s);
+      break;
+    case 128:
+      err = launch<128>(dtype, q, k, v, out, lse, bh, t_len, scale, seed,
+                        threshold, keep_prob, s);
+      break;
+    case 256:
+      err = launch<256>(dtype, q, k, v, out, lse, bh, t_len, scale, seed,
+                        threshold, keep_prob, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }

@@ -16,20 +16,32 @@
 // logits in each) against reading q, k, v, dO once and writing dq, dk, dv:
 // the bytes bound them at T = 197, the operations at T = 577.
 //
-// Design (first, simple kernels; all math in f32 like the Pallas kernels,
-// which upcast q, k, v and dO):
-//   * The Pallas grids are (bh, q-blocks) for dq and (bh, k-blocks) for
-//     dk/dv with an in-kernel loop over the other axis; nothing is carried
-//     between programs, so each maps to a CUDA grid directly: one CTA of
-//     256 threads per (b*h, 64-row block), no atomics, deterministic.
-//   * Thread (rg, cg) owns 4 rows x 4 columns of each 64x64 logit block
-//     and 4 rows x Dh/16 columns of the output; operands are staged in
-//     shared memory as f32, both transposed (for the logit products) and
-//     row-major (for the output products).
-//   * The ragged edge: keys past T give P = 0 in the dq kernel, queries
-//     past T give P = 0 in the dk/dv kernel, padded rows load as zeros and
-//     are never stored.
-// Tensor cores are not used yet: every product is SIMT f32 FMA.
+// The Pallas grids are (bh, q-blocks) for dq and (bh, k-blocks) for dk/dv
+// with an in-kernel loop over the other axis; nothing is carried between
+// programs, so each maps to a CUDA grid directly: one CTA per (b*h, 64-row
+// block), no atomics, a fixed loop order: deterministic. The ragged edge:
+// keys past T give P = 0 in the dq kernel, queries past T give P = 0 in the
+// dk/dv kernel, padded rows load as zeros and are never stored.
+//
+// dk/dv, bf16 — flash_bwd_dkv_wgmma, the Hopper design (csrc/hopper.cuh):
+// one consumer warpgroup owns the CTA's 64 keys, whose K and V tiles and
+// f32 dK/dV accumulators stay resident; one producer warp streams q, dO,
+// lse and delta tiles of 64 queries through a 2-stage ring (TMA, full/empty
+// mbarriers; the warp's lanes copy the tile's 64 lse and delta values,
+// whose row pitch T * 4 bytes is no TMA stride). Per q tile: S^T = K Q^T
+// and dP^T = V dO^T (wgmma, both operands from shared memory, K-major), P,
+// dropout and dS elementwise in the accumulator layout, then
+// dV += P_drop^T dO and dK += dS^T Q (wgmma, P_drop^T and dS^T from
+// registers rounded to bf16, dO and Q MN-major). The q/dO maps are 3-D
+// (Dh, T, B*H) so rows past T load as zeros; queries past T get P = 0.
+//
+// dk/dv, f32, and dq, both dtypes — SIMT kernels: all math in f32 like
+// the Pallas kernels (which upcast q, k, v and dO);
+// thread (rg, cg) owns 4 rows x 4 columns of each 64x64 logit block and 4
+// rows x Dh/16 columns of the output; operands are staged in shared memory
+// as f32, both transposed (for the logit products) and row-major (for the
+// output products). f32 keeps them: TF32 would break the f32 bounds.
+#include "hopper.cuh"
 #include "vit_common.cuh"
 
 using vit::bf16;
@@ -203,14 +215,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dk,
-                  T* __restrict__ dv, int t_len, float scale, uint32_t seed,
-                  int threshold, float inv_keep) {
+    flash_bwd_dkv_simt(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       float* __restrict__ dk, float* __restrict__ dv,
+                       int t_len, float scale, uint32_t seed, int threshold,
+                       float inv_keep) {
   using L = DkvSmem<DH>;
   constexpr int CW = DH / 16;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -227,8 +242,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int k0 = blockIdx.x * kB;
   const size_t base = static_cast<size_t>(bh) * t_len * DH;
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;  // rg: keys
-  load_rows<T, DH>(k + base, k_s, k0, t_len);
-  load_rows<T, DH>(v + base, v_s, k0, t_len);
+  load_rows<float, DH>(k + base, k_s, k0, t_len);
+  load_rows<float, DH>(v + base, v_s, k0, t_len);
   float dk_acc[4][CW], dv_acc[4][CW];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -237,10 +252,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int q0 = 0; q0 < t_len; q0 += kB) {
     __syncthreads();  // previous block done with the q-side tiles
-    load_rows_t<T, DH>(q + base, qt_s, q0, t_len);
-    load_rows_t<T, DH>(dout + base, dot_s, q0, t_len);
-    load_rows<T, DH>(q + base, q_s, q0, t_len);
-    load_rows<T, DH>(dout + base, do_s, q0, t_len);
+    load_rows_t<float, DH>(q + base, qt_s, q0, t_len);
+    load_rows_t<float, DH>(dout + base, dot_s, q0, t_len);
+    load_rows<float, DH>(q + base, q_s, q0, t_len);
+    load_rows<float, DH>(dout + base, do_s, q0, t_len);
     __syncthreads();
     // st[i][j] = k_i . q_j, dpt[i][j] = v_i . dO_j (i: key, j: query)
     float st[4][4], dpt[4][4];
@@ -298,9 +313,215 @@ __global__ void __launch_bounds__(kThreads, 1)
     const size_t o = base + static_cast<size_t>(key) * DH + cg * CW;
 #pragma unroll
     for (int c = 0; c < CW; ++c) {
-      dk[o + c] = vit::from_f32<T>(dk_acc[i][c]);
-      dv[o + c] = vit::from_f32<T>(dv_acc[i][c]);
+      dk[o + c] = dk_acc[i][c];
+      dv[o + c] = dv_acc[i][c];
     }
+  }
+}
+
+// ------------------------------------------------- dk/dv, bf16 wgmma
+constexpr int kWgThreads = 160;  // warps 0-3: consumers, warp 4: producer
+
+template <int DH>
+struct DkvWgSmem {
+  using L = hopper::Tile<DH>;
+  static constexpr int k_off = 0;
+  static constexpr int v_off = k_off + L::BYTES;
+  // Stage s: q tile at q_off + 2 s BYTES, dO tile BYTES later; lse[64]
+  // and delta[64] at vec_off + 512 s.
+  static constexpr int q_off = v_off + L::BYTES;
+  static constexpr int vec_off = q_off + 4 * L::BYTES;
+  static constexpr int bar_off = vec_off + 2 * 512;
+  // kv_full, qd_full[2], qd_empty[2]; + 1024 to align the base.
+  static constexpr int bytes = bar_off + 5 * 8 + 1024;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv,
+                        int t_len, float scale, uint32_t seed, int threshold,
+                        float inv_keep) {
+  using L = hopper::Tile<DH>;
+  using S = DkvWgSmem<DH>;
+  constexpr int NC = L::C / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::bar_off);
+  uint64_t* kv_full = bars;
+  uint64_t* qd_full = bars + 1;
+  uint64_t* qd_empty = bars + 3;
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * 64;
+  const int nq = (t_len + 63) / 64;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&qd_full[s], 1 + 32);
+      hopper::mbar_init(&qd_empty[s], 128);
+    }
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {
+    // Producer warp: lane 0 issues the TMA tile loads; every lane loads two
+    // of the tile's 64 lse and delta values (zero past T) and arrives.
+    const int lane = tid - 128;
+    const size_t head = static_cast<size_t>(bh) * t_len;
+    if (lane == 0) {
+      hopper::mbar_expect_tx(kv_full, 2 * L::BYTES);
+      hopper::tma_load_tile<DH>(smem + S::k_off, &map_k, kv_full, k0, bh);
+      hopper::tma_load_tile<DH>(smem + S::v_off, &map_v, kv_full, k0, bh);
+    }
+    for (int it = 0; it < nq; ++it) {
+      const int st = it & 1;
+      hopper::mbar_wait(&qd_empty[st], ((it >> 1) & 1) ^ 1);
+      if (lane == 0) {
+        unsigned char* tiles = smem + S::q_off + st * 2 * L::BYTES;
+        hopper::mbar_expect_tx(&qd_full[st], 2 * L::BYTES);
+        hopper::tma_load_tile<DH>(tiles, &map_q, &qd_full[st], it * 64, bh);
+        hopper::tma_load_tile<DH>(tiles + L::BYTES, &map_do, &qd_full[st],
+                                  it * 64, bh);
+      }
+      float* vec = reinterpret_cast<float*>(smem + S::vec_off + st * 512);
+#pragma unroll
+      for (int r = lane; r < 64; r += 32) {
+        const int row = it * 64 + r;
+        vec[r] = row < t_len ? lse[head + row] : 0.0f;
+        vec[64 + r] = row < t_len ? delta[head + row] : 0.0f;
+      }
+      hopper::mbar_arrive(&qd_full[st]);
+    }
+    return;
+  }
+
+  // Consumer warpgroup. Thread (w, g, tq) holds keys 16 w + g (h = 0) and
+  // 16 w + g + 8 (h = 1) of the block; S^T element 4 j + e sits at key half
+  // e / 2, query column 8 j + 2 tq + e % 2.
+  const int w = tid / 32, g = (tid % 32) / 4, tq = tid % 4;
+  const uint32_t k_s = hopper::smem_u32(smem + S::k_off);
+  const uint32_t v_s = hopper::smem_u32(smem + S::v_off);
+  float dk_acc[L::NBOX][NC], dv_acc[L::NBOX][NC];
+  float s[32], dp[32];
+#pragma unroll
+  for (int b = 0; b < L::NBOX; ++b)
+#pragma unroll
+    for (int i = 0; i < NC; ++i) dk_acc[b][i] = dv_acc[b][i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+
+  hopper::mbar_wait(kv_full, 0);
+  for (int it = 0; it < nq; ++it) {
+    const int st = it & 1;
+    const int q0 = it * 64;
+    const uint32_t q_s =
+        hopper::smem_u32(smem + S::q_off + st * 2 * L::BYTES);
+    const uint32_t do_s = q_s + L::BYTES;
+    const float* lse_s =
+        reinterpret_cast<const float*>(smem + S::vec_off + st * 512);
+    const float* dl_s = lse_s + 64;
+    hopper::mbar_wait(&qd_full[st], (it >> 1) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T over DH.
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      hopper::Wgmma<64>::ss<0>(s, hopper::kmajor_desc<DH>(k_s, kk),
+                               hopper::kmajor_desc<DH>(q_s, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      hopper::Wgmma<64>::ss<0>(dp, hopper::kmajor_desc<DH>(v_s, kk),
+                               hopper::kmajor_desc<DH>(do_s, kk), kk > 0);
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+
+    // s <- P_drop^T, dp <- dS^T, elementwise in the accumulator layout.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int key = k0 + 16 * w + g + 8 * ((i / 2) % 2);
+      const int c = 8 * (i / 4) + 2 * tq + (i % 2);
+      const int row = q0 + c;
+      const float p = row < t_len ? expf(s[i] * scale - lse_s[c]) : 0.0f;
+      const float dl = dl_s[c];
+      float pd = p, dpv = dp[i];
+      if (threshold) {
+        const bool keep = vit::positional_keep(seed, bh, row, key, threshold);
+        pd = keep ? p * inv_keep : 0.0f;
+        dpv = keep ? dpv * inv_keep : 0.0f;
+      }
+      s[i] = pd;
+      dp[i] = p * (dpv - dl) * scale;
+    }
+
+    // dV += P_drop^T dO and dK += dS^T Q, A from registers, B MN-major.
+    uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hopper::acc_to_a(s, kk, pa[kk]);
+      hopper::acc_to_a(dp, kk, sa[kk]);
+    }
+#pragma unroll
+    for (int b = 0; b < L::NBOX; ++b) {
+      hopper::fence_regs(dv_acc[b]);
+      hopper::fence_regs(dk_acc[b]);
+    }
+    hopper::wg_fence();
+#pragma unroll
+    for (int b = 0; b < L::NBOX; ++b)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::Wgmma<L::C>::template rs<1>(dv_acc[b], pa[kk],
+                                   hopper::mnmajor_desc<DH>(do_s, b, kk), 1);
+#pragma unroll
+    for (int b = 0; b < L::NBOX; ++b)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::Wgmma<L::C>::template rs<1>(dk_acc[b], sa[kk],
+                                   hopper::mnmajor_desc<DH>(q_s, b, kk), 1);
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+#pragma unroll
+    for (int b = 0; b < L::NBOX; ++b) {
+      hopper::fence_regs(dv_acc[b]);
+      hopper::fence_regs(dk_acc[b]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hopper::fence_regs(pa[kk]);
+      hopper::fence_regs(sa[kk]);
+    }
+    hopper::mbar_arrive(&qd_empty[st]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + 16 * w + g + 8 * h;
+    if (key >= t_len) continue;
+    const size_t o = (static_cast<size_t>(bh) * t_len + key) * DH;
+#pragma unroll
+    for (int b = 0; b < L::NBOX; ++b)
+#pragma unroll
+      for (int j = 0; j < L::C / 8; ++j) {
+        const int col = b * L::C + 8 * j + 2 * tq;
+        const int i = 4 * j + 2 * h;
+        *reinterpret_cast<__nv_bfloat162*>(dk + o + col) =
+            __floats2bfloat162_rn(dk_acc[b][i], dk_acc[b][i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + o + col) =
+            __floats2bfloat162_rn(dv_acc[b][i], dv_acc[b][i + 1]);
+      }
   }
 }
 
@@ -316,65 +537,91 @@ struct Args {
 };
 
 template <typename T, int DH>
-cudaError_t launch(bool dkv, const Args& a, cudaStream_t s) {
-  const dim3 grid((a.t_len + kB - 1) / kB, a.bh);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* d = static_cast<const T*>(a.dout);
-  cudaError_t err;
-  if (dkv) {
-    const size_t smem = DkvSmem<DH>::bytes;
-    err = cudaFuncSetAttribute(flash_bwd_dkv<T, DH>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkv<T, DH><<<grid, kThreads, smem, s>>>(
-        q, k, v, d, a.lse, a.delta, static_cast<T*>(a.o0),
-        static_cast<T*>(a.o1), a.t_len, a.scale, a.seed, a.threshold,
-        a.inv_keep);
-  } else {
-    const size_t smem = DqSmem<DH>::bytes;
-    err = cudaFuncSetAttribute(flash_bwd_dq<T, DH>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq<T, DH><<<grid, kThreads, smem, s>>>(
-        q, k, v, d, a.lse, a.delta, static_cast<T*>(a.o0), a.t_len, a.scale,
-        a.seed, a.threshold, a.inv_keep);
-  }
+cudaError_t launch_dq_simt(const Args& a, cudaStream_t s) {
+  const size_t smem = DqSmem<DH>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq<T, DH><<<dim3((a.t_len + kB - 1) / kB, a.bh), kThreads, smem,
+                        s>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(a.o0), a.t_len, a.scale, a.seed, a.threshold,
+      a.inv_keep);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dh(int dh, bool dkv, const Args& a, cudaStream_t s) {
-  switch (dh) {
-    case 32:
-      return launch<T, 32>(dkv, a, s);
-    case 64:
-      return launch<T, 64>(dkv, a, s);
-    case 128:
-      return launch<T, 128>(dkv, a, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <int DH>
+cudaError_t launch_dkv_simt(const Args& a, cudaStream_t s) {
+  const size_t smem = DkvSmem<DH>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_simt<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_simt<DH><<<dim3((a.t_len + kB - 1) / kB, a.bh), kThreads,
+                             smem, s>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.o0), static_cast<float*>(a.o1),
+      a.t_len, a.scale, a.seed, a.threshold, a.inv_keep);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_dkv_wgmma(const Args& a, cudaStream_t s) {
+  CUtensorMap mq, mk, mv, mdo;
+  if (!hopper::make_tile_map<DH>(&mq, a.q, a.bh, a.t_len) ||
+      !hopper::make_tile_map<DH>(&mk, a.k, a.bh, a.t_len) ||
+      !hopper::make_tile_map<DH>(&mv, a.v, a.bh, a.t_len) ||
+      !hopper::make_tile_map<DH>(&mdo, a.dout, a.bh, a.t_len))
+    return cudaErrorInvalidValue;
+  const int smem = DkvWgSmem<DH>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.t_len + 63) / 64, a.bh);
+  flash_bwd_dkv_wgmma<DH><<<grid, kWgThreads, smem, s>>>(
+      mq, mk, mv, mdo, a.lse, a.delta, static_cast<bf16*>(a.o0),
+      static_cast<bf16*>(a.o1), a.t_len, a.scale, a.seed, a.threshold,
+      a.inv_keep);
+  return cudaGetLastError();
+}
+
+// dq: the SIMT kernel in both dtypes; dk/dv: wgmma for bf16, SIMT for f32.
+template <int DH>
+cudaError_t launch(int dtype, bool dkv, const Args& a, cudaStream_t s) {
+  if (dtype == 1)
+    return dkv ? launch_dkv_wgmma<DH>(a, s) : launch_dq_simt<bf16, DH>(a, s);
+  if (dtype == 0)
+    return dkv ? launch_dkv_simt<DH>(a, s) : launch_dq_simt<float, DH>(a, s);
+  return cudaErrorInvalidValue;
 }
 
 int run(int dtype, int dh, bool dkv, const Args& a, void* stream) {
   if (a.bh <= 0 || a.bh > 65535 || a.t_len <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return static_cast<int>(dispatch_dh<bf16>(dh, dkv, a, s));
-  if (dtype == 0) return static_cast<int>(dispatch_dh<float>(dh, dkv, a, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (dh) {
+    case 32:
+      return static_cast<int>(launch<32>(dtype, dkv, a, s));
+    case 64:
+      return static_cast<int>(launch<64>(dtype, dkv, a, s));
+    case 128:
+      return static_cast<int>(launch<128>(dtype, dkv, a, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). q, k, v, dout and the outputs:
-// [bh, t, dh] contiguous in dtype (0 = float32, 1 = bf16), dh in {32, 64,
-// 128}; lse, delta: [bh, t] float32. Return the cudaError_t of the
-// attribute call / launch (0 on success).
+// [bh, t, dh] contiguous in dtype (0 = float32, 1 = bf16; the bf16 dk/dv
+// kernel reads its operands through TMA, 16-byte aligned), dh in {32, 64,
+// 128}; lse, delta: [bh, t] float32. Return the cudaError_t of the map
+// encoding, attribute call or launch (0 on success).
 extern "C" int vit_flash_bwd_dq(int dtype, const void* q, const void* k,
                                 const void* v, const void* dout,
                                 const float* lse, const float* delta, void* dq,

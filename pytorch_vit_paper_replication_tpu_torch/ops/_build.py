@@ -34,7 +34,7 @@ SOURCES: Dict[str, str] = {
     "flash_attention": "flash_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
 }
-_HEADERS = ("vit_common.cuh", "mlp_fwd.cuh", "mlp_bwd.cuh")
+_HEADERS = ("vit_common.cuh", "hopper.cuh", "mlp_fwd.cuh", "mlp_bwd.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")

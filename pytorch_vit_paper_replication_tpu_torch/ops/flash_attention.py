@@ -3,9 +3,9 @@
 Port of the JAX package's ``ops/flash_attention.py::flash_attention`` in
 its ``mask=None`` form. Inputs are ``[B, T, H, Dh]`` (the JAX layout);
 the wrapper folds them to ``[B*H, T, Dh]``. On a CUDA tensor it launches
-``csrc/flash_attention.cu`` (online softmax over 64-key blocks, all math
-in f32, the ``[T, T]`` logits never in device memory); on a CPU tensor it
-runs :func:`flash_attention_plain`, the straightforward exact-softmax
+``csrc/flash_attention.cu`` (online softmax over 64-key blocks, the
+``[T, T]`` logits never in device memory); on a CPU tensor it runs
+:func:`flash_attention_plain`, the straightforward exact-softmax
 attention in f32 with the same padding, ``l == 0`` guard and dropout
 semantics:
 
@@ -22,8 +22,23 @@ Training: when an input requires grad the wrapper goes through
 out, lse)`` and the seed; its backward computes ``delta = rowsum(dO * O)``
 in f32 and launches ``csrc/flash_attention_bwd.cu`` (the ports of
 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) on CUDA tensors, or runs
-:func:`flash_attention_bwd_plain` on CPU tensors. All math is f32; the
-dropout mask enters through dP (and P for dV) with the forward's hash.
+:func:`flash_attention_bwd_plain` on CPU tensors. The dropout mask
+enters through dP (and P for dV) with the forward's hash.
+
+Which kernel runs is the operands' dtype, decided in the C entry points:
+
+* **bf16**: the forward and dk/dv are Hopper kernels (TMA tile loads on
+  mbarriers, wgmma with f32 accumulators): every product takes bf16
+  operands, so P (and dS in dk/dv) is rounded to bf16 before its product,
+  where the Pallas kernels keep f32; the logits and ``lse`` keep f32
+  values up to summation order. They read q, k, v (and dO) through TMA,
+  which takes 16-byte aligned tensors. The dq kernel is the SIMT kernel
+  with f32 math.
+* **f32**: every kernel is the SIMT kernel with f32 math (TF32 would not
+  hold the f32 bounds).
+
+This is not a fallback: each dtype has one kernel per function, and a
+kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -37,8 +52,8 @@ from . import _build
 from .dropout import _threshold, positional_keep_u8
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
-# Head dims the backward kernels are instantiated for (shared memory holds
-# six [64, Dh] f32 tiles per CTA).
+# Head dims the backward kernels are instantiated for (the f32 kernels'
+# shared memory holds six [64, Dh] f32 tiles per CTA).
 BWD_HEAD_DIMS = (32, 64, 128)
 # Launches of the CUDA kernels (one per call on a CUDA tensor).
 launches = 0
@@ -155,11 +170,21 @@ def _check(q, head_dims, **others):
         raise ValueError("flash kernel operands must be contiguous")
 
 
+def _check_tma(*tensors):
+    """The bf16 forward and dk/dv kernels read these through TMA, which
+    takes 16-byte aligned tensors."""
+    if tensors[0].dtype == torch.bfloat16 and any(
+            a.data_ptr() % 16 for a in tensors):
+        raise ValueError("bf16 flash kernel operands must be 16-byte "
+                         "aligned (TMA)")
+
+
 def _launch(q, k, v, *, seed: int, threshold: int):
     """Validate and launch the forward kernel on folded operands."""
     global launches
     bh, t, dh = q.shape
     _check(q, SUPPORTED_HEAD_DIMS, k=k, v=v)
+    _check_tma(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -174,6 +199,7 @@ def _launch(q, k, v, *, seed: int, threshold: int):
 
 
 def _bwd_args(q, lse, delta, seed, threshold):
+    """Validate ``lse`` and ``delta``; the backward kernels' scalars."""
     bh, t, dh = q.shape
     for name, a in (("lse", lse), ("delta", delta)):
         if (a.shape != (bh, t) or a.dtype != torch.float32
@@ -181,20 +207,20 @@ def _bwd_args(q, lse, delta, seed, threshold):
             raise ValueError(f"{name} must be a contiguous float32 "
                              f"{(bh, t)} on {q.device}")
     return (bh, t, dh, dh ** -0.5, seed & 0xFFFFFFFF, threshold,
-            256.0 / (256.0 - threshold),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            256.0 / (256.0 - threshold))
 
 
 def _launch_bwd_dq(q, k, v, dout, lse, delta, *, seed: int, threshold: int):
     """Validate and launch the dq kernel on folded operands."""
     global dq_launches
     _check(q, BWD_HEAD_DIMS, k=k, v=v, dout=dout)
+    args = _bwd_args(q, lse, delta, seed, threshold)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _bwd_kernel("vit_flash_bwd_dq")(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_bwd_args(q, lse, delta, seed, threshold))
+            *args, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "vit_flash_bwd_dq")
     dq_launches += 1
     return dq
@@ -205,12 +231,15 @@ def _launch_bwd_dkv(q, k, v, dout, lse, delta, *, seed: int,
     """Validate and launch the dk/dv kernel on folded operands."""
     global dkv_launches
     _check(q, BWD_HEAD_DIMS, k=k, v=v, dout=dout)
+    _check_tma(q, k, v, dout)
+    args = _bwd_args(q, lse, delta, seed, threshold)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = _bwd_kernel("vit_flash_bwd_dkv")(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), *_bwd_args(q, lse, delta, seed, threshold))
+            dv.data_ptr(), *args,
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "vit_flash_bwd_dkv")
     dkv_launches += 1
     return dk, dv

@@ -73,20 +73,32 @@ def test_fused_mlp_kernel_matches_plain(dev, dtype, threshold, n):
                                rtol=TOL[dtype])
 
 
+# Every edge of a 64-row wgmma tile and of a TMA box: one row, a ragged
+# first tile, one short of / exactly / one past a tile, two tiles, B/16 at
+# 224 px and at 384 px.
+FLASH_T = [1, 17, 63, 64, 65, 128, 197, 577]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("dh", [32, 64, 128, 256])
 @pytest.mark.parametrize("threshold", [0, 26])
-def test_flash_kernel_matches_plain(dev, dh, threshold):
+@pytest.mark.parametrize("t", FLASH_T)
+def test_flash_kernel_matches_plain(dev, t, threshold, dh, dtype):
+    """bf16: the wgmma + TMA kernel; f32: the SIMT kernel. One launch
+    per call."""
     from pytorch_vit_paper_replication_tpu_torch.ops import (
         flash_attention as fa)
-    g = torch.Generator().manual_seed(dh)
-    q, k, v = [torch.randn(6, 137, dh, generator=g).to(dev, torch.bfloat16)
+    g = torch.Generator().manual_seed(dh + t)
+    q, k, v = [torch.randn(6, t, dh, generator=g).to(dev, dtype)
                for _ in range(3)]
+    before = fa.launches
     with torch.inference_mode():
         out, lse = fa._launch(q, k, v, seed=9, threshold=threshold)
         ref, ref_lse = fa.flash_attention_plain(q, k, v, seed=9,
                                                 threshold=threshold)
-    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
-                               rtol=2e-2)
+    assert fa.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
 
 
@@ -114,14 +126,21 @@ def test_fused_mlp_bwd_kernel_matches_plain(dev, dtype, threshold, n):
         assert _rel(a, c) < TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("dh", [32, 64, 128])
 @pytest.mark.parametrize("threshold", [0, 26])
-@pytest.mark.parametrize("t", [17, 197])
-def test_flash_bwd_kernels_match_plain(dev, dh, threshold, t):
+@pytest.mark.parametrize("t", FLASH_T)
+def test_flash_bwd_kernels_match_plain(dev, t, threshold, dh, dtype):
+    """dq (SIMT) and dk/dv (bf16: wgmma + TMA; f32: SIMT) against the plain
+    backward, one launch per call, bitwise deterministic. At T = 1 the one
+    key has P = 1 and dS = P (dP' - delta) is zero but for rounding (a kept
+    key gives delta = dO . V / keep = dP', a dropped one zeroes both): dq
+    and dk are rounding noise, held to the plain version relative to dv's
+    largest element instead of their own."""
     from pytorch_vit_paper_replication_tpu_torch.ops import (
         flash_attention as fa)
     g = torch.Generator().manual_seed(dh + t)
-    q, k, v, do = [torch.randn(6, t, dh, generator=g).to(dev, torch.bfloat16)
+    q, k, v, do = [torch.randn(6, t, dh, generator=g).to(dev, dtype)
                    for _ in range(4)]
     kw = dict(seed=11, threshold=threshold)
     out, lse = fa._launch(q, k, v, **kw)
@@ -134,8 +153,13 @@ def test_flash_bwd_kernels_match_plain(dev, dh, threshold, t):
     assert all(torch.equal(a, b) for a, b in zip(
         (dk, dv), fa._launch_bwd_dkv(q, k, v, do, lse, delta, **kw)))
     want = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta, **kw)
-    for a, b in zip((dq, dk, dv), want):
-        assert _rel(a, b) < 2e-2
+    assert _rel(dv, want[2]) < TOL[dtype]
+    scale = want[2].float().abs().max() if t == 1 else None
+    for a, b in zip((dq, dk), want):
+        if scale is None:
+            assert _rel(a, b) < TOL[dtype]
+        else:
+            assert (a.float() - b.float()).abs().max() < TOL[dtype] * scale
 
 
 def test_kernels_autograd_matches_plain(dev):

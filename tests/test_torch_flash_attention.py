@@ -82,3 +82,25 @@ def test_flash_refuses_mask_and_cpu_runs_no_launch():
     before = fa.launches
     fa.flash_attention(q, k, v)
     assert fa.launches == before
+
+
+def test_bf16_kernel_operands_must_be_16_byte_aligned():
+    """The bf16 forward and dk/dv kernels read q, k, v and dO through TMA:
+    the wrappers refuse an operand that is not 16-byte aligned before any
+    launch (the check runs on any device, so the CPU shows it); f32 runs
+    the SIMT kernels, which take any alignment."""
+    bh, t, dh = 2, 9, 32
+    buf = torch.zeros(bh * t * dh + 1, dtype=torch.bfloat16)
+    odd = buf[1:].view(bh, t, dh)           # 2 bytes past an aligned base
+    ok = torch.zeros(bh, t, dh, dtype=torch.bfloat16)
+    vec = torch.zeros(bh, t)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    before = (fa.launches, fa.dkv_launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._launch(ok, ok, odd, seed=0, threshold=0)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._launch_bwd_dkv(ok, ok, ok, odd, vec, vec, seed=0, threshold=0)
+    assert (fa.launches, fa.dkv_launches) == before
+    odd32 = torch.zeros(bh * t * dh + 1)[1:].view(bh, t, dh)
+    assert odd32.data_ptr() % 16
+    fa._check_tma(odd32, odd32)            # f32: no TMA, no refusal
