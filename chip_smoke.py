@@ -23,11 +23,15 @@ final ``ok`` line is never printed:
              forward's h against the plain h. The flash kernels also run
              one f32 case (T = 197, t = 0: the SIMT kernels f32 keeps) at
              1e-4, and the phase counts the HGMMA (wgmma) instructions that
-             ``cuobjdump -sass`` finds in the bf16 forward and dk/dv kernels
-             (raises on 0). Times come from CUDA events; each row prints
-             ``bound_share`` = bound / kernel time; the flash kernels are
-             timed beside ``F.scaled_dot_product_attention`` forward and
-             backward (timed only, never called by the port).
+             ``cuobjdump -sass`` finds in the bf16 tensor-core kernels (the
+             flash forward, dq and dk/dv, the MLP backward's GEMMs; raises
+             on 0). Times come from CUDA events, and for the backward
+             kernels also a device time per call (``device_ms``); each row
+             prints ``bound_share`` = bound / kernel time; the flash
+             kernels are timed beside ``F.scaled_dot_product_attention``
+             forward and backward, the MLP backward beside its four bf16
+             products as ``torch.matmul`` calls (``gemms_library_ms``; both
+             timed only, never called by the port).
 3. serve   — a seeded ViT-B/16 export (1000 classes) served through
              ``InferenceEngine.from_checkpoint(..., device="cuda")`` with
              the ladder 1,8,32 and ~40 requests over the probs / features /
@@ -47,7 +51,10 @@ final ``ok`` line is never printed:
              device time of the wrapper's ``_fold_heads`` copies of q, k,
              v), and one f32 step of a 2-layer B/16 on
              the card against the same step through the plain versions on
-             the CPU: loss, gradients and the updated params.
+             the CPU: loss, gradients and the updated params. Last, the
+             T = 197 attention decision: ``auto`` and ``flash`` train
+             states from the same params stepped in turns (COMPARE_ROUNDS),
+             wall and device medians of each.
 5. parallel — the data x tensor x pipeline path through the port's
              ``parallel.spawn``, four rank processes sharing the one card
              (gloo, every transfer through host memory; the phase prints
@@ -173,6 +180,27 @@ def dev_us(e, total: bool = False) -> float:
                       0) or 0)
 
 
+def kernel_breakdown(fn, reps: int = 5) -> dict:
+    """Device ms per call of each kernel that ``fn`` launches, from
+    ``torch.profiler`` over ``reps`` calls (names cut at the argument
+    list)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            name = e.key.split("(")[0].replace("void ", "")[-70:]
+            out[name] = out.get(name, 0.0) + dev_us(e) / 1e3 / reps
+    return out
+
+
 def bound(flops: float, nbytes: float, flop_rate: float, byte_rate: float):
     t_ops, t_bytes = flops / flop_rate, nbytes / byte_rate
     return (max(t_ops, t_bytes) * 1e3,
@@ -268,6 +296,28 @@ def rel_err(a, b) -> float:
 
 
 MLP_GRADS = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+# How the MLP backward (rows 2 and 7) multiplies, by dtype.
+MLP_BWD_DESIGN = {"bfloat16": "wgmma+tma", "float32": "simt"}
+
+
+def gemms_library(gen, n, d, f, dev) -> dict:
+    """The MLP backward's four bf16 products at its shapes as four
+    ``torch.matmul`` calls timed together (dg = df W2^T, dy = dh W1^T,
+    dW1 = y^T dh, dW2 = g^T df): an informational yardstick of the
+    GEMM share only, never called by the port, and not one call of the
+    same function (no LN, GELU', dropout, bias sums or f32 weight
+    gradients)."""
+    import torch
+    r = lambda *s_: torch.randn(*s_, generator=gen).to(  # noqa: E731
+        dev, torch.bfloat16)
+    df, dh, g, y = r(n, d), r(n, f), r(n, f), r(n, d)
+    w1, w2 = r(d, f), r(f, d)
+
+    def four():
+        return (df @ w2.t(), dh @ w1.t(), y.t() @ dh, g.t() @ df)
+    with torch.inference_mode():
+        return {"gemms_library_ms": time_ms(four, 10),
+                "gemms_library_device_ms": device_ms(four)}
 
 
 def check_fused_mlp_bwd(gen, card_peaks, dev):
@@ -312,6 +362,9 @@ def check_fused_mlp_bwd(gen, card_peaks, dev):
                 raise AssertionError(f"fused MLP backward {name} t={t}: "
                                      f"{bad} exceed {tol}")
             ms = time_ms(lambda: fused_mlp._launch_bwd(*args, **kw), 10)
+            dev_ms = device_ms(lambda: fused_mlp._launch_bwd(*args, **kw))
+            passes = kernel_breakdown(
+                lambda: fused_mlp._launch_bwd(*args, **kw))
             plain_ms = time_ms(
                 lambda: fused_mlp.ln_mlp_residual_bwd_plain(*args, **kw), 3)
             fwd_h_ms = time_ms(
@@ -332,8 +385,14 @@ def check_fused_mlp_bwd(gen, card_peaks, dev):
                "tolerance_rel": tol, "deterministic": True,
                "save_h_max_abs_err": h_err, "save_h_fwd_ms": fwd_h_ms,
                "save_h_fwd_bound_ms": hb_ms, "save_h_fwd_bound_by": hb_by,
-               "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
-               "bound_ms": b_ms, "bound_by": b_by}
+               "kernel_ms": ms, "device_ms": dev_ms,
+               "passes_device_ms": passes,
+               "design": MLP_BWD_DESIGN[name], "plain_ms": plain_ms,
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_share": b_ms / ms,
+               "device_bound_share": b_ms / dev_ms if dev_ms else None,
+               **(gemms_library(gen, n, d, f, dev) if name == "bfloat16"
+                  else {})}
         emit(row)
         rows.append(row)
     return rows
@@ -402,7 +461,7 @@ def check_flash_bwd(gen, card_peaks, dev):
         lib_b = bound(10.0 * b * h * t_len * t_len * dh,
                       io + 3 * elem * size, rate, hbm)
         row = {"phase": "kernels", "kernel": "flash_attention_bwd",
-               "design": {"dq": "simt", "dkv": FLASH_DESIGN[dt]},
+               "design": {"dq": FLASH_DESIGN[dt], "dkv": FLASH_DESIGN[dt]},
                "dtype": dt, "threshold": t,
                "shape": [b, t_len, h, dh], "max_rel_err": errs,
                "max_abs_err": abs_err, "tolerance_rel": TOL[dt],
@@ -414,6 +473,7 @@ def check_flash_bwd(gen, card_peaks, dev):
                "dkv_bound_share": dkv_b[0] / dkv_ms,
                "dq_device_ms": dq_dev, "dkv_device_ms": dkv_dev,
                "library_device_ms": lib_dev,
+               "dq_device_bound_share": dq_b[0] / dq_dev if dq_dev else None,
                "dkv_device_bound_share": (dkv_b[0] / dkv_dev if dkv_dev
                                           else None),
                "bwd_bound_ms": lib_b[0]}
@@ -482,6 +542,10 @@ def check_fused_mlp_core(gen, card_peaks, dev):
                                5)
             bwd_ms = time_ms(lambda: fused_mlp._launch_core_bwd(*bwd, **kw),
                              10)
+            bwd_dev = device_ms(
+                lambda: fused_mlp._launch_core_bwd(*bwd, **kw))
+            bwd_passes = kernel_breakdown(
+                lambda: fused_mlp._launch_core_bwd(*bwd, **kw))
             bwd_plain_ms = time_ms(
                 lambda: fused_mlp.mlp_core_bwd_plain(*bwd, **kw), 3)
         s_ = dtype.itemsize
@@ -506,7 +570,14 @@ def check_fused_mlp_core(gen, card_peaks, dev):
                "bwd_max_rel_err_by_grad": errs, "bwd_tolerance_rel": tol,
                "bwd_deterministic": True, "bwd_ms": bwd_ms,
                "bwd_plain_ms": bwd_plain_ms, "bwd_bound_ms": g_ms,
-               "bwd_bound_by": g_by}
+               "bwd_bound_by": g_by, "bwd_device_ms": bwd_dev,
+               "bwd_passes_device_ms": bwd_passes,
+               "bwd_design": MLP_BWD_DESIGN[name],
+               "bwd_bound_share": g_ms / bwd_ms,
+               "bwd_device_bound_share": g_ms / bwd_dev if bwd_dev else None,
+               **({"bwd_" + k: v for k, v in gemms_library(
+                   gen, n, d, f, dev).items()} if name == "bfloat16"
+                  else {})}
         if t:
             row["masks_bit_identical"] = core_masks(p, kw, dev)
         emit(row)
@@ -625,33 +696,47 @@ FLASH_DESIGN = {"bfloat16": "wgmma+tma", "float32": "simt"}
 
 def hgmma_counts() -> dict:
     """HGMMA (wgmma) instructions per kernel function of the built flash
-    libraries, read from ``cuobjdump -sass``; raises if the bf16 forward
-    (``vit_flash_fwd``) or dk/dv (``vit_flash_bwd_dkv``) kernels have
-    none."""
+    and MLP-backward libraries, read from ``cuobjdump -sass``; raises if
+    any bf16 tensor-core kernel (the flash forward, dq and dk/dv
+    instantiations, and every ``gemm_bf16`` instantiation of the MLP
+    backward, rows 2 and 7) has none."""
     import re
     from pytorch_vit_paper_replication_tpu_torch.ops import _build
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     per_fn = {}
-    for lib in ("flash_attention", "flash_attention_bwd"):
+    for lib in ("flash_attention", "flash_attention_bwd", "fused_mlp_bwd",
+                "fused_mlp_core"):
         sass = subprocess.run(
             [str(cuobjdump), "-sass", str(_build.library_path(lib))],
             capture_output=True, text=True, timeout=300, check=True).stdout
         fn = None
         for line in sass.splitlines():
             if "Function :" in line:
-                m = re.search(r"(flash_(?:fwd|bwd)_\w+?)I\w*?Li(\d+)E",
-                              line)
-                fn = f"{m.group(1)}<{m.group(2)}>" if m else line.split(
-                    "Function :")[1].strip()
+                flash = re.search(r"(flash_(?:fwd|bwd)_\w+?)I\w*?Li(\d+)E",
+                                  line)
+                gemm = re.search(r"gemm_bf16ILi(\d)ELb(\d)ELb(\d)E", line)
+                if flash:
+                    fn = f"{flash.group(1)}<{flash.group(2)}>"
+                elif gemm:
+                    fn = f"{lib}:gemm_bf16<{','.join(gemm.groups())}>"
+                else:
+                    fn = f"{lib}:" + line.split("Function :")[1].strip()
                 per_fn.setdefault(fn, 0)
             elif fn is not None and "HGMMA" in line:
                 per_fn[fn] += 1
-    out = {"vit_flash_fwd": sum(n for f, n in per_fn.items()
-                                if "flash_fwd_wgmma" in f),
-           "vit_flash_bwd_dkv": sum(n for f, n in per_fn.items()
-                                    if "flash_bwd_dkv_wgmma" in f)}
-    if not all(out.values()):
-        raise AssertionError(f"no HGMMA in a bf16 flash kernel: {per_fn}")
+
+    def total(*keys):
+        return sum(n for f, n in per_fn.items() if all(k in f for k in keys))
+    out = {"vit_flash_fwd": total("flash_fwd_wgmma"),
+           "vit_flash_bwd_dq": total("flash_bwd_dq_wgmma"),
+           "vit_flash_bwd_dkv": total("flash_bwd_dkv_wgmma"),
+           "vit_lnmlp_bwd": total("fused_mlp_bwd:", "gemm_bf16"),
+           "vit_mlp_bwd": total("fused_mlp_core:", "gemm_bf16")}
+    tensor_core = {f: n for f, n in per_fn.items()
+                   if "wgmma" in f or "gemm_bf16" in f}
+    if not all(out.values()) or not all(tensor_core.values()):
+        raise AssertionError(f"no HGMMA in a bf16 tensor-core kernel: "
+                             f"{per_fn}")
     return {**out, "per_function": per_fn}
 
 
@@ -1079,6 +1164,69 @@ def profile_step(state, batch, fold: bool = False) -> dict:
     return out
 
 
+# The T = 197 attention decision: rounds of interleaved unprofiled steps
+# (auto, flash, then flash, auto, ...) for the wall, then profiled steps of
+# each for the device time.
+COMPARE_ROUNDS = 8
+COMPARE_PROFILED = 3
+
+
+def auto_vs_flash(cfg, dev) -> dict:
+    """``attention_impl="auto"`` (xla at T = 197) against ``"flash"`` on
+    the B/16 batch-32 train step: two train states from the same seeded
+    params, one seeded batch, stepped in turns so both meet the same card
+    and host; wall medians over the unprofiled steps after the first of
+    each, device medians (the profiler's kernel time of a step) over the
+    profiled ones."""
+    import statistics
+    import numpy as np
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch import engine, optim
+    from pytorch_vit_paper_replication_tpu_torch.configs import TrainConfig
+    from pytorch_vit_paper_replication_tpu_torch.convert import seeded_params
+    from pytorch_vit_paper_replication_tpu_torch.models import ViT
+
+    tcfg = TrainConfig()
+    params = seeded_params(cfg, 3)
+    rng = np.random.default_rng(3)
+    batch = {"image": rng.standard_normal(
+        (TRAIN_BATCH, cfg.image_size, cfg.image_size, 3)).astype(np.float32),
+             "label": rng.integers(0, cfg.num_classes, TRAIN_BATCH)}
+    impls = ("auto", "flash")
+    states = {}
+    for impl in impls:
+        model = ViT(cfg.replace(attention_impl=impl))
+        model.load_state_dict(params)
+        model.to(dev)
+        states[impl] = engine.TrainState.create(
+            model=model, seed=tcfg.seed,
+            tx=optim.make_optimizer(tcfg, 2 * COMPARE_ROUNDS))
+    step = engine.make_train_step()
+    walls = {impl: [] for impl in impls}
+    for r in range(COMPARE_ROUNDS):
+        for impl in (impls if r % 2 == 0 else impls[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[impl], _ = step(states[impl], batch)
+            torch.cuda.synchronize()
+            walls[impl].append((time.perf_counter() - t0) * 1e3)
+    device = {impl: [] for impl in impls}
+    for r in range(COMPARE_PROFILED):
+        for impl in (impls if r % 2 == 0 else impls[::-1]):
+            device[impl].append(
+                profile_step(states[impl], batch)["device_ms_total"])
+    del states
+    torch.cuda.empty_cache()
+    med = {impl: {"wall_ms_median": statistics.median(walls[impl][1:]),
+                  "device_ms_median": statistics.median(device[impl]),
+                  "wall_ms": walls[impl], "device_ms": device[impl]}
+           for impl in impls}
+    return {**med, "flash_minus_auto_wall_ms": (
+        med["flash"]["wall_ms_median"] - med["auto"]["wall_ms_median"]),
+            "flash_minus_auto_device_ms": (
+        med["flash"]["device_ms_median"] - med["auto"]["device_ms_median"])}
+
+
 def split_qkv_bias(tree: dict):
     """``(leaves, k_slices)``: the qkv bias ``[3, H, Dh]`` of every block
     split into its Q and V slices (kept as leaves) and its K slice, whose
@@ -1236,6 +1384,11 @@ def phase_train(dev) -> dict:
           "profile_one_flash_step": f_prof,
           "flash_results": f_results,
           "seconds": round(time.perf_counter() - t0, 3)})
+    t1 = time.perf_counter()
+    emit({"phase": "train_auto_vs_flash", "ok": True, "batch": TRAIN_BATCH,
+          "rounds": COMPARE_ROUNDS, "profiled_rounds": COMPARE_PROFILED,
+          **auto_vs_flash(cfg, dev),
+          "seconds": round(time.perf_counter() - t1, 3)})
     t1 = time.perf_counter()
     emit({"phase": "train_f32_card_vs_cpu", "ok": True,
           "errors": f32_step_vs_cpu(dev), "tolerance": STEP_TOL,
@@ -1521,10 +1674,10 @@ def phase_parallel(dev) -> dict:
 # ------------------------------------------------------------- phase 6
 # How each kernel multiplies on the card, bf16 (f32 runs SIMT everywhere).
 KERNEL_DESIGN = {
-    "fused_ln_mlp_residual": "wmma", "fused_ln_mlp_residual_bwd": "wmma",
-    "flash_attention": "wgmma+tma", "flash_attention_bwd_dq": "simt",
+    "fused_ln_mlp_residual": "wmma", "fused_ln_mlp_residual_bwd": "wgmma+tma",
+    "flash_attention": "wgmma+tma", "flash_attention_bwd_dq": "wgmma+tma",
     "flash_attention_bwd_dkv": "wgmma+tma", "fused_mlp_core": "wmma",
-    "fused_mlp_core_bwd": "wmma"}
+    "fused_mlp_core_bwd": "wgmma+tma"}
 
 
 def kernel_list(k_rows, launches, serve_launches, par_launches):
@@ -1555,28 +1708,34 @@ def kernel_list(k_rows, launches, serve_launches, par_launches):
               shape=[32, 197, 12, 64])
     fl_b = pick("flash_attention_bwd", dtype="bfloat16", threshold=0,
                 shape=[32, 197, 12, 64])
+    # (name, source, replaces, max |err|, row with the main path's numbers,
+    # its keys for kernel / plain / device ms, bound and bound_by,
+    # library_ms, and the four-GEMM yardstick where there is one).
     rows = [
         ("fused_ln_mlp_residual", "fused_mlp.cu", "fused_mlp.py:461",
-         max_err("fused_ln_mlp_residual"), mlp["kernel_ms"], mlp["plain_ms"],
-         mlp["bound_ms"], mlp["bound_by"], None),
+         max_err("fused_ln_mlp_residual"), mlp,
+         ("kernel_ms", "plain_ms", None, "bound_ms", "bound_by"), None,
+         None),
         ("fused_ln_mlp_residual_bwd", "fused_mlp_bwd.cu", "fused_mlp.py:501",
-         max_err("fused_ln_mlp_residual_bwd"), mlp_b["kernel_ms"],
-         mlp_b["plain_ms"], mlp_b["bound_ms"], mlp_b["bound_by"], None),
+         max_err("fused_ln_mlp_residual_bwd"), mlp_b,
+         ("kernel_ms", "plain_ms", "device_ms", "bound_ms", "bound_by"),
+         None, mlp_b["gemms_library_ms"]),
         ("flash_attention", "flash_attention.cu", "flash_attention.py:295",
-         max_err("flash_attention"), fl["kernel_ms"], fl["plain_ms"],
-         fl["bound_ms"], fl["bound_by"], fl["library_ms"]),
+         max_err("flash_attention"), fl,
+         ("kernel_ms", "plain_ms", "kernel_device_ms", "bound_ms",
+          "bound_by"), fl["library_ms"], None),
         # plain_ms and library_ms of the two backward kernels are one call
         # each computing dq, dk and dv together.
         ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
          "flash_attention.py:485", max_err("flash_attention_bwd", "dq"),
-         fl_b["dq_ms"], fl_b["plain_ms"], fl_b["dq_bound_ms"],
-         fl_b["dq_bound_by"], fl_b["library_ms"]),
+         fl_b, ("dq_ms", "plain_ms", "dq_device_ms", "dq_bound_ms",
+                "dq_bound_by"), fl_b["library_ms"], None),
         ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
          "flash_attention.py:503",
          max(max_err("flash_attention_bwd", "dk"),
-             max_err("flash_attention_bwd", "dv")),
-         fl_b["dkv_ms"], fl_b["plain_ms"], fl_b["dkv_bound_ms"],
-         fl_b["dkv_bound_by"], fl_b["library_ms"]),
+             max_err("flash_attention_bwd", "dv")), fl_b,
+         ("dkv_ms", "plain_ms", "dkv_device_ms", "dkv_bound_ms",
+          "dkv_bound_by"), fl_b["library_ms"], None),
     ]
     n, f, dt, t = CORE_MAIN_PATH
     core = pick("fused_mlp_core", shape=[n, 768, f], dtype=dt, threshold=t)
@@ -1584,23 +1743,31 @@ def kernel_list(k_rows, launches, serve_launches, par_launches):
                  and r["dtype"] == "bfloat16"]
     rows += [
         ("fused_mlp_core", "fused_mlp_core.cu", "fused_mlp.py:236",
-         max(r["max_abs_err"] for r in core_rows), core["kernel_ms"],
-         core["plain_ms"], core["bound_ms"], core["bound_by"], None),
-        ("fused_mlp_core_bwd", "fused_mlp_core.cu", "fused_mlp.py:278",
-         max(r["bwd_max_abs_err"] for r in core_rows), core["bwd_ms"],
-         core["bwd_plain_ms"], core["bwd_bound_ms"], core["bwd_bound_by"],
+         max(r["max_abs_err"] for r in core_rows), core,
+         ("kernel_ms", "plain_ms", None, "bound_ms", "bound_by"), None,
          None),
+        ("fused_mlp_core_bwd", "fused_mlp_core.cu", "fused_mlp.py:278",
+         max(r["bwd_max_abs_err"] for r in core_rows), core,
+         ("bwd_ms", "bwd_plain_ms", "bwd_device_ms", "bwd_bound_ms",
+          "bwd_bound_by"), None, core["bwd_gemms_library_ms"]),
     ]
     launches = {**launches, "fused_mlp_core": par_launches["fused_mlp_core"],
                 "fused_mlp_core_bwd": par_launches["fused_mlp_core_bwd"]}
-    out = [{"name": name, "route": "cuda", "source": f"{base}/{src}",
-            "replaces": f"{ref}/{rep}", "status": "ported and checked",
-            "design": KERNEL_DESIGN[name], "launches": launches[name],
-            "serve_launches": serve_launches.get(name, 0),
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
-            "library_ms": lib}
-           for name, src, rep, err, ms, plain_ms, b_ms, b_by, lib in rows]
+    out = []
+    for name, src, rep, err, row, keys, lib, gemms in rows:
+        ms, plain, dev_ms, b_ms, b_by = (row[k] if k else None for k in keys)
+        entry = {"name": name, "route": "cuda", "source": f"{base}/{src}",
+                 "replaces": f"{ref}/{rep}", "status": "ported and checked",
+                 "design": KERNEL_DESIGN[name], "launches": launches[name],
+                 "serve_launches": serve_launches.get(name, 0),
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "bound_share": b_ms / ms, "library_ms": lib}
+        if dev_ms is not None:
+            entry["device_ms"] = dev_ms
+        if gemms is not None:
+            entry["gemms_library_ms"] = gemms
+        out.append(entry)
     return {"kernels": out, "to_port": []}
 
 

@@ -35,7 +35,21 @@
 // registers rounded to bf16, dO and Q MN-major). The q/dO maps are 3-D
 // (Dh, T, B*H) so rows past T load as zeros; queries past T get P = 0.
 //
-// dk/dv, f32, and dq, both dtypes — SIMT kernels: all math in f32 like
+// dq, bf16 — flash_bwd_dq_wgmma, the same design with the roles swapped:
+// one consumer warpgroup owns the CTA's 64 queries, whose Q and dO tiles
+// stay resident (one TMA load each) and whose lse and delta it holds in
+// registers (the producer lanes copy them, zero past T); one producer warp
+// streams K and V tiles of 64 keys through a 2-stage ring. Per K tile:
+// S = Q K^T and dP = dO V^T (wgmma, both operands K-major), P, dropout and
+// dS = P (keep dP / keep - delta) scale elementwise in the accumulator
+// layout, then dQ += dS K (wgmma, dS from registers rounded to bf16, K read
+// MN-major). Keys past T load as zeros and get P = 0; dq leaves as bf16
+// from the f32 accumulator, rows past T never stored. The rounding of dS
+// before its product is new against the Pallas kernel, which multiplies
+// upcast f32 operands; tests/test_torch_flash_rounding.py holds it to the
+// plain version's bound.
+//
+// dq and dk/dv, f32 — SIMT kernels: all math in f32 like
 // the Pallas kernels (which upcast q, k, v and dO);
 // thread (rg, cg) owns 4 rows x 4 columns of each 64x64 logit block and 4
 // rows x Dh/16 columns of the output; operands are staged in shared memory
@@ -131,13 +145,16 @@ __device__ __forceinline__ void block_dots(const float* a0, const float* b0t,
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 T* __restrict__ dq, int t_len, float scale, uint32_t seed,
-                 int threshold, float inv_keep) {
+    flash_bwd_dq_simt(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dq,
+                      int t_len, float scale, uint32_t seed, int threshold,
+                      float inv_keep) {
   using L = DqSmem<DH>;
   constexpr int CW = DH / 16;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -152,8 +169,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q0 = blockIdx.x * kB;
   const size_t base = static_cast<size_t>(bh) * t_len * DH;
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
-  load_rows<T, DH>(q + base, q_s, q0, t_len);
-  load_rows<T, DH>(dout + base, do_s, q0, t_len);
+  load_rows<float, DH>(q + base, q_s, q0, t_len);
+  load_rows<float, DH>(dout + base, do_s, q0, t_len);
   float lse_r[4], dl_r[4], acc[4][CW];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -167,9 +184,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int k0 = 0; k0 < t_len; k0 += kB) {
     __syncthreads();  // previous block done with kt_s / vt_s / k_s / ds_s
-    load_rows_t<T, DH>(k + base, kt_s, k0, t_len);
-    load_rows_t<T, DH>(v + base, vt_s, k0, t_len);
-    load_rows<T, DH>(k + base, k_s, k0, t_len);
+    load_rows_t<float, DH>(k + base, kt_s, k0, t_len);
+    load_rows_t<float, DH>(v + base, vt_s, k0, t_len);
+    load_rows<float, DH>(k + base, k_s, k0, t_len);
     __syncthreads();
     float s[4][4], dp[4][4];
     block_dots<DH>(q_s, kt_s, do_s, vt_s, rg, cg, s, dp);
@@ -211,7 +228,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (row >= t_len) continue;
     const size_t o = base + static_cast<size_t>(row) * DH + cg * CW;
 #pragma unroll
-    for (int c = 0; c < CW; ++c) dq[o + c] = vit::from_f32<T>(acc[i][c]);
+    for (int c = 0; c < CW; ++c) dq[o + c] = acc[i][c];
   }
 }
 
@@ -525,6 +542,191 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// ----------------------------------------------------- dq, bf16 wgmma
+template <int DH>
+struct DqWgSmem {
+  using L = hopper::Tile<DH>;
+  static constexpr int q_off = 0;
+  static constexpr int do_off = q_off + L::BYTES;
+  // Stage s: K tile at k_off + 2 s BYTES, V tile BYTES later.
+  static constexpr int k_off = do_off + L::BYTES;
+  static constexpr int vec_off = k_off + 4 * L::BYTES;  // lse[64], delta[64]
+  static constexpr int bar_off = vec_off + 512;
+  // qd_full, kv_full[2], kv_empty[2]; + 1024 to align the base.
+  static constexpr int bytes = bar_off + 5 * 8 + 1024;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_do,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       bf16* __restrict__ dq, int t_len, float scale,
+                       uint32_t seed, int threshold, float inv_keep) {
+  using L = hopper::Tile<DH>;
+  using S = DqWgSmem<DH>;
+  constexpr int NC = L::C / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::bar_off);
+  uint64_t* qd_full = bars;
+  uint64_t* kv_full = bars + 1;
+  uint64_t* kv_empty = bars + 3;
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * 64;
+  const int nk = (t_len + 63) / 64;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    hopper::mbar_init(qd_full, 1 + 32);
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&kv_full[s], 1);
+      hopper::mbar_init(&kv_empty[s], 128);
+    }
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {
+    // Producer warp: every lane copies two of the block's 64 lse and delta
+    // values (zero past T) and arrives; lane 0 also loads the Q and dO
+    // tiles, then streams the K and V tiles through the ring.
+    const int lane = tid - 128;
+    const size_t head = static_cast<size_t>(bh) * t_len;
+    if (lane == 0) {
+      hopper::mbar_expect_tx(qd_full, 2 * L::BYTES);
+      hopper::tma_load_tile<DH>(smem + S::q_off, &map_q, qd_full, q0, bh);
+      hopper::tma_load_tile<DH>(smem + S::do_off, &map_do, qd_full, q0, bh);
+    }
+    float* vec = reinterpret_cast<float*>(smem + S::vec_off);
+#pragma unroll
+    for (int r = lane; r < 64; r += 32) {
+      const int row = q0 + r;
+      vec[r] = row < t_len ? lse[head + row] : 0.0f;
+      vec[64 + r] = row < t_len ? delta[head + row] : 0.0f;
+    }
+    hopper::mbar_arrive(qd_full);
+    if (lane != 0) return;
+    for (int it = 0; it < nk; ++it) {
+      const int st = it & 1;
+      hopper::mbar_wait(&kv_empty[st], ((it >> 1) & 1) ^ 1);
+      unsigned char* tiles = smem + S::k_off + st * 2 * L::BYTES;
+      hopper::mbar_expect_tx(&kv_full[st], 2 * L::BYTES);
+      hopper::tma_load_tile<DH>(tiles, &map_k, &kv_full[st], it * 64, bh);
+      hopper::tma_load_tile<DH>(tiles + L::BYTES, &map_v, &kv_full[st],
+                                it * 64, bh);
+    }
+    return;
+  }
+
+  // Consumer warpgroup. Thread (w, g, tq) holds queries 16 w + g (h = 0)
+  // and 16 w + g + 8 (h = 1) of the block; S element 4 j + e sits at query
+  // half e / 2, key column 8 j + 2 tq + e % 2.
+  const int w = tid / 32, g = (tid % 32) / 4, tq = tid % 4;
+  const uint32_t q_s = hopper::smem_u32(smem + S::q_off);
+  const uint32_t do_s = hopper::smem_u32(smem + S::do_off);
+  float dq_acc[L::NBOX][NC];
+  float s[32], dp[32];
+#pragma unroll
+  for (int b = 0; b < L::NBOX; ++b)
+#pragma unroll
+    for (int i = 0; i < NC; ++i) dq_acc[b][i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+
+  hopper::mbar_wait(qd_full, 0);
+  float lse_r[2], dl_r[2];
+  {
+    const float* vec = reinterpret_cast<const float*>(smem + S::vec_off);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lse_r[h] = vec[16 * w + g + 8 * h];
+      dl_r[h] = vec[64 + 16 * w + g + 8 * h];
+    }
+  }
+  for (int it = 0; it < nk; ++it) {
+    const int st = it & 1;
+    const int k0 = it * 64;
+    const uint32_t k_s =
+        hopper::smem_u32(smem + S::k_off + st * 2 * L::BYTES);
+    const uint32_t v_s = k_s + L::BYTES;
+    hopper::mbar_wait(&kv_full[st], (it >> 1) & 1);
+
+    // S = Q K^T and dP = dO V^T over DH.
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      hopper::Wgmma<64>::ss<0>(s, hopper::kmajor_desc<DH>(q_s, kk),
+                               hopper::kmajor_desc<DH>(k_s, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      hopper::Wgmma<64>::ss<0>(dp, hopper::kmajor_desc<DH>(do_s, kk),
+                               hopper::kmajor_desc<DH>(v_s, kk), kk > 0);
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+
+    // s <- dS = P (keep dP / keep - delta) scale, in the accumulator layout.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i / 2) % 2;
+      const int row = q0 + 16 * w + g + 8 * h;
+      const int col = k0 + 8 * (i / 4) + 2 * tq + (i % 2);
+      const float p = col < t_len ? expf(s[i] * scale - lse_r[h]) : 0.0f;
+      float dpv = dp[i];
+      if (threshold)
+        dpv = vit::positional_keep(seed, bh, row, col, threshold)
+                  ? dpv * inv_keep
+                  : 0.0f;
+      s[i] = p * (dpv - dl_r[h]) * scale;
+    }
+
+    // dQ += dS K: dS from registers rounded to bf16, K read MN-major.
+    uint32_t sa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hopper::acc_to_a(s, kk, sa[kk]);
+#pragma unroll
+    for (int b = 0; b < L::NBOX; ++b) hopper::fence_regs(dq_acc[b]);
+    hopper::wg_fence();
+#pragma unroll
+    for (int b = 0; b < L::NBOX; ++b)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::Wgmma<L::C>::template rs<1>(dq_acc[b], sa[kk],
+                                   hopper::mnmajor_desc<DH>(k_s, b, kk), 1);
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+#pragma unroll
+    for (int b = 0; b < L::NBOX; ++b) hopper::fence_regs(dq_acc[b]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hopper::fence_regs(sa[kk]);
+    hopper::mbar_arrive(&kv_empty[st]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * w + g + 8 * h;
+    if (row >= t_len) continue;
+    const size_t o = (static_cast<size_t>(bh) * t_len + row) * DH;
+#pragma unroll
+    for (int b = 0; b < L::NBOX; ++b)
+#pragma unroll
+      for (int j = 0; j < L::C / 8; ++j) {
+        const int col = b * L::C + 8 * j + 2 * tq;
+        const int i = 4 * j + 2 * h;
+        *reinterpret_cast<__nv_bfloat162*>(dq + o + col) =
+            __floats2bfloat162_rn(dq_acc[b][i], dq_acc[b][i + 1]);
+      }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -536,19 +738,19 @@ struct Args {
   float inv_keep;
 };
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch_dq_simt(const Args& a, cudaStream_t s) {
   const size_t smem = DqSmem<DH>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_simt<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  flash_bwd_dq<T, DH><<<dim3((a.t_len + kB - 1) / kB, a.bh), kThreads, smem,
-                        s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.o0), a.t_len, a.scale, a.seed, a.threshold,
-      a.inv_keep);
+  flash_bwd_dq_simt<DH><<<dim3((a.t_len + kB - 1) / kB, a.bh), kThreads,
+                          smem, s>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.o0), a.t_len, a.scale, a.seed,
+      a.threshold, a.inv_keep);
   return cudaGetLastError();
 }
 
@@ -589,13 +791,33 @@ cudaError_t launch_dkv_wgmma(const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// dq: the SIMT kernel in both dtypes; dk/dv: wgmma for bf16, SIMT for f32.
+template <int DH>
+cudaError_t launch_dq_wgmma(const Args& a, cudaStream_t s) {
+  CUtensorMap mq, mk, mv, mdo;
+  if (!hopper::make_tile_map<DH>(&mq, a.q, a.bh, a.t_len) ||
+      !hopper::make_tile_map<DH>(&mk, a.k, a.bh, a.t_len) ||
+      !hopper::make_tile_map<DH>(&mv, a.v, a.bh, a.t_len) ||
+      !hopper::make_tile_map<DH>(&mdo, a.dout, a.bh, a.t_len))
+    return cudaErrorInvalidValue;
+  const int smem = DqWgSmem<DH>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.t_len + 63) / 64, a.bh);
+  flash_bwd_dq_wgmma<DH><<<grid, kWgThreads, smem, s>>>(
+      mq, mk, mv, mdo, a.lse, a.delta, static_cast<bf16*>(a.o0), a.t_len,
+      a.scale, a.seed, a.threshold, a.inv_keep);
+  return cudaGetLastError();
+}
+
+// bf16: the wgmma kernels; f32: the SIMT kernels.
 template <int DH>
 cudaError_t launch(int dtype, bool dkv, const Args& a, cudaStream_t s) {
   if (dtype == 1)
-    return dkv ? launch_dkv_wgmma<DH>(a, s) : launch_dq_simt<bf16, DH>(a, s);
+    return dkv ? launch_dkv_wgmma<DH>(a, s) : launch_dq_wgmma<DH>(a, s);
   if (dtype == 0)
-    return dkv ? launch_dkv_simt<DH>(a, s) : launch_dq_simt<float, DH>(a, s);
+    return dkv ? launch_dkv_simt<DH>(a, s) : launch_dq_simt<DH>(a, s);
   return cudaErrorInvalidValue;
 }
 
@@ -618,8 +840,8 @@ int run(int dtype, int dh, bool dkv, const Args& a, void* stream) {
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). q, k, v, dout and the outputs:
-// [bh, t, dh] contiguous in dtype (0 = float32, 1 = bf16; the bf16 dk/dv
-// kernel reads its operands through TMA, 16-byte aligned), dh in {32, 64,
+// [bh, t, dh] contiguous in dtype (0 = float32, 1 = bf16; the bf16 kernels
+// read q, k, v and dout through TMA, 16-byte aligned), dh in {32, 64,
 // 128}; lse, delta: [bh, t] float32. Return the cudaError_t of the map
 // encoding, attribute call or launch (0 on success).
 extern "C" int vit_flash_bwd_dq(int dtype, const void* q, const void* k,

@@ -16,10 +16,10 @@
 //
 // The kernels are those of rows 1 and 2 with LN and the residual switched
 // off (mlp_fwd.cuh and mlp_bwd.cuh with LN = false): the hidden tile stays
-// on chip in the forward; the backward is the same three deterministic
-// passes (row kernel writing g_c, dh_c and column partials; output-tiled
-// GEMMs dW1 = x^T dh_c and dW2 = g_c^T dO; fixed-order column sums), with
-// x and dO as the GEMM operands.
+// on chip in the forward; the backward is row 2's deterministic passes
+// without the LN ones (bf16: the wgmma GEMMs dg with the hidden-gradient
+// epilogue, dx = cast(dh_c W1^T), dW1 = x^T dh_c, dW2 = g_c^T dO, then the
+// fixed-order column sums), with x and dO as the GEMM operands.
 #include "mlp_bwd.cuh"
 #include "mlp_fwd.cuh"
 
@@ -35,39 +35,33 @@ extern "C" int vit_mlp_fwd(int dtype, const void* x, const void* w1,
       threshold, inv_keep, static_cast<cudaStream_t>(stream)));
 }
 
+// Bytes of workspace vit_mlp_bwd needs for these shapes (-1: shapes it
+// does not take).
+extern "C" long long vit_mlp_bwd_workspace(int dtype, int n, int d, int f) {
+  using namespace vit::mlp_bwd;
+  if (!valid_shape(dtype, n, d, f)) return -1;
+  return static_cast<long long>(plan<false>(dtype, n, d, f, nullptr, nullptr));
+}
+
 // Backward. x, dout, dx [n, d], h [n, f], w1 [d, f], w2 [f, d] in the
-// dtype; work: 2*n*f elements of the dtype (g_c, dh_c); partials:
-// ceil(n/32) * (d + f) floats. dw1 [d, f], db1 [f], dw2 [f, d], db2 [d]
-// leave in float32. Returns the first cudaError_t that is not 0, else 0.
+// dtype (bf16: 16-byte aligned, read through TMA); workspace of
+// workspace_bytes >= vit_mlp_bwd_workspace(...). dw1 [d, f], db1 [f],
+// dw2 [f, d], db2 [d] leave in float32. Returns the first cudaError_t that
+// is not 0, else 0.
 extern "C" int vit_mlp_bwd(int dtype, const void* x, const void* h,
                            const void* w1, const void* w2, const void* dout,
                            void* dx, float* dw1, float* db1, float* dw2,
-                           float* db2, void* work, float* partials, int n,
-                           int d, int f, uint32_t seed, int threshold,
-                           float inv_keep, void* stream) {
+                           float* db2, void* workspace,
+                           long long workspace_bytes, int n, int d, int f,
+                           uint32_t seed, int threshold, float inv_keep,
+                           void* stream) {
   using namespace vit::mlp_bwd;
-  if (!valid_shape(dtype, n, d, f))
+  if (!valid_shape(dtype, n, d, f) ||
+      workspace_bytes < static_cast<long long>(
+                            plan<false>(dtype, n, d, f, nullptr, nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = row_tiles(n);
-  const size_t es = dtype == 1 ? 2 : 4;
-  unsigned char* wb = static_cast<unsigned char*>(work);
-  const size_t nf = static_cast<size_t>(n) * f;
-  Scratch sc{};
-  sc.g_c = wb;
-  sc.dh_c = wb + nf * es;
-  sc.p_db2 = partials;
-  sc.p_db1 = partials + static_cast<size_t>(tiles) * d;
-  cudaError_t err = rows<false>(dtype, d, x, h, nullptr, nullptr, w1, w2,
-                                dout, dx, sc, n, f, 0.0f, seed, threshold,
-                                inv_keep, tiles, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if ((err = gemm_tn(dtype, x, sc.dh_c, dw1, n, d, f, s)) != cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = gemm_tn(dtype, sc.g_c, dout, dw2, n, f, d, s)) != cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = reduce(sc.p_db2, db2, tiles, d, s)) != cudaSuccess ||
-      (err = reduce(sc.p_db1, db1, tiles, f, s)) != cudaSuccess)
-    return static_cast<int>(err);
-  return 0;
+  return static_cast<int>(backward<false>(
+      dtype, x, h, nullptr, nullptr, w1, w2, dout, dx, nullptr, nullptr, dw1,
+      db1, dw2, db2, workspace, n, d, f, 0.0f, seed, threshold, inv_keep,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -2,7 +2,7 @@
 // TMA tile loads completing on mbarriers, wgmma shared-memory descriptors
 // for the 128- and 64-byte swizzles, and the bf16 wgmma instructions
 // (f32 accumulators in registers) with A from shared memory or from
-// registers. Inline PTX only, so a source that includes this header still
+// registers, and 2-D TMA maps of row-major matrices. Inline PTX only, so a source that includes this header still
 // builds in seconds with a plain C interface.
 //
 // Layout contract shared by the TMA maps (make_tile_map) and the wgmma
@@ -10,6 +10,14 @@
 // as DH / C boxes of [64 rows][C columns], C = min(DH, 64), each box
 // swizzled with an SW = 2 C byte pattern (128 bytes for DH >= 64, 64
 // bytes for DH = 32) and boxes placed one after the other.
+//
+// Row-major 2-D matrices (make_rows_map, the GEMMs of the MLP backward)
+// follow one contract too: boxes of [R rows][64 columns] bf16 with the
+// 128-byte swizzle, so one row of a box is one 128-byte swizzle row and
+// 8-row groups sit 1024 bytes apart. Read K-major (the 64 columns are the
+// reduction) a box feeds rows_kmajor_desc; read MN-major (the rows are the
+// reduction) consecutive boxes of 64 columns each feed rows_mnmajor_desc,
+// whose leading-byte offset steps from one box to the next.
 #pragma once
 
 #include <cstdint>
@@ -89,6 +97,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x),
+      "r"(y)
+      : "memory");
+}
+
 // A [64, DH] tile at rows y.. of head z: DH / C boxes, C columns each.
 template <int DH>
 struct Tile {
@@ -140,6 +159,19 @@ __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int n,
                    L::LAYOUT);
 }
 
+// Row-major boxes (128-byte swizzle, 128-byte rows). K-major: the 16
+// reduction columns at byte `col_bytes` of rows starting at `rows`.
+__device__ __forceinline__ uint64_t rows_kmajor_desc(uint32_t rows,
+                                                     int col_bytes) {
+  return make_desc(rows + col_bytes, 16, 1024, 1);
+}
+// MN-major: reduction rows starting at `rows` of a box whose next 64
+// columns (the next swizzle atom along M or N) lie `box_bytes` further.
+__device__ __forceinline__ uint64_t rows_mnmajor_desc(uint32_t rows,
+                                                      uint32_t box_bytes) {
+  return make_desc(rows, box_bytes, 1024, 1);
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -184,8 +216,9 @@ __device__ __forceinline__ void acc_to_a(const float (&acc)[32], int kk,
 
 // D (m64 x N, f32, N / 2 registers a thread) += A (m64 x k16, bf16) * B
 // (k16 x N, bf16). ss: A and B by descriptor; rs: A from registers. TB = 1
-// reads B MN-major. scale_d = 0 overwrites D. The kernels use ss at N = 64
-// (the logits) and rs at N = C (the output boxes).
+// reads B MN-major (TA = 1, A). scale_d = 0 overwrites D. The flash kernels
+// use ss at N = 64 (the logits) and rs at N = C (the output boxes); the MLP
+// backward's GEMMs ss at N = 128, either operand K-major or MN-major.
 template <int N>
 struct Wgmma;
 
@@ -246,6 +279,36 @@ struct Wgmma<64> {
   }
 };
 
+template <>
+struct Wgmma<128> {
+  // TA / TB = 1 read A / B MN-major (transposed), 0 K-major.
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
 // ------------------------------------------------ host: tensor maps
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   void*, const cuuint64_t*, const cuuint64_t*,
@@ -293,6 +356,24 @@ inline bool make_tile_map(CUtensorMap* map, const void* ptr, int bh, int t) {
              L::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                           : CU_TENSOR_MAP_SWIZZLE_64B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a contiguous row-major bf16 [outer, inner] matrix read in
+// boxes of [box_rows][64] with the 128-byte swizzle; rows and columns past
+// the matrix read as zeros. inner * 2 must be a multiple of 16 bytes.
+inline bool make_rows_map(CUtensorMap* map, const void* ptr, int inner,
+                          int outer, int box_rows) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

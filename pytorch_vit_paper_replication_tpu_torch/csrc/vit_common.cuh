@@ -3,10 +3,10 @@
 // positional_keep() is the CUDA form of ops/dropout.py::positional_keep_u8:
 // the keep bit of an element is a pure hash of (seed, tag, row, col) in
 // native uint32 arithmetic (wrapping multiplies), so every kernel and the
-// plain PyTorch versions regenerate the identical mask. erf_as(),
-// gelu_exact() and gelu_grad() are the fused MLP's GELU and its derivative
-// in the form the Pallas kernels evaluate (ops/fused_mlp.py::_erf,
-// _gelu_exact, _gelu_grad).
+// plain PyTorch versions regenerate the identical mask. erf_as() and
+// gelu_exact() are the fused MLP's GELU in the form the Pallas kernels
+// evaluate (ops/fused_mlp.py::_erf, _gelu_exact); the backward evaluates
+// it with its derivative (_gelu_grad) in mlp_bwd.cuh::hidden_grad.
 #pragma once
 
 #include <cstdint>
@@ -60,13 +60,6 @@ __device__ __forceinline__ float erf_as(float x) {
 
 __device__ __forceinline__ float gelu_exact(float h) {
   return h * 0.5f * (1.0f + erf_as(h * 0.70710678118654752f));
-}
-
-// d/dh of the exact GELU: Phi(h) + h * phi(h), Phi through erf_as.
-__device__ __forceinline__ float gelu_grad(float h) {
-  const float phi = expf(-0.5f * h * h) * 0.3989422804014327f;
-  const float cdf = 0.5f * (1.0f + erf_as(h * 0.70710678118654752f));
-  return cdf + h * phi;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

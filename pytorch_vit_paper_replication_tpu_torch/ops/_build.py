@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -118,6 +120,15 @@ def load(name: str) -> ctypes.CDLL:
                 build([name])
             lib = _loaded[name] = ctypes.CDLL(str(path))
         return lib
+
+
+def check_tma(*tensors) -> None:
+    """Raise unless every tensor is 16-byte aligned when they are bf16: the
+    bf16 kernels read their operands through TMA, which takes no other
+    alignment (the f32 SIMT kernels take any)."""
+    if tensors[0].dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in tensors):
+        raise ValueError("bf16 kernel operands must be 16-byte aligned (TMA)")
 
 
 def check(err: int, what: str) -> None:

@@ -27,13 +27,12 @@ enters through dP (and P for dV) with the forward's hash.
 
 Which kernel runs is the operands' dtype, decided in the C entry points:
 
-* **bf16**: the forward and dk/dv are Hopper kernels (TMA tile loads on
-  mbarriers, wgmma with f32 accumulators): every product takes bf16
-  operands, so P (and dS in dk/dv) is rounded to bf16 before its product,
-  where the Pallas kernels keep f32; the logits and ``lse`` keep f32
-  values up to summation order. They read q, k, v (and dO) through TMA,
-  which takes 16-byte aligned tensors. The dq kernel is the SIMT kernel
-  with f32 math.
+* **bf16**: the forward, dq and dk/dv are Hopper kernels (TMA tile loads
+  on mbarriers, wgmma with f32 accumulators): every product takes bf16
+  operands, so P (and dS in dq and dk/dv) is rounded to bf16 before its
+  product, where the Pallas kernels keep f32; the logits and ``lse`` keep
+  f32 values up to summation order. They read q, k, v (and dO) through
+  TMA, which takes 16-byte aligned tensors.
 * **f32**: every kernel is the SIMT kernel with f32 math (TF32 would not
   hold the f32 bounds).
 
@@ -170,13 +169,7 @@ def _check(q, head_dims, **others):
         raise ValueError("flash kernel operands must be contiguous")
 
 
-def _check_tma(*tensors):
-    """The bf16 forward and dk/dv kernels read these through TMA, which
-    takes 16-byte aligned tensors."""
-    if tensors[0].dtype == torch.bfloat16 and any(
-            a.data_ptr() % 16 for a in tensors):
-        raise ValueError("bf16 flash kernel operands must be 16-byte "
-                         "aligned (TMA)")
+_check_tma = _build.check_tma
 
 
 def _launch(q, k, v, *, seed: int, threshold: int):
@@ -214,6 +207,7 @@ def _launch_bwd_dq(q, k, v, dout, lse, delta, *, seed: int, threshold: int):
     """Validate and launch the dq kernel on folded operands."""
     global dq_launches
     _check(q, BWD_HEAD_DIMS, k=k, v=v, dout=dout)
+    _check_tma(q, k, v, dout)
     args = _bwd_args(q, lse, delta, seed, threshold)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):

@@ -19,8 +19,11 @@ Training: when an input requires grad the wrapper goes through
 :class:`_LnMlpFunction` (the JAX ``custom_vjp``): its forward also saves
 ``h = y @ W1 + b1`` rounded to the compute dtype, its backward launches
 ``csrc/fused_mlp_bwd.cu`` (the port of ``_lnmlp_bwd``) on CUDA tensors and
-:func:`ln_mlp_residual_bwd_plain` on CPU tensors. The backward keeps the
-Pallas kernel's rounding points: LN statistics recomputed from x, ``df``
+:func:`ln_mlp_residual_bwd_plain` on CPU tensors. In bf16 the backward's
+four products run on Hopper's wgmma with operands loaded by TMA, which
+takes 16-byte aligned tensors (checked before the launch); its scratch is
+one workspace of the size the library reports (``_workspace``). The
+backward keeps the Pallas kernel's rounding points: LN statistics recomputed from x, ``df``
 and ``dh`` cast to the compute dtype before their products, ``db1``/
 ``db2``/``dgamma``/``dbeta`` summed in f32, ``dx = dO + dx_ln`` in f32,
 GELU' = ``Phi(h) + h phi(h)`` with the A&S erf, and every gradient
@@ -196,12 +199,24 @@ def _bwd_kernel():
     if _BWD_FN is None:
         fn = _build.load("fused_mlp_bwd").vit_lnmlp_bwd
         p = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int] + [p] * 16 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_uint32, ctypes.c_int, ctypes.c_float, p]
+        fn.argtypes = [ctypes.c_int] + [p] * 15 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_uint32, ctypes.c_int, ctypes.c_float, p]
         fn.restype = ctypes.c_int
         _BWD_FN = fn
     return _BWD_FN
+
+
+def _workspace(lib: str, fn: str, x2, n: int, d: int, f: int):
+    """The backward's scratch: one uint8 tensor of the size the library's
+    ``fn`` reports for these shapes."""
+    query = getattr(_build.load(lib), fn)
+    query.argtypes = [ctypes.c_int] * 4
+    query.restype = ctypes.c_longlong
+    nbytes = query(_DTYPE_CODE[x2.dtype], n, d, f)
+    if nbytes < 0:
+        raise ValueError(f"{fn}: shapes n={n} d={d} f={f} not supported")
+    return torch.empty(nbytes, dtype=torch.uint8, device=x2.device)
 
 
 def _check_operands(x2, gamma, beta, w1, w2, **rest):
@@ -266,25 +281,24 @@ def _launch_bwd(x2, h, gamma, beta, w1, w2, dout, *, eps, seed, threshold):
     f = w1.shape[1]
     dt = x2.dtype
     _check_operands(x2, gamma, beta, w1, w2, h=h, dout=dout)
-    tiles = -(-n // 32)
+    _build.check_tma(x2, h, w1, w2, dout)
     f32 = dict(dtype=torch.float32, device=x2.device)
     dx = torch.empty_like(x2)
     dgamma, dbeta, db2 = (torch.empty(d, **f32) for _ in range(3))
     db1 = torch.empty(f, **f32)
     dw1 = torch.empty((d, f), **f32)
     dw2 = torch.empty((f, d), **f32)
-    work = x2.new_empty(2 * n * d + 2 * n * f)
-    partials = torch.empty(tiles * (3 * d + f), **f32)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     with torch.cuda.device(x2.device):
+        work = _workspace("fused_mlp_bwd", "vit_lnmlp_bwd_workspace", x2, n,
+                          d, f)
         err = _bwd_kernel()(
             _DTYPE_CODE[dt], x2.data_ptr(), h.data_ptr(), gamma.data_ptr(),
             beta.data_ptr(), w1.data_ptr(), w2.data_ptr(), dout.data_ptr(),
             dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
             dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-            work.data_ptr(), partials.data_ptr(), n, d, f, eps,
-            seed & 0xFFFFFFFF, threshold, 256.0 / (256.0 - threshold),
-            stream)
+            work.data_ptr(), work.numel(), n, d, f, eps, seed & 0xFFFFFFFF,
+            threshold, 256.0 / (256.0 - threshold), stream)
     _build.check(err, "vit_lnmlp_bwd")
     bwd_launches += 1
     return (dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
@@ -431,9 +445,9 @@ def _core_bwd_kernel():
     if _CORE_BWD_FN is None:
         fn = _build.load("fused_mlp_core").vit_mlp_bwd
         p = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int] + [p] * 12 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
-            ctypes.c_int, ctypes.c_float, p]
+        fn.argtypes = [ctypes.c_int] + [p] * 11 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_uint32, ctypes.c_int, ctypes.c_float, p]
         fn.restype = ctypes.c_int
         _CORE_BWD_FN = fn
     return _CORE_BWD_FN
@@ -496,27 +510,64 @@ def _launch_core_bwd(x2, h, w1, b1, w2, dout, *, seed, threshold):
     n, d = x2.shape
     f = w1.shape[1]
     _check_core(x2, w1, w2, h=h, dout=dout)
+    _build.check_tma(x2, h, w1, w2, dout)
     f32 = dict(dtype=torch.float32, device=x2.device)
     dx = torch.empty_like(x2)
     dw1 = torch.empty((d, f), **f32)
     dw2 = torch.empty((f, d), **f32)
     db1 = torch.empty(f, **f32)
     db2 = torch.empty(d, **f32)
-    work = x2.new_empty(2 * n * f)
-    partials = torch.empty(-(-n // 32) * (d + f), **f32)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     with torch.cuda.device(x2.device):
+        work = _workspace("fused_mlp_core", "vit_mlp_bwd_workspace", x2, n,
+                          d, f)
         err = _core_bwd_kernel()(
             _DTYPE_CODE[x2.dtype], x2.data_ptr(), h.data_ptr(),
             w1.data_ptr(), w2.data_ptr(), dout.data_ptr(), dx.data_ptr(),
             dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-            work.data_ptr(), partials.data_ptr(), n, d, f,
-            seed & 0xFFFFFFFF, threshold, 256.0 / (256.0 - threshold),
-            stream)
+            work.data_ptr(), work.numel(), n, d, f, seed & 0xFFFFFFFF,
+            threshold, 256.0 / (256.0 - threshold), stream)
     _build.check(err, "vit_mlp_bwd")
     core_bwd_launches += 1
     return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
             db2.to(dout.dtype))
+
+
+def _launch_gemm(a: torch.Tensor, b: torch.Tensor, form: str,
+                 splits: int = 1) -> torch.Tensor:
+    """The bf16 wgmma GEMM kernel of the backward on its own (for its
+    tests): ``form="nt"`` takes ``a [m, k]``, ``b [n, k]`` and returns
+    ``a @ b.T``; ``form="tn"`` takes ``a [k, m]``, ``b [k, n]`` and returns
+    ``a.T @ b`` (the weight gradients' form, both operands read MN-major),
+    its reduction cut into ``splits`` ranges summed in order. f32 out."""
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or \
+            not (a.is_cuda and b.is_cuda):
+        raise ValueError("the GEMM kernel takes bf16 CUDA tensors")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("the GEMM kernel takes contiguous operands")
+    if form == "nt":
+        (m, k), (n, k2) = a.shape, b.shape
+    elif form == "tn":
+        (k, m), (k2, n) = a.shape, b.shape
+    else:
+        raise ValueError(f"form must be 'nt' or 'tn', got {form!r}")
+    if k != k2 or a.shape[1] % 8 or b.shape[1] % 8 or n % 4:
+        raise ValueError(f"GEMM operands {tuple(a.shape)}, {tuple(b.shape)}: "
+                         "reductions must match, rows of 16-byte multiples")
+    _build.check_tma(a, b)
+    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    work = torch.empty((splits, m, n) if splits > 1 else 1,
+                       dtype=torch.float32, device=a.device)
+    fn = _build.load("fused_mlp_bwd").vit_gemm_bf16
+    p = ctypes.c_void_p
+    fn.argtypes = [ctypes.c_int, p, p, p] + [ctypes.c_int] * 4 + [p, p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        err = fn(0 if form == "nt" else 1, a.data_ptr(), b.data_ptr(),
+                 c.data_ptr(), m, n, k, splits, work.data_ptr(),
+                 torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(err, "vit_gemm_bf16")
+    return c
 
 
 class _MlpFunction(torch.autograd.Function):

@@ -131,7 +131,7 @@ def test_fused_mlp_bwd_kernel_matches_plain(dev, dtype, threshold, n):
 @pytest.mark.parametrize("threshold", [0, 26])
 @pytest.mark.parametrize("t", FLASH_T)
 def test_flash_bwd_kernels_match_plain(dev, t, threshold, dh, dtype):
-    """dq (SIMT) and dk/dv (bf16: wgmma + TMA; f32: SIMT) against the plain
+    """dq and dk/dv (bf16: wgmma + TMA; f32: SIMT) against the plain
     backward, one launch per call, bitwise deterministic. At T = 1 the one
     key has P = 1 and dS = P (dP' - delta) is zero but for rounding (a kept
     key gives delta = dO . V / keep = dP', a dropped one zeroes both): dq
@@ -458,3 +458,117 @@ def test_tp_blocks_on_card_match_single_process(dev):
             for r in ranks])
         for k, g in want[name][1].items():
             assert _rel(full[k], torch.from_numpy(g)) < 1e-4, k
+
+
+# Rows 2 and 7 at ragged row counts: one row, one short of and one past a
+# 32-row pass tile, and B/16 at batch 32 (49 full 128-row GEMM tiles and a
+# 32-row one), for both widths and hidden widths the kernels take.
+MLP_BWD_N = [1, 31, 33, 32 * 197]
+MLP_BWD_DF = [(384, 1536), (384, 3072), (768, 1536), (768, 3072)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("threshold", [0, 26])
+@pytest.mark.parametrize("d,f", MLP_BWD_DF)
+@pytest.mark.parametrize("n", MLP_BWD_N)
+@pytest.mark.parametrize("ln", [True, False], ids=["row2", "row7"])
+def test_mlp_bwd_kernels_ragged_match_plain(dev, ln, n, d, f, threshold,
+                                            dtype):
+    """The fused-MLP backward (row 2, with LN) and the MLP core backward
+    (row 7) against their plain versions, each gradient relative to its
+    largest element (bf16 2e-2, f32 1e-4); two launches bitwise equal."""
+    from pytorch_vit_paper_replication_tpu_torch.ops import fused_mlp
+    p = _mlp_args(dev, dtype, n, d, f, seed=n + d + threshold)
+    dout = torch.randn(n, d, generator=torch.Generator().manual_seed(n)).to(
+        dev, dtype)
+    if ln:
+        kw = dict(eps=1e-6, seed=-5, threshold=threshold)
+        _, h = fused_mlp.ln_mlp_residual_plain(**p, **kw, save_h=True)
+        args = (p["x2"], h, p["gamma"], p["beta"], p["w1"], p["w2"], dout)
+        launch, plain = (fused_mlp._launch_bwd,
+                         fused_mlp.ln_mlp_residual_bwd_plain)
+        counter = "bwd_launches"
+    else:
+        kw = dict(seed=-5, threshold=threshold)
+        _, h = fused_mlp.mlp_core_plain(p["x2"], p["w1"], p["b1"], p["w2"],
+                                        p["b2"], **kw, save_h=True)
+        args = (p["x2"], h, p["w1"], p["b1"], p["w2"], dout)
+        launch, plain = (fused_mlp._launch_core_bwd,
+                         fused_mlp.mlp_core_bwd_plain)
+        counter = "core_bwd_launches"
+    before = getattr(fused_mlp, counter)
+    got = launch(*args, **kw)
+    again = launch(*args, **kw)
+    want = plain(*args, **kw)
+    assert getattr(fused_mlp, counter) == before + 2
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == c.dtype and a.shape == c.shape
+        assert torch.equal(a, b)
+        assert _rel(a, c) < TOL[dtype]
+
+
+@pytest.mark.parametrize("form,m,n,k,splits", [
+    ("nt", 64, 128, 64, 1),       # one tile, one stage
+    ("nt", 200, 192, 256, 1),     # ragged m and n, a 4-stage ring
+    ("nt", 1, 128, 768, 1),       # one row (dg at N = 1)
+    ("nt", 300, 384, 3072, 1),    # dy's form: many laps of the ring
+    ("tn", 128, 128, 64, 1),      # MN-major A and B, one tile
+    ("tn", 192, 320, 200, 1),     # ragged k, m and n
+    ("tn", 64, 64, 1, 1),         # one reduction row
+    ("tn", 768, 256, 6304, 2),    # the weight gradients' form, split
+    ("tn", 384, 128, 788, 3),     # three splits, the last one shorter
+])
+def test_wgmma_gemm_matches_matmul(dev, form, m, n, k, splits):
+    """The bf16 wgmma GEMM of the MLP backward on its own against
+    ``torch.matmul`` of the same bf16 operands in f32: its shared-memory
+    descriptors (K-major A and B, MN-major A and B), the ring and the
+    zero-filled ragged edges. Products of bf16 values are exact in f32, so
+    only the summation order differs (1e-5 of the largest element)."""
+    from pytorch_vit_paper_replication_tpu_torch.ops import fused_mlp
+    g = torch.Generator().manual_seed(m + n + k)
+    shapes = ((m, k), (n, k)) if form == "nt" else ((k, m), (k, n))
+    a, b = (torch.randn(*s_, generator=g).to(dev, torch.bfloat16)
+            for s_ in shapes)
+    want = (a.float() @ b.float().T if form == "nt"
+            else a.float().T @ b.float())
+    got = fused_mlp._launch_gemm(a, b, form, splits)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert _rel(got, want) < 1e-5
+    assert torch.equal(got, fused_mlp._launch_gemm(a, b, form, splits))
+
+
+def test_bf16_tma_operands_must_be_aligned_on_card(dev):
+    """The bf16 dq, MLP backward and GEMM kernels read their operands
+    through TMA: an operand 2 bytes past an aligned base raises before any
+    launch, and no counter moves."""
+    from pytorch_vit_paper_replication_tpu_torch.ops import (
+        flash_attention as fa, fused_mlp)
+    bf = torch.bfloat16
+
+    def odd(*shape):
+        n = int(np.prod(shape))
+        t = torch.zeros(n + 1, dtype=bf, device=dev)[1:].view(*shape)
+        assert t.data_ptr() % 16
+        return t
+
+    n, d, f = 40, 384, 1536
+    p = _mlp_args(dev, bf, n, d, f)
+    h = torch.zeros(n, f, dtype=bf, device=dev)
+    counts = (fused_mlp.bwd_launches, fused_mlp.core_bwd_launches,
+              fa.dq_launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_mlp._launch_bwd(p["x2"], h, p["gamma"], p["beta"], p["w1"],
+                              p["w2"], odd(n, d), eps=1e-6, seed=0,
+                              threshold=0)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_mlp._launch_core_bwd(odd(n, d), h, p["w1"], p["b1"], p["w2"],
+                                   p["x2"], seed=0, threshold=0)
+    q = torch.zeros(2, 9, 64, dtype=bf, device=dev)
+    vec = torch.zeros(2, 9, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._launch_bwd_dq(q, odd(2, 9, 64), q, q, vec, vec, seed=0,
+                          threshold=0)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_mlp._launch_gemm(odd(64, 64), q.new_zeros(64, 64), "tn")
+    assert counts == (fused_mlp.bwd_launches, fused_mlp.core_bwd_launches,
+                      fa.dq_launches)

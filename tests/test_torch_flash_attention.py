@@ -104,3 +104,21 @@ def test_bf16_kernel_operands_must_be_16_byte_aligned():
     odd32 = torch.zeros(bh * t * dh + 1)[1:].view(bh, t, dh)
     assert odd32.data_ptr() % 16
     fa._check_tma(odd32, odd32)            # f32: no TMA, no refusal
+
+
+def test_bf16_dq_operands_must_be_16_byte_aligned():
+    """The bf16 dq kernel reads q, k, v and dO through TMA too: an operand
+    2 bytes past an aligned base raises before the launch, on any
+    device."""
+    bh, t, dh = 2, 9, 64
+    odd = torch.zeros(bh * t * dh + 1, dtype=torch.bfloat16)[1:].view(
+        bh, t, dh)
+    ok = torch.zeros(bh, t, dh, dtype=torch.bfloat16)
+    vec = torch.zeros(bh, t)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    before = fa.dq_launches
+    for args in ((odd, ok, ok, ok), (ok, odd, ok, ok), (ok, ok, odd, ok),
+                 (ok, ok, ok, odd)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa._launch_bwd_dq(*args, vec, vec, seed=0, threshold=0)
+    assert fa.dq_launches == before

@@ -1,11 +1,11 @@
 """The bf16 tensor-core flash kernels' rounding, rehearsed on the CPU.
 
-The bf16 forward and dk/dv kernels (``csrc/flash_attention.cu``,
+The bf16 forward, dq and dk/dv kernels (``csrc/flash_attention.cu``,
 ``csrc/flash_attention_bwd.cu``) multiply with wgmma, whose operands are
 bf16: the forward rounds P to bf16 before ``P @ V`` (P of the running
 max, inside the online softmax over 64-key blocks), dk/dv rounds
 ``P_drop`` and ``dS`` to bf16 before ``dV += P_drop^T dO`` and
-``dK += dS^T Q``. Every sum is f32, and bf16 products are exact in f32,
+``dK += dS^T Q``, dq rounds ``dS`` to bf16 before ``dQ += dS K``. Every sum is f32, and bf16 products are exact in f32,
 so the logits and ``lse`` keep their f32 values. This file emulates those
 rounding points in plain torch and holds the emulation to the plain
 versions (``flash_attention_plain``, ``flash_attention_bwd_plain``,
@@ -124,3 +124,50 @@ def test_dkv_rounding_inside_kernel_bounds(t, threshold):
     assert (dk - exact_dk).abs().max() > 0 and (dv - exact_dv).abs().max() > 0
     assert _rel(dk.to(torch.bfloat16), want_dk) < 2e-2
     assert _rel(dv.to(torch.bfloat16), want_dv) < 2e-2
+
+
+def emulate_dq(q, k, v, dout, lse, delta, *, seed, threshold, rnd=_to_bf16):
+    """The dq kernel's arithmetic: f32 P and dS per 64-key block, then
+    ``rnd(dS) @ K`` accumulated in f32 block by block."""
+    bh, t, dh = q.shape
+    scale = dh ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    keep = _keep(bh, t, seed, threshold) if threshold else None
+    dq = torch.zeros(bh, t, dh)
+    for k0 in range(0, t, BLOCK):
+        kb, vb = kf[:, k0:k0 + BLOCK], vf[:, k0:k0 + BLOCK]
+        p = torch.exp((qf @ kb.transpose(1, 2)) * scale - lse[..., None])
+        dp = dof @ vb.transpose(1, 2)
+        if keep is not None:
+            dp = torch.where(keep[:, :, k0:k0 + BLOCK],
+                             dp * (256.0 / (256.0 - threshold)), 0.0)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + rnd(ds) @ kb
+    return dq
+
+
+@pytest.mark.parametrize("threshold", [0, 26])
+@pytest.mark.parametrize("t", [1, 64, 197])
+def test_dq_rounding_inside_kernel_bounds(t, threshold):
+    """dS rounded to bf16 before ``dS @ K`` stays within 2e-2 of dq's
+    largest element of the plain backward; without the rounding the
+    emulation is the plain function to 1e-5. At T = 1 dS is zero but for
+    rounding (one key: delta = dP'), so dq is noise on both sides and is
+    held relative to dv's largest element, as on the card."""
+    q, k, v, do = _inputs(t, seed=200 + t + threshold)
+    kw = dict(seed=4243, threshold=threshold)
+    out, lse = fa.flash_attention_plain(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    want_dq, _, want_dv = fa.flash_attention_bwd_plain(q, k, v, do, lse,
+                                                       delta, **kw)
+    dq32, _, dv32 = fa.flash_attention_bwd_plain(
+        *(a.float() for a in (q, k, v, do)), lse, delta, **kw)
+    scale = (want_dv if t == 1 else want_dq).float().abs().max()
+    scale32 = (dv32 if t == 1 else dq32).abs().max()
+    exact = emulate_dq(q, k, v, do, lse, delta, **kw, rnd=lambda x: x)
+    assert (exact - dq32).abs().max() <= 1e-5 * scale32
+    dq = emulate_dq(q, k, v, do, lse, delta, **kw)
+    if t > 1:  # at T = 1 the noise dS has too few bits for bf16 to cut
+        assert (dq - exact).abs().max() > 0  # the rounding is exercised
+    err = (dq.to(torch.bfloat16).float() - want_dq.float()).abs().max()
+    assert err <= 2e-2 * scale, (err, scale)
