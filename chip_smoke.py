@@ -13,7 +13,8 @@ final ``ok`` line is never printed:
              ``nvcc`` per source, started together) and load it.
 2. kernels — each kernel against its plain PyTorch version on the card at
              the B/16 shapes (batch 32: N = 32*197 rows for the fused MLP;
-             B = 32, H = 12, Dh = 64, T in {197, 577} for flash attention),
+             B = 32, H = 12, Dh = 64, T in {197, 577} for flash attention;
+             flash also at Dh = 80, padded to 128, and Dh = 256),
              with dropout off and at t = 26 (rate 0.1); the forward keep
              masks are recovered by feeding ones and must be bit-identical.
              The backward kernels (fused MLP: bf16 t = 0 and 26, f32 t = 0;
@@ -24,26 +25,32 @@ final ``ok`` line is never printed:
              one f32 case (T = 197, t = 0: the SIMT kernels f32 keeps) at
              1e-4, and the phase counts the HGMMA (wgmma) instructions that
              ``cuobjdump -sass`` finds in the bf16 tensor-core kernels (the
-             flash forward, dq and dk/dv, the MLP backward's GEMMs; raises
-             on 0). Times come from CUDA events, and for the backward
-             kernels also a device time per call (``device_ms``); each row
-             prints ``bound_share`` = bound / kernel time; the flash
-             kernels are timed beside ``F.scaled_dot_product_attention``
-             forward and backward, the MLP backward beside its four bf16
-             products as ``torch.matmul`` calls (``gemms_library_ms``; both
-             timed only, never called by the port).
+             flash forward, dq and dk/dv, the MLP forwards' and backwards'
+             GEMMs; raises on 0). Times come from CUDA events, a device
+             time per call (``device_ms``) and the host's time per call
+             (``host_ms``); each row prints ``bound_share`` = bound /
+             kernel time; the row 1 forward also its per-pass device
+             times; the flash kernels are timed beside
+             ``F.scaled_dot_product_attention`` forward and backward, the
+             MLP kernels beside their bf16 products as ``torch.matmul``
+             calls (``gemms_library_ms``: two forward, four backward; both
+             timed only, never called by the port). Then rows 1, 2, 6 and
+             7 at every preset width (D in PRESET_WIDTHS, F = 4 D) and
+             N in WIDTH_ROWS, bf16 and f32, against their plain versions.
 3. serve   — a seeded ViT-B/16 export (1000 classes) served through
              ``InferenceEngine.from_checkpoint(..., device="cuda")`` with
              the ladder 1,8,32 and ~40 requests over the probs / features /
-             tokens heads, a second engine with ``attention_impl="flash"``,
-             and the serve CLI in pipe mode. The kernels' launch counters
+             tokens heads (``auto``: flash at T = 197 on the card), a second
+             engine with ``attention_impl="xla"`` to compare, and the serve
+             CLI in pipe mode. The kernels' launch counters
              are set to 0 right before the requests and read right after.
 4. train   — ViT-B/16 at full width and depth (224 px, 1000 classes, bf16,
              the default dropouts) from ``convert.seeded_params``, trained
              by ``engine.train`` with the default ``TrainConfig`` recipe on
              a seeded batch of 32 repeated every step: 8 steps + one eval
-             pass with ``attention_impl="auto"`` (xla at T = 197, fused
-             MLP), then 3 steps + eval with ``attention_impl="flash"``. The
+             pass with ``attention_impl="auto"`` (flash at T = 197 on the
+             card, fused MLP), then 3 steps + eval with
+             ``attention_impl="flash"``. The
              launch counters are set to 0 right before each run and read
              right after; losses and grad norms must be finite and the loss
              must fall. Then step time, img/s and a ``torch.profiler``
@@ -52,9 +59,13 @@ final ``ok`` line is never printed:
              v), and one f32 step of a 2-layer B/16 on
              the card against the same step through the plain versions on
              the CPU: loss, gradients and the updated params. Last, the
-             T = 197 attention decision: ``auto`` and ``flash`` train
-             states from the same params stepped in turns (COMPARE_ROUNDS),
-             wall and device medians of each.
+             T = 197 attention decision measured again: ``auto`` and
+             ``xla`` train states from the same params stepped in turns
+             (COMPARE_ROUNDS), wall and device medians of each. Phase
+             ``presets``: Ti/16, S/16, L/16 and H/14 at full width, cut to
+             PRESET_LAYERS layers, PRESET_STEPS steps + eval under the
+             default ``auto`` impls, the fused MLP kernels launched in
+             every block (flash where ``auto`` picks it).
 5. parallel — the data x tensor x pipeline path through the port's
              ``parallel.spawn``, four rank processes sharing the one card
              (gloo, every transfer through host memory; the phase prints
@@ -62,9 +73,10 @@ final ``ok`` line is never printed:
              ``mlp_impl``/``attention_impl`` auto, default dropouts, on
              dp = 1 x tp = 2 x pp = 2 with M = 2 microbatches of a batch
              of 8: 3 steps + one eval pass, loss finite and falling, the
-             MLP core kernels (rows 6 and 7) launched (12 / 2) * 2 times
-             per step forward and backward on every rank and the LN-MLP
-             kernels (rows 1 and 2) never; (b) a 2-layer f32 ViT-B/16,
+             MLP core kernels (rows 6 and 7) and the flash kernels
+             launched (12 / 2) * 2 times per step forward and backward on
+             every rank and the LN-MLP kernels (rows 1 and 2) never; (b) a
+             2-layer f32 ViT-B/16,
              dropout off, biases perturbed per channel, on dp = 2 x
              tp = 2: 2 steps against the single-process port on the card
              (losses rtol 1e-5, the JAX package's pipeline x TP bound;
@@ -171,6 +183,23 @@ def device_ms(fn, reps: int = 20):
     return start.elapsed_time(end) / reps if queued_s < 0.04 else None
 
 
+def host_ms(fn, reps: int = 20) -> float:
+    """Host time per call of ``fn`` while the card is busy: ``reps`` calls
+    queued behind a spin kernel, so none waits for the card. What a
+    wrapper costs the host (checks, allocations, tensor-map encodes,
+    launches), apart from the kernels' device time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    out = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return out
+
+
 def dev_us(e, total: bool = False) -> float:
     """Device microseconds of a ``torch.profiler`` average: its own, or
     with ``total`` its own and its children's."""
@@ -250,7 +279,28 @@ def _mlp_inputs(gen, n, d, f, dtype, dev):
         w2=(r(f, d) * f ** -0.5).to(dev, dtype), b2=(0.1 * r(d)).to(dev, dtype))
 
 
+def fwd_gemms_library(gen, n, d, f, dev) -> dict:
+    """The MLP forward's two bf16 products at its shapes as two
+    ``torch.matmul`` calls timed together (fc1 = y W1, fc2 = g W2): a
+    yardstick of the GEMM share only, never called by the port, and not
+    one call of the same function (no LN, GELU, dropout or residual)."""
+    import torch
+    r = lambda *s_: torch.randn(*s_, generator=gen).to(  # noqa: E731
+        dev, torch.bfloat16)
+    y, g, w1, w2 = r(n, d), r(n, f), r(d, f), r(f, d)
+
+    def two():
+        return (y @ w1, g @ w2)
+    with torch.inference_mode():
+        return {"gemms_library_ms": time_ms(two, 10),
+                "gemms_library_device_ms": device_ms(two)}
+
+
 def check_fused_mlp(gen, card_peaks, dev):
+    """Row 1 (LN -> fc1 -> GELU -> drop -> fc2 -> drop -> residual) at
+    the B/16 batch-32 shape against its plain version; bf16 also with the
+    saved h (as training runs it), device times, the per-pass breakdown
+    and the two-matmul yardstick."""
     import torch
     from pytorch_vit_paper_replication_tpu_torch.ops import fused_mlp
     n, d, f = 32 * 197, 768, 3072
@@ -267,18 +317,35 @@ def check_fused_mlp(gen, card_peaks, dev):
                 ref = fused_mlp.ln_mlp_residual_plain(**p, **kw)
                 err = close(out, ref, TOL[name])
                 ms = time_ms(lambda: fused_mlp._launch(**p, **kw), 20)
+                dev_ms = device_ms(lambda: fused_mlp._launch(**p, **kw))
+                h_ms = host_ms(lambda: fused_mlp._launch(**p, **kw))
                 plain_ms = time_ms(
                     lambda: fused_mlp.ln_mlp_residual_plain(**p, **kw), 5)
+                extra = {}
+                if name == "bfloat16":
+                    def with_h():
+                        return fused_mlp._launch(**p, **kw, save_h=True)
+                    extra = {
+                        "save_h_fwd_ms": time_ms(with_h, 20),
+                        "save_h_fwd_device_ms": device_ms(with_h),
+                        "passes_device_ms": kernel_breakdown(
+                            lambda: fused_mlp._launch(**p, **kw)),
+                        "save_h_passes_device_ms": kernel_breakdown(with_h),
+                        **fwd_gemms_library(gen, n, d, f, dev)}
             s = dtype.itemsize
             nbytes = 2 * n * d * s + 2 * d * f * s + (f + d) * s + 2 * d * 4
             b_ms, b_by = bound(4.0 * n * d * f, nbytes,
                                bf16_rate if name == "bfloat16" else f32_rate,
                                hbm)
             row = {"phase": "kernels", "kernel": "fused_ln_mlp_residual",
-                   "dtype": name, "threshold": t, "shape": [n, d, f],
-                   "max_abs_err": err, "tolerance": TOL[name],
-                   "kernel_ms": ms, "plain_ms": plain_ms,
-                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+                   "design": MLP_DESIGN[name], "dtype": name, "threshold": t,
+                   "shape": [n, d, f], "max_abs_err": err,
+                   "tolerance": TOL[name], "kernel_ms": ms,
+                   "device_ms": dev_ms, "host_ms": h_ms, "plain_ms": plain_ms,
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                   "bound_share": b_ms / ms,
+                   "device_bound_share": b_ms / dev_ms if dev_ms else None,
+                   **extra}
             if t:
                 row["masks_bit_identical"] = fused_mlp_masks(p, kw, dev)
             emit(row)
@@ -296,8 +363,8 @@ def rel_err(a, b) -> float:
 
 
 MLP_GRADS = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
-# How the MLP backward (rows 2 and 7) multiplies, by dtype.
-MLP_BWD_DESIGN = {"bfloat16": "wgmma+tma", "float32": "simt"}
+# How the MLP kernels (rows 1, 2, 6 and 7) multiply, by dtype.
+MLP_DESIGN = {"bfloat16": "wgmma+tma", "float32": "simt"}
 
 
 def gemms_library(gen, n, d, f, dev) -> dict:
@@ -363,6 +430,7 @@ def check_fused_mlp_bwd(gen, card_peaks, dev):
                                      f"{bad} exceed {tol}")
             ms = time_ms(lambda: fused_mlp._launch_bwd(*args, **kw), 10)
             dev_ms = device_ms(lambda: fused_mlp._launch_bwd(*args, **kw))
+            h_ms = host_ms(lambda: fused_mlp._launch_bwd(*args, **kw))
             passes = kernel_breakdown(
                 lambda: fused_mlp._launch_bwd(*args, **kw))
             plain_ms = time_ms(
@@ -385,9 +453,9 @@ def check_fused_mlp_bwd(gen, card_peaks, dev):
                "tolerance_rel": tol, "deterministic": True,
                "save_h_max_abs_err": h_err, "save_h_fwd_ms": fwd_h_ms,
                "save_h_fwd_bound_ms": hb_ms, "save_h_fwd_bound_by": hb_by,
-               "kernel_ms": ms, "device_ms": dev_ms,
+               "kernel_ms": ms, "device_ms": dev_ms, "host_ms": h_ms,
                "passes_device_ms": passes,
-               "design": MLP_BWD_DESIGN[name], "plain_ms": plain_ms,
+               "design": MLP_DESIGN[name], "plain_ms": plain_ms,
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
                "bound_share": b_ms / ms,
                "device_bound_share": b_ms / dev_ms if dev_ms else None,
@@ -399,7 +467,7 @@ def check_fused_mlp_bwd(gen, card_peaks, dev):
 
 
 def check_flash_bwd(gen, card_peaks, dev):
-    """The dq and dk/dv kernels at B = 32, H = 12, Dh = 64 (FLASH_CASES)
+    """The dq and dk/dv kernels at B = 32, H = 12 and FLASH_CASES
     against the plain backward (f32 math), tolerance 2e-2 (bf16) / 1e-4
     (f32) relative to each gradient's largest element; two launches must
     be bitwise equal."""
@@ -407,10 +475,10 @@ def check_flash_bwd(gen, card_peaks, dev):
     import torch.nn.functional as F
     from pytorch_vit_paper_replication_tpu_torch.ops import (
         flash_attention as fa)
-    b, h, dh = 32, 12, 64
+    b, h = 32, 12
     bf16_rate, f32_rate, hbm = card_peaks
     rows = []
-    for t_len, t, dt in FLASH_CASES:
+    for t_len, t, dt, dh in FLASH_CASES:
         q, k, v, do = [torch.randn(b * h, t_len, dh, generator=gen).to(
             dev, getattr(torch, dt)) for _ in range(4)]
         kw = dict(seed=4242, threshold=t)
@@ -439,6 +507,8 @@ def check_flash_bwd(gen, card_peaks, dev):
             dkv_ms = time_ms(lambda: fa._launch_bwd_dkv(*bwd, **kw), 20)
             dq_dev = device_ms(lambda: fa._launch_bwd_dq(*bwd, **kw))
             dkv_dev = device_ms(lambda: fa._launch_bwd_dkv(*bwd, **kw))
+            dq_host = host_ms(lambda: fa._launch_bwd_dq(*bwd, **kw))
+            dkv_host = host_ms(lambda: fa._launch_bwd_dkv(*bwd, **kw))
             plain_ms = time_ms(
                 lambda: fa.flash_attention_bwd_plain(*bwd, **kw), 3)
         q4, k4, v4 = (a.view(b, h, t_len, dh).detach().requires_grad_()
@@ -472,6 +542,7 @@ def check_flash_bwd(gen, card_peaks, dev):
                "dkv_bound_ms": dkv_b[0], "dkv_bound_by": dkv_b[1],
                "dkv_bound_share": dkv_b[0] / dkv_ms,
                "dq_device_ms": dq_dev, "dkv_device_ms": dkv_dev,
+               "dq_host_ms": dq_host, "dkv_host_ms": dkv_host,
                "library_device_ms": lib_dev,
                "dq_device_bound_share": dq_b[0] / dq_dev if dq_dev else None,
                "dkv_device_bound_share": (dkv_b[0] / dkv_dev if dkv_dev
@@ -480,6 +551,84 @@ def check_flash_bwd(gen, card_peaks, dev):
         emit(row)
         rows.append(row)
         del q4, k4, v4, o4
+    return rows
+
+
+# Every preset's width D (Ti, S, B, L, H; F = 4 D) at one row, a ragged
+# 33 rows and the B/16 batch-32 row count.
+PRESET_WIDTHS = (192, 384, 768, 1024, 1280)
+WIDTH_ROWS = (1, 33, 32 * 197)
+
+
+def check_mlp_widths(gen, dev) -> list:
+    """Rows 1, 2, 6 and 7 at every preset width and WIDTH_ROWS, bf16 and
+    f32, dropout on (t = 26): each forward and its saved h within TOL of
+    the plain version, each backward gradient within 2e-2 (bf16) / 1e-4
+    (f32) of its largest element and bitwise equal over two launches.
+    One row per width and dtype with the largest errors over the row
+    counts."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.ops import fused_mlp
+    core_keys = ("x2", "w1", "b1", "w2", "b2")
+    rows = []
+    for d in PRESET_WIDTHS:
+        f = 4 * d
+        for name in ("bfloat16", "float32"):
+            dtype = getattr(torch, name)
+            tol_b = 2e-2 if name == "bfloat16" else 1e-4
+            fwd_err = {"row1": 0.0, "row6": 0.0}
+            bwd_err = {"row2": 0.0, "row7": 0.0}
+            t0 = time.perf_counter()
+            for n in WIDTH_ROWS:
+                p = _mlp_inputs(gen, n, d, f, dtype, dev)
+                dout = torch.randn(n, d, generator=gen).to(dev, dtype)
+                ln_kw = dict(eps=1e-6, seed=31, threshold=26)
+                core_kw = dict(seed=31, threshold=26)
+                core = {k: p[k] for k in core_keys}
+                with torch.inference_mode():
+                    cases = (
+                        ("row1", "row2", fused_mlp._launch,
+                         fused_mlp.ln_mlp_residual_plain, p, ln_kw,
+                         fused_mlp._launch_bwd,
+                         fused_mlp.ln_mlp_residual_bwd_plain,
+                         lambda h: (p["x2"], h, p["gamma"], p["beta"],
+                                    p["w1"], p["w2"], dout)),
+                        ("row6", "row7", fused_mlp._launch_core,
+                         fused_mlp.mlp_core_plain, core, core_kw,
+                         fused_mlp._launch_core_bwd,
+                         fused_mlp.mlp_core_bwd_plain,
+                         lambda h: (p["x2"], h, p["w1"], p["b1"], p["w2"],
+                                    dout)))
+                    for fr, br, fwd, fwd_plain, args, kw, bwd, bwd_plain, \
+                            bwd_args in cases:
+                        out, h = fwd(**args, **kw, save_h=True)
+                        ref, h_ref = fwd_plain(**args, **kw, save_h=True)
+                        fwd_err[fr] = max(fwd_err[fr],
+                                          close(out, ref, TOL[name]),
+                                          close(h, h_ref, TOL[name]))
+                        b_args = bwd_args(h_ref)
+                        got, again = bwd(*b_args, **kw), bwd(*b_args, **kw)
+                        want = bwd_plain(*b_args, **kw)
+                        for a, b, c in zip(got, again, want):
+                            if not torch.equal(a, b):
+                                raise AssertionError(
+                                    f"{br} D={d} N={n} {name}: backward "
+                                    "not deterministic")
+                            e = rel_err(a, c)
+                            if e > tol_b:
+                                raise AssertionError(
+                                    f"{br} D={d} N={n} {name}: gradient "
+                                    f"off by {e} > {tol_b}")
+                            bwd_err[br] = max(bwd_err[br], e)
+                torch.cuda.synchronize()
+            row = {"phase": "kernels", "check": "mlp_widths", "d": d, "f": f,
+                   "dtype": name, "rows": list(WIDTH_ROWS), "threshold": 26,
+                   "fwd_max_abs_err": fwd_err, "tolerance": TOL[name],
+                   "bwd_max_rel_err": bwd_err, "bwd_tolerance_rel": tol_b,
+                   "deterministic": True,
+                   "seconds": round(time.perf_counter() - t0, 3)}
+            emit(row)
+            rows.append(row)
     return rows
 
 
@@ -536,8 +685,11 @@ def check_fused_mlp_core(gen, card_peaks, dev):
                 raise AssertionError(f"MLP core backward {name} t={t} "
                                      f"F={f}: {bad} exceed {tol}")
             ms = time_ms(lambda: fused_mlp._launch_core(*args, **kw), 20)
+            fwd_dev = device_ms(lambda: fused_mlp._launch_core(*args, **kw))
             h_ms = time_ms(lambda: fused_mlp._launch_core(
                 *args, **kw, save_h=True), 10)
+            h_dev = device_ms(lambda: fused_mlp._launch_core(
+                *args, **kw, save_h=True))
             plain_ms = time_ms(lambda: fused_mlp.mlp_core_plain(*args, **kw),
                                5)
             bwd_ms = time_ms(lambda: fused_mlp._launch_core_bwd(*bwd, **kw),
@@ -562,21 +714,24 @@ def check_fused_mlp_core(gen, card_peaks, dev):
                "dtype": name, "threshold": t, "shape": [n, d, f],
                "max_abs_err": err, "tolerance": TOL[name],
                **h_check,
-               "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
-               "bound_ms": b_ms, "bound_by": b_by,
-               "save_h_fwd_ms": h_ms, "save_h_fwd_bound_ms": hb_ms,
-               "save_h_fwd_bound_by": hb_by,
+               "design": MLP_DESIGN[name], "kernel_ms": ms,
+               "device_ms": fwd_dev, "plain_ms": plain_ms,
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "save_h_fwd_ms": h_ms, "save_h_fwd_device_ms": h_dev,
+               "save_h_fwd_bound_ms": hb_ms, "save_h_fwd_bound_by": hb_by,
                "bwd_max_abs_err": max(abs_errs),
                "bwd_max_rel_err_by_grad": errs, "bwd_tolerance_rel": tol,
                "bwd_deterministic": True, "bwd_ms": bwd_ms,
                "bwd_plain_ms": bwd_plain_ms, "bwd_bound_ms": g_ms,
                "bwd_bound_by": g_by, "bwd_device_ms": bwd_dev,
                "bwd_passes_device_ms": bwd_passes,
-               "bwd_design": MLP_BWD_DESIGN[name],
+               "bwd_design": MLP_DESIGN[name],
                "bwd_bound_share": g_ms / bwd_ms,
                "bwd_device_bound_share": g_ms / bwd_dev if bwd_dev else None,
                **({"bwd_" + k: v for k, v in gemms_library(
                    gen, n, d, f, dev).items()} if name == "bfloat16"
+                  else {}),
+               **(fwd_gemms_library(gen, n, d, f, dev) if name == "bfloat16"
                   else {})}
         if t:
             row["masks_bit_identical"] = core_masks(p, kw, dev)
@@ -687,36 +842,45 @@ def fused_mlp_masks(p, kw, dev) -> bool:
     return True
 
 
-# The flash cases: bf16 (the wgmma kernels) at the B/16 shapes, dropout
-# off and at t = 26, and one f32 case (the SIMT kernels).
-FLASH_CASES = [(t_len, t, "bfloat16") for t_len in (197, 577)
-               for t in (0, 26)] + [(197, 0, "float32")]
+# The flash cases (T, threshold, dtype, Dh) at B = 32, H = 12: bf16 (the
+# wgmma kernels) at the B/16 shapes, dropout off and at t = 26, one f32
+# case (the SIMT kernels), then ViT-H/14's Dh = 80 (run on operands padded
+# to 128) and Dh = 256 (the backward's two-warpgroup work split).
+FLASH_CASES = [(t_len, t, "bfloat16", dh) for dh in (64, 80, 256)
+               for t_len in (197, 577) for t in (0, 26)]
+FLASH_CASES.insert(4, (197, 0, "float32", 64))
 FLASH_DESIGN = {"bfloat16": "wgmma+tma", "float32": "simt"}
+
+
+# The MLP GEMM kernel's epilogue kinds (csrc/mlp_common.cuh, enum Epi):
+# the forward's fc1 and fc2, the rest the backward's.
+MLP_FWD_EPIS = ("3", "4", "5")
 
 
 def hgmma_counts() -> dict:
     """HGMMA (wgmma) instructions per kernel function of the built flash
-    and MLP-backward libraries, read from ``cuobjdump -sass``; raises if
-    any bf16 tensor-core kernel (the flash forward, dq and dk/dv
-    instantiations, and every ``gemm_bf16`` instantiation of the MLP
-    backward, rows 2 and 7) has none."""
+    and MLP libraries, read from ``cuobjdump -sass``; raises if any bf16
+    tensor-core kernel (the flash forward, the dq and dk/dv kernels of
+    every head dim, and every ``gemm_bf16`` instantiation of the MLP
+    forwards and backwards, rows 1, 2, 6 and 7) has none."""
     import re
     from pytorch_vit_paper_replication_tpu_torch.ops import _build
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     per_fn = {}
-    for lib in ("flash_attention", "flash_attention_bwd", "fused_mlp_bwd",
-                "fused_mlp_core"):
+    for lib in ("flash_attention", "flash_attention_bwd", "fused_mlp",
+                "fused_mlp_bwd", "fused_mlp_core"):
         sass = subprocess.run(
             [str(cuobjdump), "-sass", str(_build.library_path(lib))],
             capture_output=True, text=True, timeout=300, check=True).stdout
         fn = None
         for line in sass.splitlines():
             if "Function :" in line:
-                flash = re.search(r"(flash_(?:fwd|bwd)_\w+?)I\w*?Li(\d+)E",
-                                  line)
+                flash = re.search(
+                    r"(flash_(?:fwd|bwd)_[a-z0-9_]+?)(?:ILi(\d+)E|E)", line)
                 gemm = re.search(r"gemm_bf16ILi(\d)ELb(\d)ELb(\d)E", line)
                 if flash:
-                    fn = f"{flash.group(1)}<{flash.group(2)}>"
+                    fn = flash.group(1) + (f"<{flash.group(2)}>"
+                                           if flash.group(2) else "")
                 elif gemm:
                     fn = f"{lib}:gemm_bf16<{','.join(gemm.groups())}>"
                 else:
@@ -725,15 +889,24 @@ def hgmma_counts() -> dict:
             elif fn is not None and "HGMMA" in line:
                 per_fn[fn] += 1
 
-    def total(*keys):
-        return sum(n for f, n in per_fn.items() if all(k in f for k in keys))
+    def total(*keys, epis=None):
+        return sum(n for f, n in per_fn.items()
+                   if all(k in f for k in keys) and
+                   (epis is None or f.split("<")[1][0] in epis))
+    bwd_epis = ("0", "1", "2")
     out = {"vit_flash_fwd": total("flash_fwd_wgmma"),
-           "vit_flash_bwd_dq": total("flash_bwd_dq_wgmma"),
-           "vit_flash_bwd_dkv": total("flash_bwd_dkv_wgmma"),
+           "vit_flash_bwd_dq": total("flash_bwd_dq_wg2")
+           + total("flash_bwd_dq_split"),
+           "vit_flash_bwd_dkv": total("flash_bwd_dkv_wg2")
+           + total("flash_bwd_dkv_split"),
+           "vit_lnmlp_fwd": total("fused_mlp:", "gemm_bf16"),
+           "vit_mlp_fwd": total("fused_mlp_core:", "gemm_bf16",
+                                epis=MLP_FWD_EPIS),
            "vit_lnmlp_bwd": total("fused_mlp_bwd:", "gemm_bf16"),
-           "vit_mlp_bwd": total("fused_mlp_core:", "gemm_bf16")}
-    tensor_core = {f: n for f, n in per_fn.items()
-                   if "wgmma" in f or "gemm_bf16" in f}
+           "vit_mlp_bwd": total("fused_mlp_core:", "gemm_bf16",
+                                epis=bwd_epis)}
+    tensor_core = {f: n for f, n in per_fn.items() if "gemm_bf16" in f or (
+        f.startswith("flash_") and "simt" not in f)}
     if not all(out.values()) or not all(tensor_core.values()):
         raise AssertionError(f"no HGMMA in a bf16 tensor-core kernel: "
                              f"{per_fn}")
@@ -746,10 +919,10 @@ def check_flash(gen, card_peaks, dev):
     from pytorch_vit_paper_replication_tpu_torch.ops import (
         flash_attention as fa)
     emit({"phase": "kernels", "check": "hgmma", "counts": hgmma_counts()})
-    b, h, dh = 32, 12, 64
+    b, h = 32, 12
     bf16_rate, f32_rate, hbm = card_peaks
     rows = []
-    for t_len, t, dt in FLASH_CASES:
+    for t_len, t, dt, dh in FLASH_CASES:
         dtype = getattr(torch, dt)
         q, k, v = [torch.randn(b * h, t_len, dh, generator=gen).to(
             dev, dtype) for _ in range(3)]
@@ -785,21 +958,21 @@ def check_flash(gen, card_peaks, dev):
                "library_device_ms": lib_dev,
                "device_bound_share": b_ms / k_dev if k_dev else None}
         if t:
-            row["masks_bit_identical"] = flash_masks(t_len, kw, dev)
+            row["masks_bit_identical"] = flash_masks(t_len, kw, dev, dh)
         emit(row)
         rows.append(row)
     return rows
 
 
-def flash_masks(t_len, kw, dev) -> bool:
+def flash_masks(t_len, kw, dev, dh: int = 64) -> bool:
     """Recover the attention keep mask by feeding ones: q = k = 0 give
     uniform weights 1/T; v = a one-hot selector of key block c (v[j, d] =
-    1 iff j = 64c + d) makes out[row, d] = keep[row, 64c + d] / (T keep).
+    1 iff j = Dh c + d) makes out[row, d] = keep[row, Dh c + d] / (T keep).
     Every column block's zero pattern must match the plain version's."""
     import torch
     from pytorch_vit_paper_replication_tpu_torch.ops import (
         flash_attention as fa)
-    bh, dh = 24, 64
+    bh = 24
     z = torch.zeros(bh, t_len, dh, dtype=torch.bfloat16, device=dev)
     with torch.inference_mode():
         for c in range((t_len + dh - 1) // dh):
@@ -862,12 +1035,14 @@ def phase_serve(root: Path, dev):
     eng = InferenceEngine.from_checkpoint(
         export, preset=PRESET, class_names=classes, device=dev,
         buckets=BUCKETS, max_wait_us=20_000)
-    flash_model = ViT(model.config.replace(attention_impl="flash"))
-    flash_model.load_state_dict(model.state_dict())
-    eng_flash = InferenceEngine(flash_model, device=dev,
-                                image_size=eng.image_size,
-                                transform=eng.transform, class_names=classes,
-                                buckets=BUCKETS, max_wait_us=20_000)
+    # The default (auto) engine runs flash at T = 197 on the card; a second
+    # engine on the same weights runs the xla attention to compare.
+    xla_model = ViT(model.config.replace(attention_impl="xla"))
+    xla_model.load_state_dict(model.state_dict())
+    eng_xla = InferenceEngine(xla_model, device=dev,
+                              image_size=eng.image_size,
+                              transform=eng.transform, class_names=classes,
+                              buckets=BUCKETS, max_wait_us=20_000)
     del model
     warm = eng.snapshot()["warmup"]
 
@@ -886,10 +1061,10 @@ def phase_serve(root: Path, dev):
             for i, r in enumerate(rows)]
     answered = [(i, h, f.result(timeout=300)) for i, h, f in futs]
     batches1 = eng.stats.counters["batches"] - batches0
-    fl_b0 = eng_flash.stats.counters["batches"]
-    flash_futs = [(i, eng_flash.submit(rows[i])) for i in range(16)]
-    flash_res = [(i, f.result(timeout=300)) for i, f in flash_futs]
-    batches2 = eng_flash.stats.counters["batches"] - fl_b0
+    xla_b0 = eng_xla.stats.counters["batches"]
+    xla_futs = [(i, eng_xla.submit(rows[i])) for i in range(16)]
+    xla_res = [(i, f.result(timeout=300)) for i, f in xla_futs]
+    batches2 = eng_xla.stats.counters["batches"] - xla_b0
     drive_s = time.perf_counter() - t_drive
     k1, k2 = fused_mlp.launches, fa.launches
 
@@ -921,13 +1096,13 @@ def phase_serve(root: Path, dev):
     if k1 != 12 * (batches1 + batches2):
         raise AssertionError(f"fused MLP launches {k1} != 12 x "
                              f"{batches1 + batches2} batches")
-    if k2 != 12 * batches2 or k2 == 0:
-        raise AssertionError(f"flash launches {k2} != 12 x {batches2}")
+    if k2 != 12 * batches1 or k2 == 0:
+        raise AssertionError(f"flash launches {k2} != 12 x {batches1}")
     # Flash vs xla attention: same weights, two attention paths (f32
     # online softmax vs bf16 logits + f32 softmax), bf16 activations
     # through 12 blocks.
     diffs = []
-    for i, r in flash_res:
+    for i, r in xla_res:
         if i not in probs_rows:
             probs_rows[i] = predict_image(eng.model, rows[i], classes)[2]
         diffs.append(float(np.abs(r.probs - probs_rows[i]).max()))
@@ -936,11 +1111,11 @@ def phase_serve(root: Path, dev):
         raise AssertionError(f"flash engine probs differ by {max(diffs)} "
                              f"> {flash_tol}")
     profile_rung(eng, np.stack(rows[:BUCKETS[-1]]))
-    eng_flash.close()
+    eng_xla.close()
     eng.close()
     emit({"phase": "serve", "ok": True, "fixture_s": round(fixture_s, 3),
           "warmup": warm, "requests": n_req, "batches": batches1,
-          "flash_requests": len(flash_res), "flash_batches": batches2,
+          "xla_requests": len(xla_res), "xla_batches": batches2,
           "fused_mlp_launches": k1, "flash_launches": k2,
           "drive_s": round(drive_s, 3),
           "flash_vs_xla_max_abs_probs_diff": max(diffs),
@@ -1094,7 +1269,7 @@ def _train_run(cfg, dev, steps: int, seed: int):
 
 
 def _check_run(tag, metrics, counts, steps, flash: bool,
-               loss_must_fall: bool = True):
+               loss_must_fall: bool = True, layers: int = 12):
     import math
     for i, m in enumerate(metrics):
         if not (math.isfinite(m["loss_sum"]) and
@@ -1105,14 +1280,14 @@ def _check_run(tag, metrics, counts, steps, flash: bool,
     if loss_must_fall and not losses[-1] < losses[0]:
         raise AssertionError(f"{tag}: loss did not fall: {losses}")
     forwards = steps + EVAL_BATCHES
-    want = {"fused_ln_mlp_residual": 12 * forwards,
-            "fused_ln_mlp_residual_bwd": 12 * steps,
+    want = {"fused_ln_mlp_residual": layers * forwards,
+            "fused_ln_mlp_residual_bwd": layers * steps,
             "fused_mlp_core": 0, "fused_mlp_core_bwd": 0,
-            "flash_attention": 12 * forwards if flash else 0,
-            "flash_attention_bwd_dq": 12 * steps if flash else 0,
-            "flash_attention_bwd_dkv": 12 * steps if flash else 0}
+            "flash_attention": layers * forwards if flash else 0,
+            "flash_attention_bwd_dq": layers * steps if flash else 0,
+            "flash_attention_bwd_dkv": layers * steps if flash else 0}
     if counts != want:
-        raise AssertionError(f"{tag}: launches {counts} != {want} (12 per "
+        raise AssertionError(f"{tag}: launches {counts} != {want} (one per "
                              f"block per step / eval batch)")
     return losses
 
@@ -1165,19 +1340,20 @@ def profile_step(state, batch, fold: bool = False) -> dict:
 
 
 # The T = 197 attention decision: rounds of interleaved unprofiled steps
-# (auto, flash, then flash, auto, ...) for the wall, then profiled steps of
+# (auto, xla, then xla, auto, ...) for the wall, then profiled steps of
 # each for the device time.
 COMPARE_ROUNDS = 8
 COMPARE_PROFILED = 3
 
 
-def auto_vs_flash(cfg, dev) -> dict:
-    """``attention_impl="auto"`` (xla at T = 197) against ``"flash"`` on
-    the B/16 batch-32 train step: two train states from the same seeded
-    params, one seeded batch, stepped in turns so both meet the same card
-    and host; wall medians over the unprofiled steps after the first of
-    each, device medians (the profiler's kernel time of a step) over the
-    profiled ones."""
+def auto_vs_xla(cfg, dev) -> dict:
+    """``attention_impl="auto"`` (flash at T = 197 on the card) against an
+    explicit ``"xla"`` on the B/16 batch-32 train step, so the decision is
+    measured again on every change of the kernels: two train states from
+    the same seeded params, one seeded batch, stepped in turns so both
+    meet the same card and host; wall medians over the unprofiled steps
+    after the first of each, device medians (the profiler's kernel time of
+    a step) over the profiled ones."""
     import statistics
     import numpy as np
     import torch
@@ -1192,7 +1368,7 @@ def auto_vs_flash(cfg, dev) -> dict:
     batch = {"image": rng.standard_normal(
         (TRAIN_BATCH, cfg.image_size, cfg.image_size, 3)).astype(np.float32),
              "label": rng.integers(0, cfg.num_classes, TRAIN_BATCH)}
-    impls = ("auto", "flash")
+    impls = ("auto", "xla")
     states = {}
     for impl in impls:
         model = ViT(cfg.replace(attention_impl=impl))
@@ -1221,10 +1397,10 @@ def auto_vs_flash(cfg, dev) -> dict:
                   "device_ms_median": statistics.median(device[impl]),
                   "wall_ms": walls[impl], "device_ms": device[impl]}
            for impl in impls}
-    return {**med, "flash_minus_auto_wall_ms": (
-        med["flash"]["wall_ms_median"] - med["auto"]["wall_ms_median"]),
-            "flash_minus_auto_device_ms": (
-        med["flash"]["device_ms_median"] - med["auto"]["device_ms_median"])}
+    return {**med, "auto_minus_xla_wall_ms": (
+        med["auto"]["wall_ms_median"] - med["xla"]["wall_ms_median"]),
+            "auto_minus_xla_device_ms": (
+        med["auto"]["device_ms_median"] - med["xla"]["device_ms_median"])}
 
 
 def split_qkv_bias(tree: dict):
@@ -1354,7 +1530,8 @@ def phase_train(dev) -> dict:
     t0 = time.perf_counter()
     metrics, results, counts, walls, state, batch = _train_run(
         cfg, dev, TRAIN_STEPS, seed=1)
-    losses = _check_run("train(auto)", metrics, counts, TRAIN_STEPS, False)
+    # auto runs flash at T = 197 on the card.
+    losses = _check_run("train(auto)", metrics, counts, TRAIN_STEPS, True)
     step_s = statistics.median(walls[1:])
     torch.cuda.reset_peak_memory_stats()
     prof = profile_step(state, batch)
@@ -1385,19 +1562,54 @@ def phase_train(dev) -> dict:
           "flash_results": f_results,
           "seconds": round(time.perf_counter() - t0, 3)})
     t1 = time.perf_counter()
-    emit({"phase": "train_auto_vs_flash", "ok": True, "batch": TRAIN_BATCH,
+    emit({"phase": "train_auto_vs_xla", "ok": True, "batch": TRAIN_BATCH,
           "rounds": COMPARE_ROUNDS, "profiled_rounds": COMPARE_PROFILED,
-          **auto_vs_flash(cfg, dev),
+          **auto_vs_xla(cfg, dev),
           "seconds": round(time.perf_counter() - t1, 3)})
     t1 = time.perf_counter()
     emit({"phase": "train_f32_card_vs_cpu", "ok": True,
           "errors": f32_step_vs_cpu(dev), "tolerance": STEP_TOL,
           "seconds": round(time.perf_counter() - t1, 3)})
-    merged = dict(counts)
-    for k in ("flash_attention", "flash_attention_bwd_dq",
-              "flash_attention_bwd_dkv"):
-        merged[k] = f_counts[k]
-    return merged
+    return counts
+
+
+PRESET_STEPS = 2
+PRESET_LAYERS = 2
+
+
+def phase_presets(dev) -> None:
+    """Every other preset (Ti/16, S/16, L/16, H/14) at full width, cut to
+    PRESET_LAYERS layers, bf16, the default dropouts and the default
+    ``mlp_impl`` / ``attention_impl`` ("auto"): PRESET_STEPS train steps
+    and the eval pass through ``engine.train`` on one seeded batch of 32,
+    the launch counters set to 0 right before and read right after. The
+    losses and grad norms must be finite and the fused MLP kernels
+    (rows 1 and 2) launched in every block of every step; flash where auto
+    picks it (Dh = 64; H/14's Dh = 80 stays on xla under auto)."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.configs import PRESETS
+    from pytorch_vit_paper_replication_tpu_torch.ops.flash_attention import (
+        KERNEL_HEAD_DIMS)
+    for name in ("ViT-Ti/16", "ViT-S/16", "ViT-L/16", "ViT-H/14"):
+        cfg = PRESETS[name](num_classes=NUM_CLASSES).replace(
+            num_layers=PRESET_LAYERS)
+        t0 = time.perf_counter()
+        metrics, results, counts, walls, state, _ = _train_run(
+            cfg, dev, PRESET_STEPS, seed=6)
+        del state
+        torch.cuda.empty_cache()
+        flash = cfg.head_dim in KERNEL_HEAD_DIMS
+        losses = _check_run(f"presets({name})", metrics, counts,
+                            PRESET_STEPS, flash, loss_must_fall=False,
+                            layers=PRESET_LAYERS)
+        emit({"phase": "presets", "ok": True, "preset": name,
+              "layers": PRESET_LAYERS, "width": cfg.embedding_dim,
+              "mlp_size": cfg.mlp_size, "head_dim": cfg.head_dim,
+              "tokens": cfg.seq_len,
+              "batch": TRAIN_BATCH, "losses": losses,
+              "grad_norms": [m["grad_norm"] for m in metrics],
+              "launches": counts, "step_ms": [w * 1e3 for w in walls],
+              "seconds": round(time.perf_counter() - t0, 3)})
 
 
 # ------------------------------------------------------------- phase 5
@@ -1628,11 +1840,12 @@ def phase_parallel(dev) -> dict:
                   device=dev.type, timeout_s=PAR_TIMEOUT_S)
     a_s = time.perf_counter() - t0
     layers = PRESETS[PRESET]().num_layers // 2
+    fwd, bwd = layers * PAR_MICRO * (PAR_STEPS + 1), layers * PAR_MICRO * \
+        PAR_STEPS
     want = {"fused_ln_mlp_residual": 0, "fused_ln_mlp_residual_bwd": 0,
-            "fused_mlp_core": layers * PAR_MICRO * (PAR_STEPS + 1),
-            "fused_mlp_core_bwd": layers * PAR_MICRO * PAR_STEPS,
-            "flash_attention": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkv": 0}
+            "fused_mlp_core": fwd, "fused_mlp_core_bwd": bwd,
+            "flash_attention": fwd, "flash_attention_bwd_dq": bwd,
+            "flash_attention_bwd_dkv": bwd}
     for r in ranks:
         if r["launches"] != want:
             raise AssertionError(f"rank {r['coords']}: launches "
@@ -1674,27 +1887,30 @@ def phase_parallel(dev) -> dict:
 # ------------------------------------------------------------- phase 6
 # How each kernel multiplies on the card, bf16 (f32 runs SIMT everywhere).
 KERNEL_DESIGN = {
-    "fused_ln_mlp_residual": "wmma", "fused_ln_mlp_residual_bwd": "wgmma+tma",
-    "flash_attention": "wgmma+tma", "flash_attention_bwd_dq": "wgmma+tma",
-    "flash_attention_bwd_dkv": "wgmma+tma", "fused_mlp_core": "wmma",
-    "fused_mlp_core_bwd": "wgmma+tma"}
+    "fused_ln_mlp_residual": "wgmma+tma",
+    "fused_ln_mlp_residual_bwd": "wgmma+tma",
+    "flash_attention": "wgmma+tma",
+    "flash_attention_bwd_dq": "wgmma+tma, two consumer warpgroups",
+    "flash_attention_bwd_dkv": "wgmma+tma, two consumer warpgroups",
+    "fused_mlp_core": "wgmma+tma", "fused_mlp_core_bwd": "wgmma+tma"}
 
 
 def kernel_list(k_rows, launches, serve_launches, par_launches):
     """The seven ported kernels with their main-path numbers: rows 1-5 at
     batch 32, bf16, dropout off, T = 197; rows 6 and 7 (the MLP core) at
     the parallel phase's per-microbatch shape (4 * 197 rows, F / tp =
-    1536, bf16, t = 26). ``launches`` are the training runs' counts (the
-    flash kernels' from the flash run), ``serve_launches`` the serve
-    phase's, ``par_launches`` rank 0's in the parallel phase (a)."""
+    1536, bf16, t = 26). ``launches`` are the counts of the main training
+    run (``auto``, which runs flash at T = 197 on the card),
+    ``serve_launches`` the serve phase's, ``par_launches`` rank 0's in the
+    parallel phase (a)."""
     def pick(kernel, **match):
-        return next(r for r in k_rows if r["kernel"] == kernel and all(
+        return next(r for r in k_rows if r.get("kernel") == kernel and all(
             r[k] == v for k, v in match.items()))
 
     def max_err(kernel, key=None):
         vals = []
         for r in k_rows:
-            if r["kernel"] == kernel and r["dtype"] == "bfloat16":
+            if r.get("kernel") == kernel and r["dtype"] == "bfloat16":
                 e = r["max_abs_err"]
                 vals.append(e[key] if key else
                             (max(e.values()) if isinstance(e, dict) else e))
@@ -1714,8 +1930,8 @@ def kernel_list(k_rows, launches, serve_launches, par_launches):
     rows = [
         ("fused_ln_mlp_residual", "fused_mlp.cu", "fused_mlp.py:461",
          max_err("fused_ln_mlp_residual"), mlp,
-         ("kernel_ms", "plain_ms", None, "bound_ms", "bound_by"), None,
-         None),
+         ("kernel_ms", "plain_ms", "device_ms", "bound_ms", "bound_by"),
+         None, mlp["gemms_library_ms"]),
         ("fused_ln_mlp_residual_bwd", "fused_mlp_bwd.cu", "fused_mlp.py:501",
          max_err("fused_ln_mlp_residual_bwd"), mlp_b,
          ("kernel_ms", "plain_ms", "device_ms", "bound_ms", "bound_by"),
@@ -1739,13 +1955,13 @@ def kernel_list(k_rows, launches, serve_launches, par_launches):
     ]
     n, f, dt, t = CORE_MAIN_PATH
     core = pick("fused_mlp_core", shape=[n, 768, f], dtype=dt, threshold=t)
-    core_rows = [r for r in k_rows if r["kernel"] == "fused_mlp_core"
+    core_rows = [r for r in k_rows if r.get("kernel") == "fused_mlp_core"
                  and r["dtype"] == "bfloat16"]
     rows += [
         ("fused_mlp_core", "fused_mlp_core.cu", "fused_mlp.py:236",
          max(r["max_abs_err"] for r in core_rows), core,
-         ("kernel_ms", "plain_ms", None, "bound_ms", "bound_by"), None,
-         None),
+         ("kernel_ms", "plain_ms", "device_ms", "bound_ms", "bound_by"),
+         None, core["gemms_library_ms"]),
         ("fused_mlp_core_bwd", "fused_mlp_core.cu", "fused_mlp.py:278",
          max(r["bwd_max_abs_err"] for r in core_rows), core,
          ("bwd_ms", "bwd_plain_ms", "bwd_device_ms", "bwd_bound_ms",
@@ -1795,6 +2011,7 @@ def main() -> int:
         check_fused_mlp_bwd(gen, card_peaks, dev) + \
         check_flash_bwd(gen, card_peaks, dev) + \
         check_fused_mlp_core(gen, card_peaks, dev)
+    check_mlp_widths(gen, dev)
     torch.cuda.empty_cache()
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -1804,6 +2021,8 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     launches = phase_train(dev)
+    torch.cuda.empty_cache()
+    phase_presets(dev)
     torch.cuda.empty_cache()
     par_launches = phase_parallel(dev)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,

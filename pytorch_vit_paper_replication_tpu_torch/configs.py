@@ -54,14 +54,14 @@ class ViTConfig:
     dtype: str = "bfloat16"
     # "xla" = the materialized-logits attention (ops/attention.py
     # _xla_attention, plain torch); "flash" = the CUDA flash-attention
-    # kernel (ops/flash_attention.py); "auto" = flash on a CUDA tensor
-    # only when the materialized logits would not fit (_flash_ok).
+    # kernel (ops/flash_attention.py); "auto" = flash on a CUDA tensor at
+    # T >= 197 with a head dim the kernels are built for (_flash_ok).
     attention_impl: str = "auto"
     # MLP-half execution path: "xla" = LayerNorm + two GEMMs with the
     # hidden activation materialized; "fused" = the CUDA
     # LN->fc1->GELU->dropout->fc2->dropout->residual kernel, or LN and the
     # CUDA MLP core kernel in tensor-parallel blocks and the standalone
-    # MLPBlock (ops/fused_mlp.py, hidden tile stays on chip); "auto" =
+    # MLPBlock (ops/fused_mlp.py); "auto" =
     # fused on a CUDA tensor, xla on the CPU. Param trees are identical
     # across paths.
     mlp_impl: str = "auto"

@@ -9,8 +9,8 @@
 // dW2), i.e. compute-bound at ViT-B/16 shapes (N = B*197, D = 768,
 // F = 3072): 0.120 ms at 989 TFLOP/s. The passes are mlp_bwd.cuh's with
 // LN = true: in bf16 every product runs on wgmma with TMA operands (one
-// GEMM kernel, two consumer warpgroups, a 4-stage mbarrier ring), in f32 on
-// SIMT FMA.
+// GEMM kernel, mlp_common.cuh's wg::gemm_bf16: two consumer warpgroups, a
+// 4-stage mbarrier ring), in f32 on SIMT FMA.
 #include "mlp_bwd.cuh"
 
 using namespace vit::mlp_bwd;
@@ -20,12 +20,11 @@ using namespace vit::mlp_bwd;
 // Bytes of workspace vit_lnmlp_bwd needs for these shapes (-1: shapes it
 // does not take).
 extern "C" long long vit_lnmlp_bwd_workspace(int dtype, int n, int d, int f) {
-  if (!valid_shape(dtype, n, d, f)) return -1;
-  return static_cast<long long>(plan<true>(dtype, n, d, f, nullptr, nullptr));
+  return workspace_bytes<true>(dtype, n, d, f);
 }
 
-// x, dout, dx [n, d], h [n, f], w1 [d, f], w2 [f, d] in that dtype (bf16:
-// 16-byte aligned, read through TMA); gamma, beta float32; workspace of
+// x, dout, dx [n, d], h [n, f], w1 [d, f], w2 [f, d] in that dtype (16-byte
+// aligned; bf16 is read through TMA); gamma, beta float32; workspace of
 // workspace_bytes >= vit_lnmlp_bwd_workspace(...). The seven gradients
 // leave in float32: dgamma, dbeta, db2 [d], db1 [f], dw1 [d, f],
 // dw2 [f, d]. Launches every pass on `stream`; returns the first
@@ -38,13 +37,10 @@ extern "C" int vit_lnmlp_bwd(int dtype, const void* x, const void* h,
                              void* workspace, long long workspace_bytes, int n,
                              int d, int f, float eps, uint32_t seed,
                              int threshold, float inv_keep, void* stream) {
-  if (!valid_shape(dtype, n, d, f) ||
-      workspace_bytes < static_cast<long long>(
-                            plan<true>(dtype, n, d, f, nullptr, nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(backward<true>(
       dtype, x, h, gamma, beta, w1, w2, dout, dx, dgamma, dbeta, dw1, db1,
-      dw2, db2, workspace, n, d, f, eps, seed, threshold, inv_keep,
+      dw2, db2, workspace, workspace_bytes, n, d, f, eps, seed, threshold,
+      inv_keep,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -60,14 +56,14 @@ extern "C" int vit_gemm_bf16(int form, const void* a, const void* b,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m <= 0 || n <= 0 || k <= 0 || splits < 1 || (form == 0 && splits != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  wg::EpiArgs e{};
+  vit::mlp::EpiArgs<vit::bf16> e{};
   e.c32 = splits > 1 ? workspace : c;
   cudaError_t err =
       form == 0
-          ? wg::gemm<wg::kStoreF32, false, false>(a, k, m, b, k, n, e, m, n,
-                                                  k, 1, s)
-          : wg::gemm<wg::kStoreF32, true, true>(a, m, k, b, n, k, e, m, n, k,
-                                                splits, s);
+          ? wg::gemm<kStoreF32, false, false>(a, k, m, b, k, n, e, m, n, k,
+                                              1, s)
+          : wg::gemm<kStoreF32, true, true>(a, m, k, b, n, k, e, m, n, k,
+                                            splits, s);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const size_t count4 = static_cast<size_t>(m) * n / 4;
   wg::sum_splits<<<static_cast<unsigned>((count4 + 255) / 256), 256, 0, s>>>(

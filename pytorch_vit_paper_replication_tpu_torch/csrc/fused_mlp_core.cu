@@ -14,37 +14,47 @@
 // (dg, dx, dW1, dW2), compute-bound at ViT-B/16 shapes (N = B*197,
 // D = 768, F = 3072 or its tensor-parallel slice 1536).
 //
-// The kernels are those of rows 1 and 2 with LN and the residual switched
-// off (mlp_fwd.cuh and mlp_bwd.cuh with LN = false): the hidden tile stays
-// on chip in the forward; the backward is row 2's deterministic passes
-// without the LN ones (bf16: the wgmma GEMMs dg with the hidden-gradient
-// epilogue, dx = cast(dh_c W1^T), dW1 = x^T dh_c, dW2 = g_c^T dO, then the
-// fixed-order column sums), with x and dO as the GEMM operands.
+// The passes are those of rows 1 and 2 with LN and the residual switched
+// off (mlp_fwd.cuh and mlp_bwd.cuh with LN = false): the forward is fc1
+// with the GELU / keep-bit epilogue and fc2 with the bias epilogue; the
+// backward is row 2's deterministic passes without the LN ones (dg with the
+// hidden-gradient epilogue, dx = cast(dh_c W1^T), dW1 = x^T dh_c,
+// dW2 = g_c^T dO, then the fixed-order column sums), with x and dO as the
+// GEMM operands. bf16 runs every product on wgmma with TMA operands, f32
+// on SIMT FMA.
 #include "mlp_bwd.cuh"
 #include "mlp_fwd.cuh"
 
+// Bytes of workspace vit_mlp_fwd needs for these shapes (-1: shapes it
+// does not take: d and f must be multiples of 64).
+extern "C" long long vit_mlp_fwd_workspace(int dtype, int n, int d, int f) {
+  return vit::mlp_fwd::workspace_bytes<false>(dtype, n, d, f);
+}
+
 // Forward. dtype: 0 = float32, 1 = bf16; x, w1, b1, w2, b2, out and h
-// (null: not saved) in that dtype. Returns the cudaError_t of the launch.
+// (null: not saved) in that dtype (16-byte aligned); workspace of
+// workspace_bytes >= vit_mlp_fwd_workspace(...). Returns the first
+// cudaError_t that is not 0, else 0.
 extern "C" int vit_mlp_fwd(int dtype, const void* x, const void* w1,
                            const void* b1, const void* w2, const void* b2,
-                           void* out, void* h, int n, int d, int f,
+                           void* out, void* h, void* workspace,
+                           long long workspace_bytes, int n, int d, int f,
                            uint32_t seed, int threshold, float inv_keep,
                            void* stream) {
   return static_cast<int>(vit::mlp_fwd::run<false>(
-      dtype, x, nullptr, nullptr, w1, b1, w2, b2, out, h, n, d, f, 0.0f, seed,
-      threshold, inv_keep, static_cast<cudaStream_t>(stream)));
+      dtype, x, nullptr, nullptr, w1, b1, w2, b2, out, h, workspace,
+      workspace_bytes, n, d, f, 0.0f, seed, threshold, inv_keep,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // Bytes of workspace vit_mlp_bwd needs for these shapes (-1: shapes it
 // does not take).
 extern "C" long long vit_mlp_bwd_workspace(int dtype, int n, int d, int f) {
-  using namespace vit::mlp_bwd;
-  if (!valid_shape(dtype, n, d, f)) return -1;
-  return static_cast<long long>(plan<false>(dtype, n, d, f, nullptr, nullptr));
+  return vit::mlp_bwd::workspace_bytes<false>(dtype, n, d, f);
 }
 
 // Backward. x, dout, dx [n, d], h [n, f], w1 [d, f], w2 [f, d] in the
-// dtype (bf16: 16-byte aligned, read through TMA); workspace of
+// dtype (16-byte aligned; bf16 is read through TMA); workspace of
 // workspace_bytes >= vit_mlp_bwd_workspace(...). dw1 [d, f], db1 [f],
 // dw2 [f, d], db2 [d] leave in float32. Returns the first cudaError_t that
 // is not 0, else 0.
@@ -56,12 +66,9 @@ extern "C" int vit_mlp_bwd(int dtype, const void* x, const void* h,
                            uint32_t seed, int threshold, float inv_keep,
                            void* stream) {
   using namespace vit::mlp_bwd;
-  if (!valid_shape(dtype, n, d, f) ||
-      workspace_bytes < static_cast<long long>(
-                            plan<false>(dtype, n, d, f, nullptr, nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(backward<false>(
       dtype, x, h, nullptr, nullptr, w1, w2, dout, dx, nullptr, nullptr, dw1,
-      db1, dw2, db2, workspace, n, d, f, 0.0f, seed, threshold, inv_keep,
+      db1, dw2, db2, workspace, workspace_bytes, n, d, f, 0.0f, seed,
+      threshold, inv_keep,
       static_cast<cudaStream_t>(stream)));
 }

@@ -84,6 +84,32 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// ------------------------------------------------------ named barriers
+// Barrier `id` (1..15; 0 is __syncthreads) across N threads: sync waits
+// until N threads have arrived (its own included), arrive counts without
+// waiting. Shared-memory writes before an arrive are visible after the
+// matching sync. Two warpgroups hand work to each other with N = 256.
+template <int N>
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(N) : "memory");
+}
+
+// Move registers between warpgroups (every thread of the warpgroup runs
+// it, once, on a path that does not rejoin the other warpgroups'): a
+// producer warpgroup gives up registers, the consumers take them.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // ------------------------------------------------------------------ TMA
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int x, int y,
@@ -202,10 +228,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The A operand of a k-step over columns 16 kk.. taken from an m64n64
+// The A operand of a k-step over columns 16 kk.. taken from an m64nN
 // f32 accumulator (the register layouts line up: element 4j + e holds
 // row g + 8 (e / 2), column 8 j + 2 tq + e % 2 of the warp's 16 rows).
-__device__ __forceinline__ void acc_to_a(const float (&acc)[32], int kk,
+template <int N>
+__device__ __forceinline__ void acc_to_a(const float (&acc)[N], int kk,
                                          uint32_t (&a)[4]) {
   const int j0 = 8 * kk;  // 4 * (2 kk)
   a[0] = pack_bf16(acc[j0 + 0], acc[j0 + 1]);
@@ -217,10 +244,26 @@ __device__ __forceinline__ void acc_to_a(const float (&acc)[32], int kk,
 // D (m64 x N, f32, N / 2 registers a thread) += A (m64 x k16, bf16) * B
 // (k16 x N, bf16). ss: A and B by descriptor; rs: A from registers. TB = 1
 // reads B MN-major (TA = 1, A). scale_d = 0 overwrites D. The flash kernels
-// use ss at N = 64 (the logits) and rs at N = C (the output boxes); the MLP
-// backward's GEMMs ss at N = 128, either operand K-major or MN-major.
+// use ss at N = 64 (the logits; N = 16 for a ragged last tile of at most 16
+// rows) and rs at N = C (the output boxes); the MLP GEMMs ss at N = 128,
+// either operand K-major or MN-major.
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  template <int TB>
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, %11;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+  }
+};
 
 template <>
 struct Wgmma<32> {

@@ -36,7 +36,8 @@ SOURCES: Dict[str, str] = {
     "flash_attention": "flash_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
 }
-_HEADERS = ("vit_common.cuh", "hopper.cuh", "mlp_fwd.cuh", "mlp_bwd.cuh")
+_HEADERS = ("vit_common.cuh", "hopper.cuh", "mlp_common.cuh", "mlp_fwd.cuh",
+            "mlp_bwd.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -122,13 +123,20 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def check_aligned(*tensors, align: int = 16) -> None:
+    """Raise unless every tensor starts on an ``align``-byte boundary,
+    whatever its dtype (the MLP kernels read bf16 operands through TMA and
+    f32 operands with 16-byte vector loads)."""
+    if any(t.data_ptr() % align for t in tensors):
+        raise ValueError(f"kernel operands must be {align}-byte aligned")
+
+
 def check_tma(*tensors) -> None:
     """Raise unless every tensor is 16-byte aligned when they are bf16: the
     bf16 kernels read their operands through TMA, which takes no other
-    alignment (the f32 SIMT kernels take any)."""
-    if tensors[0].dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 for t in tensors):
-        raise ValueError("bf16 kernel operands must be 16-byte aligned (TMA)")
+    alignment (the f32 SIMT flash kernels take any)."""
+    if tensors[0].dtype == torch.bfloat16:
+        check_aligned(*tensors)
 
 
 def check(err: int, what: str) -> None:

@@ -28,13 +28,21 @@ enters through dP (and P for dV) with the forward's hash.
 Which kernel runs is the operands' dtype, decided in the C entry points:
 
 * **bf16**: the forward, dq and dk/dv are Hopper kernels (TMA tile loads
-  on mbarriers, wgmma with f32 accumulators): every product takes bf16
-  operands, so P (and dS in dq and dk/dv) is rounded to bf16 before its
-  product, where the Pallas kernels keep f32; the logits and ``lse`` keep
-  f32 values up to summation order. They read q, k, v (and dO) through
-  TMA, which takes 16-byte aligned tensors.
+  on mbarriers, wgmma with f32 accumulators; dq and dk/dv with two
+  consumer warpgroups a CTA): every product takes bf16 operands, so P (and
+  dS in dq and dk/dv) is rounded to bf16 before its product, where the
+  Pallas kernels keep f32; the logits and ``lse`` keep f32 values up to
+  summation order. They read q, k, v (and dO) through TMA, which takes
+  16-byte aligned tensors.
 * **f32**: every kernel is the SIMT kernel with f32 math (TF32 would not
   hold the f32 bounds).
+
+The kernels are built for head dims 32, 64, 128 and 256
+(``KERNEL_HEAD_DIMS``). Any other ``Dh`` up to 256 (ViT-H/14's 80) runs
+the next wider kernel on operands zero-padded on their last axis, with the
+true scale ``Dh**-0.5``: zero columns add nothing to ``q . k`` and the
+positional hash does not read ``Dh``, so P and the keep masks are those of
+the unpadded problem; out, dq, dk and dv are sliced back to ``Dh``.
 
 This is not a fallback: each dtype has one kernel per function, and a
 kernel that fails to build or launch raises.
@@ -50,10 +58,8 @@ import torch
 from . import _build
 from .dropout import _threshold, positional_keep_u8
 
-SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
-# Head dims the backward kernels are instantiated for (the f32 kernels'
-# shared memory holds six [64, Dh] f32 tiles per CTA).
-BWD_HEAD_DIMS = (32, 64, 128)
+# Head dims the kernels are instantiated for; others up to 256 are padded.
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 # Launches of the CUDA kernels (one per call on a CUDA tensor).
 launches = 0
 dq_launches = 0
@@ -75,12 +81,15 @@ def _unfold_heads(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
     return x.reshape(b, h, t, d).permute(0, 2, 1, 3)
 
 
-def flash_attention_plain(q, k, v, *, seed: int, threshold: int
+def flash_attention_plain(q, k, v, *, seed: int, threshold: int,
+                          scale: Optional[float] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact-softmax attention in f32 on folded ``[BH, T, Dh]`` operands;
-    returns ``(out in q.dtype, lse f32 [BH, T])``."""
+    """Exact-softmax attention in f32 on folded ``[BH, T, Dh]`` operands
+    (logits scaled by ``scale``, ``Dh**-0.5`` by default); returns ``(out
+    in q.dtype, lse f32 [BH, T])``."""
     bh, t, dh = q.shape
-    s = (q.float() @ k.float().transpose(1, 2)) * (dh ** -0.5)
+    scale = dh ** -0.5 if scale is None else scale
+    s = (q.float() @ k.float().transpose(1, 2)) * scale
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
@@ -102,12 +111,13 @@ def _keep_mask(seed, bh, t, tk, threshold, device):
 
 
 def flash_attention_bwd_plain(q, k, v, dout, lse, delta, *, seed: int,
-                              threshold: int):
+                              threshold: int, scale: Optional[float] = None):
     """The backward kernels' arithmetic in f32 on folded operands:
-    ``P = exp(s - lse)``, ``dS = P * (M/keep * dP - delta) * scale``;
-    returns ``(dq, dk, dv)`` in the operands' dtypes."""
+    ``P = exp(s - lse)``, ``dS = P * (M/keep * dP - delta) * scale``
+    (``scale`` ``Dh**-0.5`` by default); returns ``(dq, dk, dv)`` in the
+    operands' dtypes."""
     bh, t, dh = q.shape
-    scale = dh ** -0.5
+    scale = dh ** -0.5 if scale is None else scale
     qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
     p = torch.exp((qf @ kf.transpose(1, 2)) * scale - lse[..., None])
     dp = dof @ vf.transpose(1, 2)
@@ -151,15 +161,29 @@ def _bwd_kernel(name: str):
     return fn
 
 
-def _check(q, head_dims, **others):
+def kernel_width(dh: int) -> int:
+    """The instantiated head dim that runs ``dh``: the smallest of
+    ``KERNEL_HEAD_DIMS`` not below it; raises above 256."""
+    for width in KERNEL_HEAD_DIMS:
+        if dh <= width:
+            return width
+    raise ValueError(f"flash kernel takes Dh up to {KERNEL_HEAD_DIMS[-1]}, "
+                     f"got {dh}")
+
+
+def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x [..., Dh]`` zero-padded on its last axis to ``width``."""
+    dh = x.shape[-1]
+    return x if dh == width else torch.nn.functional.pad(x, (0, width - dh))
+
+
+def _check(q, **others):
     """Raise unless q and ``others`` (same shape, dtype, device) are what
     the kernels take."""
-    dh = q.shape[-1]
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
-    if dh not in head_dims:
-        raise ValueError(f"flash kernel takes Dh in {head_dims}, got {dh}")
+    kernel_width(q.shape[-1])
     for name, a in others.items():
         if a.shape != q.shape or a.dtype != q.dtype or a.device != q.device:
             raise ValueError(f"{name} must match q ({q.dtype} "
@@ -173,10 +197,13 @@ _check_tma = _build.check_tma
 
 
 def _launch(q, k, v, *, seed: int, threshold: int):
-    """Validate and launch the forward kernel on folded operands."""
+    """Validate and launch the forward kernel on folded operands (padded
+    to the kernel's head dim and sliced back, see the module docstring)."""
     global launches
     bh, t, dh = q.shape
-    _check(q, SUPPORTED_HEAD_DIMS, k=k, v=v)
+    _check(q, k=k, v=v)
+    width = kernel_width(dh)
+    q, k, v = (pad_head_dim(a, width) for a in (q, k, v))
     _check_tma(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
@@ -184,31 +211,37 @@ def _launch(q, k, v, *, seed: int, threshold: int):
     with torch.cuda.device(q.device):
         err = _kernel()(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                         v.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, t,
-                        dh, dh ** -0.5, seed & 0xFFFFFFFF, threshold,
+                        width, dh ** -0.5, seed & 0xFFFFFFFF, threshold,
                         1.0 - threshold / 256.0, stream)
     _build.check(err, "vit_flash_fwd")
     launches += 1
-    return out, lse
+    return out[..., :dh], lse
 
 
-def _bwd_args(q, lse, delta, seed, threshold):
-    """Validate ``lse`` and ``delta``; the backward kernels' scalars."""
+def _bwd_operands(q, k, v, dout, lse, delta, seed, threshold):
+    """Validate the backward's operands; returns them padded to the
+    kernel's head dim and the kernels' scalars (the scale from the true
+    ``Dh``)."""
     bh, t, dh = q.shape
+    _check(q, k=k, v=v, dout=dout)
     for name, a in (("lse", lse), ("delta", delta)):
         if (a.shape != (bh, t) or a.dtype != torch.float32
                 or a.device != q.device or not a.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 "
                              f"{(bh, t)} on {q.device}")
-    return (bh, t, dh, dh ** -0.5, seed & 0xFFFFFFFF, threshold,
-            256.0 / (256.0 - threshold))
+    width = kernel_width(dh)
+    padded = [pad_head_dim(a, width) for a in (q, k, v, dout)]
+    _check_tma(*padded)
+    return padded, (bh, t, width, dh ** -0.5, seed & 0xFFFFFFFF, threshold,
+                    256.0 / (256.0 - threshold))
 
 
 def _launch_bwd_dq(q, k, v, dout, lse, delta, *, seed: int, threshold: int):
     """Validate and launch the dq kernel on folded operands."""
     global dq_launches
-    _check(q, BWD_HEAD_DIMS, k=k, v=v, dout=dout)
-    _check_tma(q, k, v, dout)
-    args = _bwd_args(q, lse, delta, seed, threshold)
+    dh = q.shape[-1]
+    (q, k, v, dout), args = _bwd_operands(q, k, v, dout, lse, delta, seed,
+                                          threshold)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _bwd_kernel("vit_flash_bwd_dq")(
@@ -217,16 +250,16 @@ def _launch_bwd_dq(q, k, v, dout, lse, delta, *, seed: int, threshold: int):
             *args, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "vit_flash_bwd_dq")
     dq_launches += 1
-    return dq
+    return dq[..., :dh]
 
 
 def _launch_bwd_dkv(q, k, v, dout, lse, delta, *, seed: int,
                     threshold: int):
     """Validate and launch the dk/dv kernel on folded operands."""
     global dkv_launches
-    _check(q, BWD_HEAD_DIMS, k=k, v=v, dout=dout)
-    _check_tma(q, k, v, dout)
-    args = _bwd_args(q, lse, delta, seed, threshold)
+    dh = q.shape[-1]
+    (q, k, v, dout), args = _bwd_operands(q, k, v, dout, lse, delta, seed,
+                                          threshold)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = _bwd_kernel("vit_flash_bwd_dkv")(
@@ -236,7 +269,7 @@ def _launch_bwd_dkv(q, k, v, dout, lse, delta, *, seed: int,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "vit_flash_bwd_dkv")
     dkv_launches += 1
-    return dk, dv
+    return dk[..., :dh], dv[..., :dh]
 
 
 class _FlashFunction(torch.autograd.Function):

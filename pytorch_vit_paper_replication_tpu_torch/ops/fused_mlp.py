@@ -2,10 +2,12 @@
 
 ``x + drop1(fc2(drop0(gelu(fc1(LN(x))))))`` — the port of the JAX
 package's ``ops/fused_mlp.py::fused_ln_mlp_residual``. On a CUDA tensor the
-wrapper launches the hand-written kernel in ``csrc/fused_mlp.cu`` (the
-``[rows, mlp_size]`` hidden tile never goes to device memory); on a CPU
-tensor it runs :func:`ln_mlp_residual_plain`, which repeats the kernel's
-arithmetic in PyTorch with the same rounding points:
+wrapper launches the hand-written passes in ``csrc/fused_mlp.cu`` (an LN
+row pass, then fc1 with the GELU / keep-bit epilogue and fc2 with the
+residual epilogue, on Hopper's wgmma with TMA operands in bf16; the hidden
+activation ``g`` makes one round trip through a workspace in the compute
+dtype); on a CPU tensor it runs :func:`ln_mlp_residual_plain`, which
+repeats the kernels' arithmetic in PyTorch with the same rounding points:
 
 * LayerNorm statistics in f32 (mean, centred variance, ``rsqrt``);
 * ``y`` cast to the compute dtype before fc1; ``h = y @ W1 + b1`` in f32;
@@ -20,9 +22,11 @@ Training: when an input requires grad the wrapper goes through
 ``h = y @ W1 + b1`` rounded to the compute dtype, its backward launches
 ``csrc/fused_mlp_bwd.cu`` (the port of ``_lnmlp_bwd``) on CUDA tensors and
 :func:`ln_mlp_residual_bwd_plain` on CPU tensors. In bf16 the backward's
-four products run on Hopper's wgmma with operands loaded by TMA, which
-takes 16-byte aligned tensors (checked before the launch); its scratch is
-one workspace of the size the library reports (``_workspace``). The
+four products run on Hopper's wgmma with operands loaded by TMA. Every
+kernel takes 16-byte aligned operands (TMA in bf16, vector loads in f32;
+checked before the launch), any width ``D`` and hidden width ``F`` that
+are multiples of 64 (every ViT preset's), and its scratch as one
+workspace of the size the library reports (``_workspace``). The
 backward keeps the Pallas kernel's rounding points: LN statistics recomputed from x, ``df``
 and ``dh`` cast to the compute dtype before their products, ``db1``/
 ``db2``/``dgamma``/``dbeta`` summed in f32, ``dx = dO + dx_ln`` in f32,
@@ -65,8 +69,6 @@ bwd_launches = 0
 # ... and of the MLP core's (csrc/fused_mlp_core.cu), counted apart.
 core_launches = 0
 core_bwd_launches = 0
-# Embedding widths D the kernel is instantiated for (S/16, B/16).
-SUPPORTED_DIMS = (384, 768)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
 _BWD_FN = None
@@ -186,9 +188,9 @@ def _kernel():
     if _FN is None:
         fn = _build.load("fused_mlp").vit_lnmlp_fwd
         p = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int, p, p, p, p, p, p, p, p, p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_uint32, ctypes.c_int, ctypes.c_float, p]
+        fn.argtypes = [ctypes.c_int] + [p] * 10 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_uint32, ctypes.c_int, ctypes.c_float, p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -208,7 +210,7 @@ def _bwd_kernel():
 
 
 def _workspace(lib: str, fn: str, x2, n: int, d: int, f: int):
-    """The backward's scratch: one uint8 tensor of the size the library's
+    """A kernel's scratch: one uint8 tensor of the size the library's
     ``fn`` reports for these shapes."""
     query = getattr(_build.load(lib), fn)
     query.argtypes = [ctypes.c_int] * 4
@@ -217,6 +219,15 @@ def _workspace(lib: str, fn: str, x2, n: int, d: int, f: int):
     if nbytes < 0:
         raise ValueError(f"{fn}: shapes n={n} d={d} f={f} not supported")
     return torch.empty(nbytes, dtype=torch.uint8, device=x2.device)
+
+
+def _check_widths(name: str, d: int, f: int) -> None:
+    """Raise unless the kernels' one shape constraint holds: the width D
+    and the hidden width F are multiples of 64 (the 64-column boxes of the
+    TMA maps and the f32 GEMM tiles; every ViT preset meets it)."""
+    if d % 64 or f % 64:
+        raise ValueError(f"{name} kernels need D % 64 == 0 and F % 64 == 0 "
+                         f"(width and hidden width), got D={d}, F={f}")
 
 
 def _check_operands(x2, gamma, beta, w1, w2, **rest):
@@ -228,12 +239,7 @@ def _check_operands(x2, gamma, beta, w1, w2, **rest):
     if dt not in _DTYPE_CODE:
         raise TypeError(f"fused_ln_mlp_residual kernel takes float32 or "
                         f"bfloat16, got {dt}")
-    if d not in SUPPORTED_DIMS:
-        raise ValueError(f"fused_ln_mlp_residual kernel is built for D in "
-                         f"{SUPPORTED_DIMS}, got {d}")
-    if f % 64:
-        raise ValueError(f"fused_ln_mlp_residual kernel needs mlp_size % 64 "
-                         f"== 0, got {f}")
+    _check_widths("fused_ln_mlp_residual", d, f)
     shapes = {"gamma": (d,), "beta": (d,), "w1": (d, f), "w2": (f, d),
               "b1": (f,), "b2": (d,), "h": (x2.shape[0], f),
               "dout": tuple(x2.shape)}
@@ -256,17 +262,22 @@ def _launch(x2, gamma, beta, w1, b1, w2, b2, *, eps, seed, threshold,
     ``save_h`` returns ``(out, h)``."""
     global launches
     _check_operands(x2, gamma, beta, w1, w2, b1=b1, b2=b2)
+    _build.check_aligned(x2, w1, w2)
+    _build.check_aligned(b1, b2, align=4)
     n, d = x2.shape
     f = w1.shape[1]
     out = torch.empty_like(x2)
     h = x2.new_empty((n, f)) if save_h else None
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     with torch.cuda.device(x2.device):
+        work = _workspace("fused_mlp", "vit_lnmlp_fwd_workspace", x2, n, d,
+                          f)
         err = _kernel()(_DTYPE_CODE[x2.dtype], x2.data_ptr(),
                         gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
                         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                        out.data_ptr(), h.data_ptr() if save_h else None, n,
-                        d, f, eps, seed & 0xFFFFFFFF, threshold,
+                        out.data_ptr(), h.data_ptr() if save_h else None,
+                        work.data_ptr(), work.numel(), n, d, f, eps,
+                        seed & 0xFFFFFFFF, threshold,
                         256.0 / (256.0 - threshold), stream)
     _build.check(err, "vit_lnmlp_fwd")
     launches += 1
@@ -281,7 +292,7 @@ def _launch_bwd(x2, h, gamma, beta, w1, w2, dout, *, eps, seed, threshold):
     f = w1.shape[1]
     dt = x2.dtype
     _check_operands(x2, gamma, beta, w1, w2, h=h, dout=dout)
-    _build.check_tma(x2, h, w1, w2, dout)
+    _build.check_aligned(x2, h, w1, w2, dout)
     f32 = dict(dtype=torch.float32, device=x2.device)
     dx = torch.empty_like(x2)
     dgamma, dbeta, db2 = (torch.empty(d, **f32) for _ in range(3))
@@ -432,9 +443,9 @@ def _core_kernel():
     if _CORE_FN is None:
         fn = _build.load("fused_mlp_core").vit_mlp_fwd
         p = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int] + [p] * 7 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
-            ctypes.c_int, ctypes.c_float, p]
+        fn.argtypes = [ctypes.c_int] + [p] * 8 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_uint32, ctypes.c_int, ctypes.c_float, p]
         fn.restype = ctypes.c_int
         _CORE_FN = fn
     return _CORE_FN
@@ -462,12 +473,7 @@ def _check_core(x2, w1, w2, **rest):
     if dt not in _DTYPE_CODE:
         raise TypeError(f"fused_mlp kernel takes float32 or bfloat16, got "
                         f"{dt}")
-    if d not in SUPPORTED_DIMS:
-        raise ValueError(f"fused_mlp kernel is built for D in "
-                         f"{SUPPORTED_DIMS}, got {d}")
-    if f % 64:
-        raise ValueError(f"fused_mlp kernel needs a hidden width % 64 == 0, "
-                         f"got {f}")
+    _check_widths("fused_mlp", d, f)
     shapes = {"w1": (d, f), "w2": (f, d), "b1": (f,), "b2": (d,),
               "h": (n, f), "dout": (n, d)}
     for name, t in dict(w1=w1, w2=w2, **rest).items():
@@ -487,17 +493,22 @@ def _launch_core(x2, w1, b1, w2, b2, *, seed, threshold,
     ``save_h`` returns ``(out, h)``."""
     global core_launches
     _check_core(x2, w1, w2, b1=b1, b2=b2)
+    _build.check_aligned(x2, w1, w2)
+    _build.check_aligned(b1, b2, align=4)
     n, d = x2.shape
     f = w1.shape[1]
     out = torch.empty_like(x2)
     h = x2.new_empty((n, f)) if save_h else None
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     with torch.cuda.device(x2.device):
+        work = _workspace("fused_mlp_core", "vit_mlp_fwd_workspace", x2, n,
+                          d, f)
         err = _core_kernel()(
             _DTYPE_CODE[x2.dtype], x2.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            h.data_ptr() if save_h else None, n, d, f, seed & 0xFFFFFFFF,
-            threshold, 256.0 / (256.0 - threshold), stream)
+            h.data_ptr() if save_h else None, work.data_ptr(), work.numel(),
+            n, d, f, seed & 0xFFFFFFFF, threshold,
+            256.0 / (256.0 - threshold), stream)
     _build.check(err, "vit_mlp_fwd")
     core_launches += 1
     return (out, h) if save_h else out
@@ -510,7 +521,7 @@ def _launch_core_bwd(x2, h, w1, b1, w2, dout, *, seed, threshold):
     n, d = x2.shape
     f = w1.shape[1]
     _check_core(x2, w1, w2, h=h, dout=dout)
-    _build.check_tma(x2, h, w1, w2, dout)
+    _build.check_aligned(x2, h, w1, w2, dout)
     f32 = dict(dtype=torch.float32, device=x2.device)
     dx = torch.empty_like(x2)
     dw1 = torch.empty((d, f), **f32)
@@ -609,7 +620,8 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     compute dtype. ``dropout_rate`` applies to the hidden activation when
     not ``deterministic``; ``seed`` is its int32 positional-hash seed. CPU
     tensors run the plain PyTorch version (any ``D_out``); CUDA tensors
-    launch the kernel (``D_out = D`` in ``SUPPORTED_DIMS``) or raise.
+    launch the kernels (``D_out = D``, ``D`` and ``F`` multiples of 64) or
+    raise.
     Inputs that require grad go through :class:`_MlpFunction`.
     """
     *lead, d = x.shape

@@ -7,6 +7,8 @@ and weights; the two frameworks round the products at the same points
 but accumulate in different orders).
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -79,10 +81,21 @@ def test_dot_product_attention_dispatch_matches_jax(impl):
 
 
 def test_flash_ok_only_on_cuda_and_large_logits():
+    """auto's rule in the port: flash on a CUDA tensor from T = 197 (the
+    H100 measurement, PERF.md section 5) with an instantiated head dim;
+    never on the CPU. The JAX package keeps its TPU memory rule (flash
+    only when the logits would not fit, T >= 512). A stand-in with
+    ``is_cuda`` set holds the rule without a card."""
     q = torch.zeros(1, 600, 12, 64)
     assert not tatt._flash_ok(q)            # CPU tensor
-    assert tatt._FLASH_MIN_SEQ == jatt._FLASH_MIN_SEQ
-    assert tatt._FLASH_MEMORY_BYTES == jatt._FLASH_MEMORY_BYTES
+    assert jatt._FLASH_MIN_SEQ == 512 and tatt._FLASH_MIN_SEQ == 197
+
+    def on_card(t, dh):
+        return types.SimpleNamespace(is_cuda=True, shape=(32, t, 12, dh))
+    assert tatt._flash_ok(on_card(197, 64))
+    assert tatt._flash_ok(on_card(577, 256))
+    assert not tatt._flash_ok(on_card(196, 64))
+    assert not tatt._flash_ok(on_card(257, 80))   # ViT-H/14: flash if asked
 
 
 def test_unported_forms_raise():

@@ -79,8 +79,13 @@ def test_fused_mlp_kernel_matches_plain(dev, dtype, threshold, n):
 FLASH_T = [1, 17, 63, 64, 65, 128, 197, 577]
 
 
+# Head dims: the four the kernels are built for, and ViT-H/14's 80 (run on
+# operands zero-padded to 128).
+FLASH_DH = [32, 64, 80, 128, 256]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("dh", FLASH_DH)
 @pytest.mark.parametrize("threshold", [0, 26])
 @pytest.mark.parametrize("t", FLASH_T)
 def test_flash_kernel_matches_plain(dev, t, threshold, dh, dtype):
@@ -127,11 +132,12 @@ def test_fused_mlp_bwd_kernel_matches_plain(dev, dtype, threshold, n):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", FLASH_DH)
 @pytest.mark.parametrize("threshold", [0, 26])
 @pytest.mark.parametrize("t", FLASH_T)
 def test_flash_bwd_kernels_match_plain(dev, t, threshold, dh, dtype):
-    """dq and dk/dv (bf16: wgmma + TMA; f32: SIMT) against the plain
+    """dq and dk/dv (bf16: wgmma + TMA, two consumer warpgroups; f32:
+    SIMT) against the plain
     backward, one launch per call, bitwise deterministic. At T = 1 the one
     key has P = 1 and dS = P (dP' - delta) is zero but for rounding (a kept
     key gives delta = dO . V / keep = dP', a dropped one zeroes both): dq
@@ -216,6 +222,45 @@ def test_model_on_cuda_matches_cpu_plain_path(dev):
         got = gpu(x.to(dev)).cpu()
     assert fused_mlp.launches - k1 == 2 and fa.launches - k2 == 2
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("preset", ["ViT-Ti/16", "ViT-S/16", "ViT-B/16",
+                                    "ViT-L/16", "ViT-H/14"])
+def test_every_preset_trains_fused_on_card(dev, preset):
+    """One f32 encoder layer of each preset at full width, default
+    ``mlp_impl="auto"`` and ``attention_impl="flash"`` (H/14's Dh = 80 on
+    padded operands), forward and backward with dropout on the card
+    against the same layer on the CPU through the plain versions
+    (``mlp_impl="fused"`` there: ``auto`` picks the xla MLP on the CPU,
+    whose dropout bits differ): the logits and every gradient within 1e-3
+    of their largest element."""
+    from pytorch_vit_paper_replication_tpu_torch.configs import PRESETS
+    from pytorch_vit_paper_replication_tpu_torch.convert import seeded_params
+    from pytorch_vit_paper_replication_tpu_torch.models import ViT
+    from pytorch_vit_paper_replication_tpu_torch.ops import (
+        flash_attention as fa, fused_mlp)
+    full = PRESETS[preset]()
+    cfg = full.replace(num_layers=1, image_size=4 * full.patch_size,
+                       num_classes=10, dtype="float32",
+                       attention_impl="flash", embedding_dropout=0.0)
+    x = torch.randn(2, cfg.image_size, cfg.image_size, 3,
+                    generator=torch.Generator().manual_seed(4))
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        model = ViT(cfg if device.type == "cuda" else
+                    cfg.replace(mlp_impl="fused")).train()
+        model.load_state_dict(seeded_params(cfg, 7))
+        model.to(device)
+        b1, b2 = fused_mlp.bwd_launches, fa.dkv_launches
+        logits = model(x.to(device), torch.Generator().manual_seed(1))
+        logits.square().sum().backward()
+        if device.type == "cuda":
+            assert (fused_mlp.bwd_launches - b1, fa.dkv_launches - b2) == (
+                1, 1)
+        grads.append([logits.detach().cpu()] + [
+            p.grad.cpu() for p in model.parameters()])
+    for a, c in zip(*grads):
+        assert _rel(a, c) < 1e-3
 
 
 def _split_qkv_bias(tree):
@@ -462,9 +507,55 @@ def test_tp_blocks_on_card_match_single_process(dev):
 
 # Rows 2 and 7 at ragged row counts: one row, one short of and one past a
 # 32-row pass tile, and B/16 at batch 32 (49 full 128-row GEMM tiles and a
-# 32-row one), for both widths and hidden widths the kernels take.
+# 32-row one), at every preset width (Ti 192, S 384, B 768, L 1024, H 1280)
+# with F = 4 D, and at B/16's tensor-parallel halves.
 MLP_BWD_N = [1, 31, 33, 32 * 197]
-MLP_BWD_DF = [(384, 1536), (384, 3072), (768, 1536), (768, 3072)]
+MLP_BWD_DF = [(192, 768), (384, 1536), (384, 3072), (768, 1536),
+              (768, 3072), (1024, 4096), (1280, 5120)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("threshold", [0, 26])
+@pytest.mark.parametrize("d,f", MLP_BWD_DF)
+@pytest.mark.parametrize("n", MLP_BWD_N)
+@pytest.mark.parametrize("ln", [True, False], ids=["row1", "row6"])
+def test_mlp_fwd_kernels_every_width_match_plain(dev, ln, n, d, f,
+                                                 threshold, dtype):
+    """The fused-MLP forward (row 1, LN and residual) and the MLP core
+    forward (row 6) at every preset width against their plain versions,
+    with and without the saved h: out within TOL, h within one bf16 ulp of
+    its magnitude (TOL relative), one launch per call."""
+    from pytorch_vit_paper_replication_tpu_torch.ops import fused_mlp
+    p = _mlp_args(dev, dtype, n, d, f, seed=3 * n + d + threshold)
+    if ln:
+        kw = dict(eps=1e-6, seed=-6, threshold=threshold)
+        launch, plain, counter = (fused_mlp._launch,
+                                  fused_mlp.ln_mlp_residual_plain, "launches")
+        args = p
+    else:
+        kw = dict(seed=-6, threshold=threshold)
+        launch, plain, counter = (fused_mlp._launch_core,
+                                  fused_mlp.mlp_core_plain, "core_launches")
+        args = {k: p[k] for k in ("x2", "w1", "b1", "w2", "b2")}
+    before = getattr(fused_mlp, counter)
+    with torch.inference_mode():
+        out = launch(**args, **kw)
+        out_h, h = launch(**args, **kw, save_h=True)
+        ref, h_ref = plain(**args, **kw, save_h=True)
+    assert getattr(fused_mlp, counter) == before + 2
+    assert torch.equal(out, out_h)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert _rel(h, h_ref) < TOL[dtype]
+
+
+def test_mlp_kernels_refuse_widths_off_64(dev):
+    """D and F must be multiples of 64: anything else raises before a
+    launch, naming the constraint."""
+    from pytorch_vit_paper_replication_tpu_torch.ops import fused_mlp
+    p = _mlp_args(dev, torch.bfloat16, 8, 200, 800)
+    with pytest.raises(ValueError, match="D % 64 == 0 and F % 64 == 0"):
+        fused_mlp._launch(**p, eps=1e-6, seed=0, threshold=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
