@@ -37,6 +37,29 @@ final ``ok`` line is never printed:
              timed only, never called by the port). Then rows 1, 2, 6 and
              7 at every preset width (D in PRESET_WIDTHS, F = 4 D) and
              N in WIDTH_ROWS, bf16 and f32, against their plain versions.
+2b. ops    — the kernels' whole contracts at the B/16 shapes. Its path,
+             the counts set to 0 right before and read right after:
+             ``dot_product_attention(mask=..., impl="auto")`` at
+             [32, 197, 12, 64] bf16 for every mask form of JAX's
+             ``_normalize_mask`` (MASK_FORMS: key padding, shared, per
+             head, full, per-head q-broadcast, key-broadcast with fully
+             masked rows) and a Tq = 197, Tk = 577 call, forward and
+             backward, then ``fused_ln_mlp_residual`` and ``fused_mlp`` at
+             D = 200, F = 800 with dropout: every flash and MLP kernel
+             must launch. Then rows 3-5 held to their plain versions
+             (flash bounds) at every mask form in bf16 and f32, with
+             dropout 0.1 under a mask (keep bits bit-identical to the
+             plain version's, recovered as in phase 2), at Tq != Tk
+             (197 / 577 both ways) and at Dh = 80 and 256 with the full
+             mask; query rows that attend to no key exactly 0 in out and
+             dq; device ms of rows 3-5 at T = 197 and 577 unmasked, with
+             the key-padding and with the full mask. Rows 1, 2, 6, 7 at
+             OFF64_WIDTHS x OFF64_ROWS, bf16 and f32, against their plain
+             versions (the MLP bounds), device ms beside the padded
+             width. The quantized softmax storage: ``_QuantizedSoftmaxPV``
+             on the card against the CPU (forward and backward), and
+             B/16 on the xla path with the probs in bf16, u8 and
+             fp8_e4m3, QUANT_STEPS steps + eval each, losses finite.
 3. serve   — a seeded ViT-B/16 export (1000 classes) served through
              ``InferenceEngine.from_checkpoint(..., device="cuda")`` with
              the ladder 1,8,32 and ~40 requests over the probs / features /
@@ -560,26 +583,27 @@ PRESET_WIDTHS = (192, 384, 768, 1024, 1280)
 WIDTH_ROWS = (1, 33, 32 * 197)
 
 
-def check_mlp_widths(gen, dev) -> list:
-    """Rows 1, 2, 6 and 7 at every preset width and WIDTH_ROWS, bf16 and
-    f32, dropout on (t = 26): each forward and its saved h within TOL of
-    the plain version, each backward gradient within 2e-2 (bf16) / 1e-4
-    (f32) of its largest element and bitwise equal over two launches.
-    One row per width and dtype with the largest errors over the row
-    counts."""
+def check_mlp_widths(gen, dev, widths=None, rows_n=WIDTH_ROWS,
+                     phase: str = "kernels") -> list:
+    """Rows 1, 2, 6 and 7 at ``widths`` ((D, F) pairs; every preset's, F =
+    4 D, by default) and ``rows_n``, bf16 and f32, dropout on (t = 26):
+    each forward and its saved h within TOL of the plain version at the
+    true widths, each backward gradient within 2e-2 (bf16) / 1e-4 (f32)
+    of its largest element, of the parameter's shape and bitwise equal
+    over two launches. One row per width and dtype with the largest
+    errors over the row counts."""
     import torch
     from pytorch_vit_paper_replication_tpu_torch.ops import fused_mlp
     core_keys = ("x2", "w1", "b1", "w2", "b2")
     rows = []
-    for d in PRESET_WIDTHS:
-        f = 4 * d
+    for d, f in widths or [(w, 4 * w) for w in PRESET_WIDTHS]:
         for name in ("bfloat16", "float32"):
             dtype = getattr(torch, name)
             tol_b = 2e-2 if name == "bfloat16" else 1e-4
             fwd_err = {"row1": 0.0, "row6": 0.0}
             bwd_err = {"row2": 0.0, "row7": 0.0}
             t0 = time.perf_counter()
-            for n in WIDTH_ROWS:
+            for n in rows_n:
                 p = _mlp_inputs(gen, n, d, f, dtype, dev)
                 dout = torch.randn(n, d, generator=gen).to(dev, dtype)
                 ln_kw = dict(eps=1e-6, seed=31, threshold=26)
@@ -610,19 +634,22 @@ def check_mlp_widths(gen, dev) -> list:
                         got, again = bwd(*b_args, **kw), bwd(*b_args, **kw)
                         want = bwd_plain(*b_args, **kw)
                         for a, b, c in zip(got, again, want):
+                            tag = f"{br} D={d} F={f} N={n} {name}"
                             if not torch.equal(a, b):
                                 raise AssertionError(
-                                    f"{br} D={d} N={n} {name}: backward "
-                                    "not deterministic")
+                                    f"{tag}: backward not deterministic")
+                            if a.shape != c.shape:
+                                raise AssertionError(
+                                    f"{tag}: gradient shape {a.shape}")
                             e = rel_err(a, c)
                             if e > tol_b:
                                 raise AssertionError(
-                                    f"{br} D={d} N={n} {name}: gradient "
-                                    f"off by {e} > {tol_b}")
+                                    f"{tag}: gradient off by {e} > {tol_b}")
                             bwd_err[br] = max(bwd_err[br], e)
                 torch.cuda.synchronize()
-            row = {"phase": "kernels", "check": "mlp_widths", "d": d, "f": f,
-                   "dtype": name, "rows": list(WIDTH_ROWS), "threshold": 26,
+            row = {"phase": phase, "check": "mlp_widths", "d": d, "f": f,
+                   "padded_to": [fused_mlp._padded(d), fused_mlp._padded(f)],
+                   "dtype": name, "rows": list(rows_n), "threshold": 26,
                    "fwd_max_abs_err": fwd_err, "tolerance": TOL[name],
                    "bwd_max_rel_err": bwd_err, "bwd_tolerance_rel": tol_b,
                    "deterministic": True,
@@ -875,12 +902,14 @@ def hgmma_counts() -> dict:
         fn = None
         for line in sass.splitlines():
             if "Function :" in line:
+                # flash_<kind><DH, ..., MASK> (mangled ILi64ELb1EE).
                 flash = re.search(
-                    r"(flash_(?:fwd|bwd)_[a-z0-9_]+?)(?:ILi(\d+)E|E)", line)
+                    r"(flash_(?:fwd|bwd)_[a-z0-9_]+?)I((?:L[ib]\d+E)+)E",
+                    line)
                 gemm = re.search(r"gemm_bf16ILi(\d)ELb(\d)ELb(\d)E", line)
                 if flash:
-                    fn = flash.group(1) + (f"<{flash.group(2)}>"
-                                           if flash.group(2) else "")
+                    args = re.findall(r"L[ib](\d+)E", flash.group(2))
+                    fn = f"{flash.group(1)}<{','.join(args)}>"
                 elif gemm:
                     fn = f"{lib}:gemm_bf16<{','.join(gemm.groups())}>"
                 else:
@@ -964,15 +993,24 @@ def check_flash(gen, card_peaks, dev):
     return rows
 
 
-def flash_masks(t_len, kw, dev, dh: int = 64) -> bool:
+def flash_masks(t_len, kw, dev, dh: int = 64, mask_form=None) -> bool:
     """Recover the attention keep mask by feeding ones: q = k = 0 give
     uniform weights 1/T; v = a one-hot selector of key block c (v[j, d] =
     1 iff j = Dh c + d) makes out[row, d] = keep[row, Dh c + d] / (T keep).
-    Every column block's zero pattern must match the plain version's."""
+    Every column block's zero pattern must match the plain version's. With
+    ``mask_form`` (MASK_FORMS at B = 2, H = 12) the weights are uniform
+    over the attended keys and the zeros are the dropped or masked ones;
+    the drop rate is read over the attended ones."""
     import torch
     from pytorch_vit_paper_replication_tpu_torch.ops import (
         flash_attention as fa)
     bh = 24
+    attend = None
+    if mask_form is not None:
+        m = ops_mask(torch.Generator().manual_seed(11), mask_form, t_len,
+                     t_len, dev, b=2, h=12)
+        kw = dict(kw, mask=fa.normalize_mask(m, 2, 12, t_len, t_len))
+        attend = kw["mask"].expand(bh).expand(-1, t_len, -1)
     z = torch.zeros(bh, t_len, dh, dtype=torch.bfloat16, device=dev)
     with torch.inference_mode():
         for c in range((t_len + dh - 1) // dh):
@@ -985,9 +1023,331 @@ def flash_masks(t_len, kw, dev, dh: int = 64) -> bool:
             if not torch.equal(a, b):
                 raise AssertionError("flash dropout keep mask differs from "
                                      "the plain version's")
-            if not 0.05 < a.float().mean().item() < 0.16:
+            dropped = a if attend is None else a[attend[..., cols]]
+            if not 0.05 < dropped.float().mean().item() < 0.16:
                 raise AssertionError("flash dropout rate off")
     return True
+
+
+# --------------------------------------------------------- phase 2b: ops
+# The mask forms of JAX's _normalize_mask at the B/16 shapes (B = 32,
+# H = 12, T = 197): shape with "q" / "k" for Tq / Tk.
+OPS_B, OPS_H = 32, 12
+MASK_FORMS = {"key_padding": (OPS_B, 1, 1, "k"), "shared": (1, 1, "q", "k"),
+              "per_head": (1, OPS_H, "q", "k"),
+              "full": (OPS_B, OPS_H, "q", "k"),
+              "q_bcast_per_head": (1, OPS_H, 1, "k"),
+              "key_bcast": (OPS_B, 1, "q", 1)}
+# Flash cases beyond the mask forms at (197, 197, Dh 64): (Tq, Tk, Dh,
+# mask form or None, dtype names).
+FLASH_OPS_CASES = [(197, 577, 64, None, ("bfloat16", "float32")),
+                   (577, 197, 64, None, ("bfloat16", "float32")),
+                   (197, 577, 64, "key_padding", ("bfloat16",)),
+                   (577, 197, 64, "full", ("bfloat16",)),
+                   (197, 197, 80, "full", ("bfloat16",)),
+                   (197, 197, 256, "full", ("bfloat16",))]
+# MLP widths off the kernels' multiple of 64 and the row counts.
+OFF64_WIDTHS = ((200, 800), (100, 300), (1000, 4000))
+OFF64_ROWS = (33, 32 * 197)
+# Quantized probs storage on the xla path: B/16 steps per format.
+QUANT_STEPS = 3
+
+
+def ops_mask(gen, form, tq, tk, dev, b=OPS_B, h=OPS_H):
+    """A seeded bool mask of ``form`` (70% attend; key 0 always attends
+    but in the key-broadcast form, whose rows are masked whole: about 30%
+    of the query rows of each batch attend to no key)."""
+    import torch
+    shape = [{"q": tq, "k": tk}.get(x, x) for x in MASK_FORMS[form]]
+    shape[0] = min(shape[0], b)
+    shape[1] = min(shape[1], h)
+    m = torch.rand(*shape, generator=gen) < 0.7
+    if shape[-1] > 1:
+        m[..., 0] = True
+    return m.to(dev)
+
+
+def flash_vs_plain(gen, dev, dt, tq, tk, dh, form, threshold):
+    """Rows 3-5 at ``[B*H, Tq|Tk, Dh]`` with the folded mask of ``form``
+    against the plain versions: out within TOL, lse 1e-4, each gradient
+    within TOL of its largest element, the backward bitwise deterministic;
+    query rows that attend to no key exactly 0 in out and dq. Returns the
+    row's numbers."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.ops import (
+        flash_attention as fa)
+    dtype = getattr(torch, dt)
+    bh = OPS_B * OPS_H
+    q, do = (torch.randn(bh, tq, dh, generator=gen).to(dev, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(bh, tk, dh, generator=gen).to(dev, dtype)
+            for _ in range(2))
+    mask = None if form is None else fa.normalize_mask(
+        ops_mask(gen, form, tq, tk, dev), OPS_B, OPS_H, tq, tk)
+    kw = dict(seed=515, threshold=threshold, mask=mask)
+    with torch.inference_mode():
+        out, lse = fa._launch(q, k, v, **kw)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw)
+        delta = (do.float() * ref.float()).sum(-1)
+        bwd = (q, k, v, do, ref_lse, delta)
+        dq = fa._launch_bwd_dq(*bwd, **kw)
+        dk, dv = fa._launch_bwd_dkv(*bwd, **kw)
+        again = (fa._launch_bwd_dq(*bwd, **kw), *fa._launch_bwd_dkv(*bwd,
+                                                                  **kw))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
+            raise AssertionError(f"flash backward {form} not deterministic")
+        want = fa.flash_attention_bwd_plain(*bwd, **kw)
+    tag = f"flash {dt} Tq={tq} Tk={tk} Dh={dh} mask={form} t={threshold}"
+    err = close(out, ref, TOL[dt])
+    lse_err = close(lse, ref_lse, 1e-4)
+    errs = {g: rel_err(a, c) for g, a, c in zip(("dq", "dk", "dv"),
+                                                (dq, dk, dv), want)}
+    if max(errs.values()) > TOL[dt]:
+        raise AssertionError(f"{tag}: {errs} exceed {TOL[dt]}")
+    dead = 0
+    if mask is not None:
+        alive = mask.expand(bh).expand(-1, tq, -1).any(-1)
+        dead = int((~alive).sum())
+        if out[~alive].any() or dq[~alive].any():
+            raise AssertionError(f"{tag}: rows that attend to no key are "
+                                 "not zero in out and dq")
+        if form == "key_bcast" and not dead:
+            raise AssertionError(f"{tag}: no fully masked row to check")
+    return {"dtype": dt, "q_len": tq, "kv_len": tk, "dh": dh, "mask": form,
+            "threshold": threshold, "max_abs_err": err,
+            "lse_max_abs_err": lse_err, "max_rel_err": errs,
+            "tolerance": TOL[dt], "fully_masked_rows_zero": dead,
+            "deterministic": True}
+
+
+def flash_mask_times(gen, card_peaks, dev) -> list:
+    """Device ms of rows 3, 4 and 5 (bf16, Dh 64, no dropout) at T = 197
+    and 577: unmasked, with the key-padding mask and with the full mask,
+    measured in this one run; the bound of each counts the mask's packed
+    bits, read once; the packing (``Mask.bits``, once per attention call,
+    kept for the backward) timed apart."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.ops import (
+        flash_attention as fa)
+    bf16_rate, _, hbm = card_peaks
+    b, h, dh = OPS_B, OPS_H, 64
+    rows = []
+    for t_len in (197, 577):
+        q, k, v, do = (torch.randn(b * h, t_len, dh, generator=gen).to(
+            dev, torch.bfloat16) for _ in range(4))
+        for form in (None, "key_padding", "full"):
+            mask = None if form is None else fa.normalize_mask(
+                ops_mask(gen, form, t_len, t_len, dev), b, h, t_len, t_len)
+            kw = dict(seed=1, threshold=0, mask=mask)
+            with torch.inference_mode():
+                out, lse = fa._launch(q, k, v, **kw)
+                delta = (do.float() * out.float()).sum(-1)
+                bwd = (q, k, v, do, lse, delta)
+                ms = {"fwd": device_ms(lambda: fa._launch(q, k, v, **kw)),
+                      "dq": device_ms(lambda: fa._launch_bwd_dq(*bwd, **kw)),
+                      "dkv": device_ms(
+                          lambda: fa._launch_bwd_dkv(*bwd, **kw))}
+                pack_ms = None if mask is None else time_ms(
+                    lambda: fa.Mask(mask.rows, mask.mode, h).bits(), 20)
+            elem = b * h * t_len * dh * 2
+            m_bytes = 0 if mask is None else mask.bits().numel()
+            io = {"fwd": 4 * elem + b * h * t_len * 4,
+                  "dq": 5 * elem + 2 * b * h * t_len * 4,
+                  "dkv": 6 * elem + 2 * b * h * t_len * 4}
+            flops = {"fwd": 4.0, "dq": 6.0, "dkv": 8.0}
+            bounds = {kk: bound(flops[kk] * b * h * t_len * t_len * dh,
+                                io[kk] + m_bytes, bf16_rate, hbm)
+                      for kk in ms}
+            row = {"phase": "ops", "check": "flash_mask_times", "T": t_len,
+                   "mask": form, "mask_bits_bytes": m_bytes,
+                   "device_ms": ms, "pack_ms": pack_ms,
+                   "bound_ms": {kk: bb[0] for kk, bb in bounds.items()},
+                   "bound_by": {kk: bb[1] for kk, bb in bounds.items()}}
+            emit(row)
+            rows.append(row)
+    return rows
+
+
+def off64_mlp_times(gen, dev) -> list:
+    """Device ms of rows 1, 2, 6 and 7 (bf16, N = 32 * 197, no dropout) at
+    each off-64 width and at the width its operands are padded to, the
+    wrapper's padding copies included in the off-64 times."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.ops import fused_mlp
+    n = 32 * 197
+    rows = []
+    for d0, f0 in OFF64_WIDTHS:
+        for d, f in ((d0, f0), (fused_mlp._padded(d0), fused_mlp._padded(f0))):
+            p = _mlp_inputs(gen, n, d, f, torch.bfloat16, dev)
+            dout = torch.randn(n, d, generator=gen).to(dev, torch.bfloat16)
+            core = {k: p[k] for k in ("x2", "w1", "b1", "w2", "b2")}
+            with torch.inference_mode():
+                _, h = fused_mlp._launch(**p, eps=1e-6, seed=0, threshold=0,
+                                         save_h=True)
+                ln_b = (p["x2"], h, p["gamma"], p["beta"], p["w1"], p["w2"],
+                        dout)
+                core_b = (p["x2"], h, p["w1"], p["b1"], p["w2"], dout)
+                ms = {
+                    "row1": device_ms(lambda: fused_mlp._launch(
+                        **p, eps=1e-6, seed=0, threshold=0)),
+                    "row2": device_ms(lambda: fused_mlp._launch_bwd(
+                        *ln_b, eps=1e-6, seed=0, threshold=0)),
+                    "row6": device_ms(lambda: fused_mlp._launch_core(
+                        **core, seed=0, threshold=0)),
+                    "row7": device_ms(lambda: fused_mlp._launch_core_bwd(
+                        *core_b, seed=0, threshold=0))}
+            row = {"phase": "ops", "check": "mlp_off64_times", "n": n,
+                   "d": d, "f": f, "off64": (d, f) == (d0, f0),
+                   "device_ms": ms}
+            emit(row)
+            rows.append(row)
+    return rows
+
+
+def quant_pv_card_vs_cpu(gen, dev) -> dict:
+    """``_QuantizedSoftmaxPV`` forward and backward on the card against
+    the same call on the CPU, f32 logits [2, 12, 197, 197] and v, for
+    each 8-bit format: the stored codes may differ where the card's and
+    the CPU's exp round a weight to the other side of a code boundary, so
+    the forward is held to one code step of one weight (the format's
+    largest step over [0, 1] times max |v|) and its mean error to 1e-6;
+    the gradients within 2e-3 of their largest elements."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.ops import attention
+    step = {"u8": 1 / 255, "fp8_e4m3": 2.0 ** -4, "fp8_e5m2": 2.0 ** -3}
+    logits = (torch.randn(2, 12, 197, 197, generator=gen) * 2.0)
+    v = torch.randn(2, 197, 12, 64, generator=gen)
+    g = torch.randn(2, 197, 12, 64, generator=gen)
+    out = {}
+    for pd in ("u8", "fp8_e4m3", "fp8_e5m2"):
+        res = {}
+        for where in ("cpu", "card"):
+            lg = logits.to(dev if where == "card" else "cpu").requires_grad_()
+            vv = v.to(lg.device).requires_grad_()
+            o = attention._QuantizedSoftmaxPV.apply(lg, vv, "saturating", pd,
+                                                    pd, torch.float32)
+            dl, dv = torch.autograd.grad(o, (lg, vv), g.to(lg.device))
+            res[where] = [t.detach().cpu() for t in (o, dl, dv)]
+        (o_c, dl_c, dv_c), (o_g, dl_g, dv_g) = res["cpu"], res["card"]
+        err = (o_g - o_c).abs()
+        if not (err.max() <= 1e-5 + step[pd] * v.abs().max()
+                and err.mean() <= 1e-6):
+            raise AssertionError(f"_quantized_softmax_pv {pd}: card vs CPU "
+                                 f"max {err.max()} mean {err.mean()}")
+        errs = {"dlogits": rel_err(dl_g, dl_c), "dv": rel_err(dv_g, dv_c)}
+        if max(errs.values()) > 2e-3:
+            raise AssertionError(f"_quantized_softmax_pv {pd} backward: "
+                                 f"{errs}")
+        out[pd] = {"fwd_max_abs_err": err.max().item(),
+                   "fwd_mean_abs_err": err.mean().item(),
+                   "bwd_max_rel_err": errs}
+    return out
+
+
+def quant_train(dev) -> dict:
+    """B/16 (batch 32, full depth, bf16) on the xla attention path with the
+    probs stored in bf16 (the comparator), u8 and fp8_e4m3: QUANT_STEPS
+    steps + eval each through ``engine.train``, losses finite, the fused
+    MLP kernels launched and flash never; step walls per format and the
+    device time of one profiled step after them."""
+    import statistics
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.configs import PRESETS
+    cfg = PRESETS[PRESET](num_classes=NUM_CLASSES).replace(
+        attention_impl="xla")
+    out = {}
+    for pd in ("bf16", "u8", "fp8_e4m3"):
+        metrics, results, counts, walls, state, batch = _train_run(
+            cfg.replace(attention_probs_dtype=pd), dev, QUANT_STEPS, seed=9)
+        device = profile_step(state, batch)["device_ms_total"]
+        del state
+        torch.cuda.empty_cache()
+        losses = _check_run(f"quant({pd})", metrics, counts, QUANT_STEPS,
+                            False, loss_must_fall=False)
+        out[pd] = {"losses": losses, "launches": counts,
+                   "step_ms": [w * 1e3 for w in walls],
+                   "step_ms_median_after_first": statistics.median(
+                       walls[1:]) * 1e3, "profiled_step_device_ms": device}
+    return out
+
+
+def phase_ops(gen, card_peaks, dev) -> dict:
+    """The kernels' whole contracts at the B/16 shapes (see the module
+    docstring, phase 2b); returns the flash and MLP rows by kernel for
+    the kernel list."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.ops import attention
+    from pytorch_vit_paper_replication_tpu_torch.ops import (
+        flash_attention as fa, fused_mlp)
+    t0 = time.perf_counter()
+    # The path: masked and cross-length attention through the public
+    # dispatch, off-64 MLP widths through the public MLP ops, forward and
+    # backward, the counts set to 0 right before and read right after.
+    torch.cuda.synchronize()
+    reset_counts()
+    r = lambda *s: torch.randn(*s, generator=gen).to(  # noqa: E731
+        dev, torch.bfloat16).requires_grad_()
+    q, k, v = r(OPS_B, 197, OPS_H, 64), r(OPS_B, 197, OPS_H, 64), \
+        r(OPS_B, 197, OPS_H, 64)
+    for form in MASK_FORMS:
+        out = attention.dot_product_attention(
+            q, k, v, mask=ops_mask(gen, form, 197, 197, dev))
+        out.float().square().mean().backward()
+    k2, v2 = r(OPS_B, 577, OPS_H, 64), r(OPS_B, 577, OPS_H, 64)
+    out = attention.dot_product_attention(q, k2, v2, impl="flash")
+    out.float().square().mean().backward()
+    d, f = OFF64_WIDTHS[0]
+    p = {kk: t.requires_grad_() for kk, t in _mlp_inputs(
+        gen, 33, d, f, torch.bfloat16, dev).items()}
+    y = fused_mlp.fused_ln_mlp_residual(*p.values(), dropout_rate=0.1,
+                                        seed=5, deterministic=False)
+    y = fused_mlp.fused_mlp(y, p["w1"], p["b1"], p["w2"], p["b2"],
+                            dropout_rate=0.1, seed=6, deterministic=False)
+    y.float().square().mean().backward()
+    torch.cuda.synchronize()
+    path = read_counts()
+    want = {"flash_attention": len(MASK_FORMS) + 1,
+            "flash_attention_bwd_dq": len(MASK_FORMS) + 1,
+            "flash_attention_bwd_dkv": len(MASK_FORMS) + 1,
+            "fused_ln_mlp_residual": 1, "fused_ln_mlp_residual_bwd": 1,
+            "fused_mlp_core": 1, "fused_mlp_core_bwd": 1}
+    if path != want:
+        raise AssertionError(f"ops path launches {path} != {want}")
+    del q, k, v, k2, v2, p, y, out
+    emit({"phase": "ops", "check": "path_launches", "launches": path})
+
+    flash_rows = []
+    for dt in ("bfloat16", "float32"):
+        for form in MASK_FORMS:
+            flash_rows.append(flash_vs_plain(gen, dev, dt, 197, 197, 64, form,
+                                             0))
+    flash_rows.append(flash_vs_plain(gen, dev, "bfloat16", 197, 197, 64,
+                                     "key_padding", 26))
+    flash_rows.append(flash_vs_plain(gen, dev, "bfloat16", 197, 197, 64,
+                                     "full", 26))
+    for tq, tk, dh, form, dts in FLASH_OPS_CASES:
+        for dt in dts:
+            flash_rows.append(flash_vs_plain(gen, dev, dt, tq, tk, dh, form,
+                                             0))
+    for row in flash_rows:
+        emit({"phase": "ops", "check": "flash_vs_plain", **row})
+    # The keep bits under a mask: bit-identical to the plain version's.
+    bits = flash_masks(197, dict(seed=777, threshold=26), dev,
+                       mask_form="key_padding")
+    torch.cuda.empty_cache()
+    times = flash_mask_times(gen, card_peaks, dev)
+    mlp_rows = check_mlp_widths(gen, dev, OFF64_WIDTHS, OFF64_ROWS, "ops")
+    mlp_times = off64_mlp_times(gen, dev)
+    torch.cuda.empty_cache()
+    qpv = quant_pv_card_vs_cpu(gen, dev)
+    quant = quant_train(dev)
+    emit({"phase": "ops", "check": "quantized_probs", "ok": True,
+          "pv_card_vs_cpu": qpv, "train_xla_b16": quant})
+    emit({"phase": "ops", "ok": True, "masked_keep_bits_identical": bits,
+          "seconds": round(time.perf_counter() - t0, 3)})
+    return {"flash": flash_rows, "flash_times": times, "mlp": mlp_rows,
+            "mlp_times": mlp_times, "path": path}
 
 
 # ------------------------------------------------------------- phase 3
@@ -1895,14 +2255,17 @@ KERNEL_DESIGN = {
     "fused_mlp_core": "wgmma+tma", "fused_mlp_core_bwd": "wgmma+tma"}
 
 
-def kernel_list(k_rows, launches, serve_launches, par_launches):
+def kernel_list(k_rows, launches, serve_launches, par_launches, ops):
     """The seven ported kernels with their main-path numbers: rows 1-5 at
     batch 32, bf16, dropout off, T = 197; rows 6 and 7 (the MLP core) at
     the parallel phase's per-microbatch shape (4 * 197 rows, F / tp =
     1536, bf16, t = 26). ``launches`` are the counts of the main training
     run (``auto``, which runs flash at T = 197 on the card),
     ``serve_launches`` the serve phase's, ``par_launches`` rank 0's in the
-    parallel phase (a)."""
+    parallel phase (a), ``ops`` the ops phase's result: each entry's
+    ``checked`` lists the mask forms, Tq != Tk cases, head dims and widths
+    its kernel was held to its plain version at in this run, and
+    ``ops_launches`` its launches on the ops phase's path."""
     def pick(kernel, **match):
         return next(r for r in k_rows if r.get("kernel") == kernel and all(
             r[k] == v for k, v in match.items()))
@@ -1969,6 +2332,18 @@ def kernel_list(k_rows, launches, serve_launches, par_launches):
     ]
     launches = {**launches, "fused_mlp_core": par_launches["fused_mlp_core"],
                 "fused_mlp_core_bwd": par_launches["fused_mlp_core_bwd"]}
+    flash_checked = {
+        "mask_forms": sorted({r["mask"] for r in ops["flash"]
+                              if r["mask"]}),
+        "q_kv_lens": sorted({(r["q_len"], r["kv_len"]) for r in ops["flash"]
+                             if r["q_len"] != r["kv_len"]}),
+        "head_dims": sorted({r["dh"] for r in ops["flash"]}
+                            | {c[3] for c in FLASH_CASES}),
+        "dtypes": sorted({r["dtype"] for r in ops["flash"]})}
+    mlp_checked = {"widths": [[w, 4 * w] for w in PRESET_WIDTHS]
+                   + [[r["d"], r["f"]] for r in ops["mlp"]
+                      if r["dtype"] == "bfloat16"],
+                   "dtypes": ["bfloat16", "float32"]}
     out = []
     for name, src, rep, err, row, keys, lib, gemms in rows:
         ms, plain, dev_ms, b_ms, b_by = (row[k] if k else None for k in keys)
@@ -1978,7 +2353,10 @@ def kernel_list(k_rows, launches, serve_launches, par_launches):
                  "serve_launches": serve_launches.get(name, 0),
                  "max_abs_err": err, "ms": ms, "plain_ms": plain,
                  "bound_ms": b_ms, "bound_by": b_by,
-                 "bound_share": b_ms / ms, "library_ms": lib}
+                 "bound_share": b_ms / ms, "library_ms": lib,
+                 "ops_launches": ops["path"][name],
+                 "checked": (flash_checked if name.startswith("flash")
+                             else mlp_checked)}
         if dev_ms is not None:
             entry["device_ms"] = dev_ms
         if gemms is not None:
@@ -2013,6 +2391,8 @@ def main() -> int:
         check_fused_mlp_core(gen, card_peaks, dev)
     check_mlp_widths(gen, dev)
     torch.cuda.empty_cache()
+    ops = phase_ops(gen, card_peaks, dev)
+    torch.cuda.empty_cache()
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         export, paths, serve_launches = phase_serve(root, dev)
@@ -2029,7 +2409,7 @@ def main() -> int:
                                             3)})
     print(card, flush=True)
     print(json.dumps(kernel_list(k_rows, launches, serve_launches,
-                                 par_launches)), flush=True)
+                                 par_launches, ops)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -15,11 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 
-# Storage formats of the XLA attention path's softmax weights, as the JAX
-# package's ops/quant.py names them. Only "bf16" (the compute dtype) is
-# implemented by the port so far; the others validate here and raise in
-# ops.attention.
-PROBS_DTYPES = ("bf16", "fp8_e4m3", "fp8_e5m2", "u8")
+from .ops.quant import PROBS_DTYPES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,12 +66,12 @@ class ViTConfig:
     # "exact" = the classic max-subtracted softmax. The flash path always
     # carries its own exact online softmax.
     attention_softmax: str = "saturating"
-    # Storage format of the XLA path's softmax weights. Only "bf16" (the
-    # compute dtype) is implemented by the port; the 8-bit formats are
-    # accepted here for config parity and raise in ops.attention.
+    # Storage format of the XLA path's softmax weights (ops/quant.py):
+    # "bf16" = the compute dtype, or an 8-bit format ("fp8_e4m3",
+    # "fp8_e5m2", "u8") through ops.attention._QuantizedSoftmaxPV.
     attention_probs_dtype: str = "bf16"
     # Storage format of the attention backward residual (None = follow
-    # attention_probs_dtype); training-only, kept for config parity.
+    # attention_probs_dtype).
     attention_probs_residual_dtype: str | None = None
     # Rematerialize encoder blocks in training (torch.utils.checkpoint per
     # block; the dropout seeds are drawn outside the checkpointed call).

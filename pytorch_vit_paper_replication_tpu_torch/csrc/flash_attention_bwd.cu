@@ -1,10 +1,19 @@
-// Flash-attention backward (no mask): the dq kernel and the dk/dv kernel.
+// Flash-attention backward: the dq kernel and the dk/dv kernel.
 //
 // Replace the JAX package's Pallas kernels
 // ops/flash_attention.py::_bwd_dq_kernel and ::_bwd_dkv_kernel (the two
-// pallas_calls in _flash_bwd), in their mask=None form, with positional
-// attention dropout, for head dims 32, 64, 128 and 256 (the wrapper pads
-// any other Dh up to the next of these).
+// pallas_calls in _flash_bwd): q and dO of q_len rows, k and v of kv_len
+// rows, positional attention dropout and the attention mask in every form
+// _normalize_mask folds (vit_common.cuh's FlashMask), for head dims 32, 64,
+// 128 and 256 (the wrapper pads any other Dh up to the next of these).
+//
+// The mask is a template flag of every kernel (mask=None keeps its code
+// and times): P is zeroed where the mask does not attend, as the Pallas
+// kernels zero p there, so a query row that attends to no key (lse =
+// -1e30 from the forward) gets dS = 0: zero dq, and nothing in dk or dv.
+// The mask comes packed into bits (vit_common.cuh's FlashMask): a 64-key
+// tile is one word a query row, loaded before the logit product completes
+// (only P reads it).
 //
 // Both recompute P = exp(q.k * scale - lse) from the forward's row
 // logsumexp; delta = rowsum(dO * O) is computed in f32 by the caller, as the
@@ -21,8 +30,8 @@
 // with an in-kernel loop over the other axis; nothing is carried between
 // programs, so each maps to a CUDA grid directly: one CTA per (b*h, row
 // block), no atomics, a fixed loop order: deterministic. The ragged edge:
-// keys past T give P = 0 in the dq kernel, queries past T give P = 0 in the
-// dk/dv kernel, padded rows load as zeros and are never stored.
+// keys past kv_len give P = 0 in the dq kernel, queries past q_len give
+// P = 0 in the dk/dv kernel, padded rows load as zeros and are never stored.
 //
 // bf16 — the Hopper designs (csrc/hopper.cuh): TMA tile loads of [64, Dh]
 // tiles (3-D maps (Dh, T, B*H), rows past T load as zeros) on full/empty
@@ -165,7 +174,7 @@ __device__ __forceinline__ void block_dots(const float* a0, const float* b0t,
   }
 }
 
-template <int DH, int BR>
+template <int DH, int BR, bool MASK>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_simt(const float* __restrict__ q,
                       const float* __restrict__ k,
@@ -173,8 +182,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                       const float* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dq,
-                      int t_len, float scale, uint32_t seed, int threshold,
-                      float inv_keep) {
+                      vit::FlashMask mask, int q_len, int kv_len, float scale,
+                      uint32_t seed, int threshold, float inv_keep) {
   using L = DqSmem<DH, BR>;
   constexpr int R = BR / 16, CW = DH / 16, LDP = BR + 4;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -187,26 +196,32 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BR;
-  const size_t base = static_cast<size_t>(bh) * t_len * DH;
+  const size_t qbase = static_cast<size_t>(bh) * q_len * DH;
+  const size_t kbase = static_cast<size_t>(bh) * kv_len * DH;
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
-  load_rows<DH, BR>(q + base, q_s, q0, t_len);
-  load_rows<DH, BR>(dout + base, do_s, q0, t_len);
+  load_rows<DH, BR>(q + qbase, q_s, q0, q_len);
+  load_rows<DH, BR>(dout + qbase, do_s, q0, q_len);
   float lse_r[R], dl_r[R], acc[R][CW];
+  // The mask rows of the thread's R rows (rows past q_len, never stored,
+  // read row q_len - 1).
+  const uint64_t* mrow[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int row = q0 + R * rg + i;
-    const bool in = row < t_len;
-    lse_r[i] = in ? lse[static_cast<size_t>(bh) * t_len + row] : 0.0f;
-    dl_r[i] = in ? delta[static_cast<size_t>(bh) * t_len + row] : 0.0f;
+    const bool in = row < q_len;
+    lse_r[i] = in ? lse[static_cast<size_t>(bh) * q_len + row] : 0.0f;
+    dl_r[i] = in ? delta[static_cast<size_t>(bh) * q_len + row] : 0.0f;
+    if constexpr (MASK)
+      mrow[i] = mask.row_of(bh, min(row, q_len - 1), q_len, kv_len);
 #pragma unroll
     for (int c = 0; c < CW; ++c) acc[i][c] = 0.0f;
   }
 
-  for (int k0 = 0; k0 < t_len; k0 += BR) {
+  for (int k0 = 0; k0 < kv_len; k0 += BR) {
     __syncthreads();  // previous block done with kt_s / vt_s / k_s / ds_s
-    load_rows_t<DH, BR>(k + base, kt_s, k0, t_len);
-    load_rows_t<DH, BR>(v + base, vt_s, k0, t_len);
-    load_rows<DH, BR>(k + base, k_s, k0, t_len);
+    load_rows_t<DH, BR>(k + kbase, kt_s, k0, kv_len);
+    load_rows_t<DH, BR>(v + kbase, vt_s, k0, kv_len);
+    load_rows<DH, BR>(k + kbase, k_s, k0, kv_len);
     __syncthreads();
     float s[R][R], dp[R][R];
     block_dots<DH, BR>(q_s, kt_s, do_s, vt_s, rg, cg, s, dp);
@@ -216,7 +231,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const int col = k0 + R * cg + j;
-        const float p = col < t_len ? expf(s[i][j] * scale - lse_r[i]) : 0.0f;
+        const bool a = MASK ? vit::mask_bit(mrow[i], col) : col < kv_len;
+        const float p = a ? expf(s[i][j] * scale - lse_r[i]) : 0.0f;
         float dpv = dp[i][j];
         if (threshold)
           dpv = vit::positional_keep(seed, bh, row, col, threshold)
@@ -242,14 +258,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int row = q0 + R * rg + i;
-    if (row >= t_len) continue;
-    const size_t o = base + static_cast<size_t>(row) * DH + cg * CW;
+    if (row >= q_len) continue;
+    const size_t o = qbase + static_cast<size_t>(row) * DH + cg * CW;
 #pragma unroll
     for (int c = 0; c < CW; ++c) dq[o + c] = acc[i][c];
   }
 }
 
-template <int DH, int BR>
+template <int DH, int BR, bool MASK>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_simt(const float* __restrict__ q,
                        const float* __restrict__ k,
@@ -258,7 +274,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
                        float* __restrict__ dk, float* __restrict__ dv,
-                       int t_len, float scale, uint32_t seed, int threshold,
+                       vit::FlashMask mask, int q_len, int kv_len,
+                       float scale, uint32_t seed, int threshold,
                        float inv_keep) {
   using L = DkvSmem<DH, BR>;
   constexpr int R = BR / 16, CW = DH / 16, LDP = BR + 4;
@@ -274,22 +291,27 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * BR;
-  const size_t base = static_cast<size_t>(bh) * t_len * DH;
+  const size_t qbase = static_cast<size_t>(bh) * q_len * DH;
+  const size_t kbase = static_cast<size_t>(bh) * kv_len * DH;
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;  // rg: keys
-  load_rows<DH, BR>(k + base, k_s, k0, t_len);
-  load_rows<DH, BR>(v + base, v_s, k0, t_len);
+  // The head's mask rows, query row r's words at r * mstride.
+  const uint64_t* mh = nullptr;
+  const int mstride = mask.stride(kv_len);
+  if constexpr (MASK) mh = mask.head(bh, q_len, kv_len);
+  load_rows<DH, BR>(k + kbase, k_s, k0, kv_len);
+  load_rows<DH, BR>(v + kbase, v_s, k0, kv_len);
   float dk_acc[R][CW], dv_acc[R][CW];
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < CW; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.0f;
 
-  for (int q0 = 0; q0 < t_len; q0 += BR) {
+  for (int q0 = 0; q0 < q_len; q0 += BR) {
     __syncthreads();  // previous block done with the q-side tiles
-    load_rows_t<DH, BR>(q + base, qt_s, q0, t_len);
-    load_rows_t<DH, BR>(dout + base, dot_s, q0, t_len);
-    load_rows<DH, BR>(q + base, q_s, q0, t_len);
-    load_rows<DH, BR>(dout + base, do_s, q0, t_len);
+    load_rows_t<DH, BR>(q + qbase, qt_s, q0, q_len);
+    load_rows_t<DH, BR>(dout + qbase, dot_s, q0, q_len);
+    load_rows<DH, BR>(q + qbase, q_s, q0, q_len);
+    load_rows<DH, BR>(dout + qbase, do_s, q0, q_len);
     __syncthreads();
     // st[i][j] = k_i . q_j, dpt[i][j] = v_i . dO_j (i: key, j: query)
     float st[R][R], dpt[R][R];
@@ -300,9 +322,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const int row = q0 + R * cg + j;
-        const bool in = row < t_len;
-        const size_t ri = static_cast<size_t>(bh) * t_len + row;
-        const float p = in ? expf(st[i][j] * scale - lse[ri]) : 0.0f;
+        const bool in = row < q_len;
+        bool a = in;
+        if constexpr (MASK)
+          a = a && vit::mask_bit(mh + static_cast<size_t>(row) * mstride,
+                                 key);
+        const size_t ri = static_cast<size_t>(bh) * q_len + row;
+        const float p = a ? expf(st[i][j] * scale - lse[ri]) : 0.0f;
         const float dl = in ? delta[ri] : 0.0f;
         float dpv = dpt[i][j], pd = p;
         if (threshold) {
@@ -338,8 +364,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int key = k0 + R * rg + i;
-    if (key >= t_len) continue;
-    const size_t o = base + static_cast<size_t>(key) * DH + cg * CW;
+    if (key >= kv_len) continue;
+    const size_t o = kbase + static_cast<size_t>(key) * DH + cg * CW;
 #pragma unroll
     for (int c = 0; c < CW; ++c) {
       dk[o + c] = dk_acc[i][c];
@@ -423,9 +449,9 @@ __device__ __forceinline__ void out_product(
 }
 
 // What the per-tile steps of the Dh <= 128 kernels read besides their
-// operands: the head, the scalars and the thread's place.
+// operands: the head, the lengths, the scalars and the thread's place.
 struct Step {
-  int bh, t_len, wgi, w, g, tq;
+  int bh, q_len, kv_len, wgi, w, g, tq;
   float scale, scale_log2, inv_keep;
   uint32_t seed;
   int threshold;
@@ -461,18 +487,46 @@ __device__ __forceinline__ void store_rows(
   }
 }
 
+// The dk/dv kernels' mask bits of a streamed tile of NT query rows from q0:
+// bit i of the result is element i's (accumulator layout: query row
+// q0 + 8 (i / 4) + 2 tq + i % 2, key bit kbit[(i / 2) % 2] of the row's
+// word at mw0 + row * mstride), 0 past q_len. The words of the thread's
+// NT / 4 rows load together, each serving both of its keys.
+template <int NT>
+__device__ __forceinline__ uint32_t tile_bits(const uint64_t* mw0,
+                                              int mstride, int q0, int q_len,
+                                              int tq, const int (&kbit)[2]) {
+  uint32_t att = 0;
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = q0 + 8 * j + 2 * tq + e;
+      const uint64_t w =
+          row < q_len ? __ldg(mw0 + static_cast<size_t>(row) * mstride) : 0ull;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        att |= static_cast<uint32_t>(vit::word_bit(w, kbit[h]))
+               << (4 * j + 2 * h + e);
+    }
+  return att;
+}
+
 // ------------------------------------------- dk/dv, bf16, Dh <= 128
 // One streamed q tile (NT of its rows used) for warpgroup wgi's 64 keys
 // from kb: its turn to issue S^T = K Q^T and dP^T = V dO^T, then the other
 // warpgroup's while this one waits and turns them into P_drop^T and dS^T
 // (s <- P_drop^T, dp <- dS^T in the accumulator layout), then dV +=
 // P_drop^T dO and dK += dS^T Q with A from registers and B MN-major.
-template <int DH, int NT>
+// With MASK, mw0 points at the word of the warpgroup's 64 keys in query
+// row 0, query row r's at r * mstride; the thread's key h is bit kbit[h].
+template <int DH, int NT, bool MASK>
 __device__ __forceinline__ void dkv_tile(
     float (&dk_acc)[hopper::Tile<DH>::NBOX][hopper::Tile<DH>::C / 2],
     float (&dv_acc)[hopper::Tile<DH>::NBOX][hopper::Tile<DH>::C / 2],
     uint32_t k_s, uint32_t v_s, uint32_t q_s, uint32_t do_s,
-    const float* lse_s, const float* dl_s, int kb, int q0, const Step& c) {
+    const float* lse_s, const float* dl_s, int kb, int q0, const Step& c,
+    const uint64_t* mw0, int mstride, const int (&kbit)[2]) {
   using L = hopper::Tile<DH>;
   constexpr int KS = NT / 16;
   float s[NT / 2], dp[NT / 2];
@@ -484,6 +538,12 @@ __device__ __forceinline__ void dkv_tile(
   logits<DH, NT>(dp, v_s, do_s);
   hopper::wg_commit();
   hopper::named_arrive<kConsumers>(kTurn0 + 1 - c.wgi);
+  // With a mask, bit i: element i attends. Element i's query row is
+  // 8 (i / 4) + 2 tq + i % 2 (its word loaded while the products run, 0
+  // past q_len), its key bit kbit[(i / 2) % 2].
+  const uint32_t att = MASK ? tile_bits<NT>(mw0, mstride, q0, c.q_len, c.tq,
+                                            kbit)
+                            : 0u;
   hopper::wg_wait<0>();
   hopper::fence_regs(s);
   hopper::fence_regs(dp);
@@ -495,8 +555,8 @@ __device__ __forceinline__ void dkv_tile(
     const int key = kb + 16 * c.w + c.g + 8 * ((i / 2) % 2);
     const int col = 8 * (i / 4) + 2 * c.tq + (i % 2);
     const int row = q0 + col;
-    const float p =
-        row < c.t_len ? prob(s[i], c.scale_log2, lse_s[col]) : 0.0f;
+    const bool a = MASK ? (att >> i) & 1u : row < c.q_len;
+    const float p = a ? prob(s[i], c.scale_log2, lse_s[col]) : 0.0f;
     float pd = p, dpv = dp[i];
     if (c.threshold) {
       const bool keep =
@@ -550,7 +610,7 @@ struct DkvWg2Smem {
   static constexpr int bytes = bar_off + 5 * 8 + 1024;
 };
 
-template <int DH>
+template <int DH, bool MASK>
 __global__ void __launch_bounds__(kWg2Threads, 1)
     flash_bwd_dkv_wg2(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
@@ -558,8 +618,9 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
                       const __grid_constant__ CUtensorMap map_do,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int t_len, float scale,
-                      uint32_t seed, int threshold, float inv_keep) {
+                      bf16* __restrict__ dv, vit::FlashMask mask, int q_len,
+                      int kv_len, float scale, uint32_t seed, int threshold,
+                      float inv_keep) {
   using L = hopper::Tile<DH>;
   using S = DkvWg2Smem<DH>;
   extern __shared__ unsigned char smem_raw[];
@@ -571,7 +632,7 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
 
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * 128;
-  const int nq = (t_len + 63) / 64;
+  const int nq = (q_len + 63) / 64;
   const int tid = threadIdx.x;
   const float scale_log2 = scale * kLog2e;
   if (tid == 0) {
@@ -588,9 +649,9 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
     hopper::setmaxnreg_dec<kProducerRegs>();
     if (tid >= kConsumers + 32) return;
     // Producer warp: lane 0 issues the TMA tile loads; every lane loads two
-    // of the tile's 64 lse and delta values (zero past T) and arrives.
+    // of the tile's 64 lse and delta values (zero past q_len) and arrives.
     const int lane = tid - kConsumers;
-    const size_t head = static_cast<size_t>(bh) * t_len;
+    const size_t head = static_cast<size_t>(bh) * q_len;
     if (lane == 0) {
       hopper::mbar_expect_tx(kv_full, 4 * L::BYTES);
       for (int half = 0; half < 2; ++half) {
@@ -614,8 +675,8 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
 #pragma unroll
       for (int r = lane; r < 64; r += 32) {
         const int row = it * 64 + r;
-        vec[r] = row < t_len ? lse[head + row] * kLog2e : 0.0f;
-        vec[64 + r] = row < t_len ? delta[head + row] : 0.0f;
+        vec[r] = row < q_len ? lse[head + row] * kLog2e : 0.0f;
+        vec[64 + r] = row < q_len ? delta[head + row] : 0.0f;
       }
       hopper::mbar_arrive(&qd_full[st]);
     }
@@ -628,8 +689,14 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
   const int wgi = tid / 128, t = tid % 128;
   const int w = t / 32, g = (t % 32) / 4, tq = t % 4;
   const int kb = k0 + 64 * wgi;
-  const Step c{bh, t_len, wgi, w, g, tq, scale, scale_log2, inv_keep,
-               seed, threshold};
+  const Step c{bh, q_len, kv_len, wgi, w, g, tq, scale, scale_log2,
+               inv_keep, seed, threshold};
+  // The word of the warpgroup's 64 keys in the head's query row 0, and
+  // the thread's two keys' bits in it.
+  const uint64_t* mw0 = nullptr;
+  const int mstride = mask.stride(kv_len);
+  const int kbit[2] = {16 * w + g, 16 * w + g + 8};
+  if constexpr (MASK) mw0 = mask.head(bh, q_len, kv_len) + (kb >> 6);
   const uint32_t k_s = hopper::smem_u32(smem + S::k_off + wgi * L::BYTES);
   const uint32_t v_s = hopper::smem_u32(smem + S::v_off + wgi * L::BYTES);
   float dk_acc[L::NBOX][L::C / 2], dv_acc[L::NBOX][L::C / 2];
@@ -649,18 +716,18 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
     const float* lse_s =
         reinterpret_cast<const float*>(smem + S::vec_off + st * 512);
     hopper::mbar_wait(&qd_full[st], (it >> 1) & 1);
-    if (t_len - q0 <= kTail)
-      dkv_tile<DH, kTail>(dk_acc, dv_acc, k_s, v_s, q_s, do_s, lse_s,
-                          lse_s + 64, kb, q0, c);
+    if (q_len - q0 <= kTail)
+      dkv_tile<DH, kTail, MASK>(dk_acc, dv_acc, k_s, v_s, q_s, do_s, lse_s,
+                                lse_s + 64, kb, q0, c, mw0, mstride, kbit);
     else
-      dkv_tile<DH, 64>(dk_acc, dv_acc, k_s, v_s, q_s, do_s, lse_s,
-                       lse_s + 64, kb, q0, c);
+      dkv_tile<DH, 64, MASK>(dk_acc, dv_acc, k_s, v_s, q_s, do_s, lse_s,
+                             lse_s + 64, kb, q0, c, mw0, mstride, kbit);
     hopper::mbar_arrive(&qd_empty[st]);
   }
   if (wgi == 0) hopper::named_sync<kConsumers>(kTurn0);  // 1's last turn
 
-  store_rows<DH, L::NBOX>(dk_acc, dk, bh, kb, t_len, w, g, tq, 0);
-  store_rows<DH, L::NBOX>(dv_acc, dv, bh, kb, t_len, w, g, tq, 0);
+  store_rows<DH, L::NBOX>(dk_acc, dk, bh, kb, kv_len, w, g, tq, 0);
+  store_rows<DH, L::NBOX>(dv_acc, dv, bh, kb, kv_len, w, g, tq, 0);
 }
 
 // ---------------------------------------------- dq, bf16, Dh <= 128
@@ -669,12 +736,13 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
 // P (keep dP / keep - delta) scale in the accumulator layout while the
 // other warpgroup issues, then dQ += dS K (dS from registers rounded to
 // bf16, K read MN-major).
-template <int DH, int NT>
+// With MASK, mrow[h] points at the mask words of the thread's query h.
+template <int DH, int NT, bool MASK>
 __device__ __forceinline__ void dq_tile(
     float (&dq_acc)[hopper::Tile<DH>::NBOX][hopper::Tile<DH>::C / 2],
     uint32_t q_s, uint32_t do_s, uint32_t k_s, uint32_t v_s,
     const float (&lse_r)[2], const float (&dl_r)[2], int qb, int k0,
-    const Step& c) {
+    const Step& c, const uint64_t* const (&mrow)[2]) {
   using L = hopper::Tile<DH>;
   constexpr int KS = NT / 16;
   float s[NT / 2], dp[NT / 2];
@@ -686,6 +754,13 @@ __device__ __forceinline__ void dq_tile(
   logits<DH, NT>(dp, do_s, v_s);
   hopper::wg_commit();
   hopper::named_arrive<kConsumers>(kTurn0 + 1 - c.wgi);
+  // With a mask, the tile's word of each of the two rows, loaded while the
+  // products run; element i's key is bit 8 (i / 4) + 2 tq + i % 2.
+  uint64_t mw[2] = {0, 0};
+  if constexpr (MASK) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) mw[h] = __ldg(mrow[h] + (k0 >> 6));
+  }
   hopper::wg_wait<0>();
   hopper::fence_regs(s);
   hopper::fence_regs(dp);
@@ -697,8 +772,9 @@ __device__ __forceinline__ void dq_tile(
     const int h = (i / 2) % 2;
     const int row = qb + 16 * c.w + c.g + 8 * h;
     const int col = k0 + 8 * (i / 4) + 2 * c.tq + (i % 2);
-    const float p =
-        col < c.t_len ? prob(s[i], c.scale_log2, lse_r[h]) : 0.0f;
+    const bool a =
+        MASK ? vit::tile_bit(vit::tile_bits_of(mw[h], c.tq), i) : col < c.kv_len;
+    const float p = a ? prob(s[i], c.scale_log2, lse_r[h]) : 0.0f;
     float dpv = dp[i];
     if (c.threshold)
       dpv = vit::positional_keep(c.seed, c.bh, row, col, c.threshold)
@@ -735,7 +811,7 @@ struct DqWg2Smem {
   static constexpr int bytes = bar_off + 5 * 8 + 1024;
 };
 
-template <int DH>
+template <int DH, bool MASK>
 __global__ void __launch_bounds__(kWg2Threads, 1)
     flash_bwd_dq_wg2(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
@@ -743,8 +819,8 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
                      const __grid_constant__ CUtensorMap map_do,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dq,
-                     int t_len, float scale, uint32_t seed, int threshold,
-                     float inv_keep) {
+                     vit::FlashMask mask, int q_len, int kv_len, float scale,
+                     uint32_t seed, int threshold, float inv_keep) {
   using L = hopper::Tile<DH>;
   using S = DqWg2Smem<DH>;
   extern __shared__ unsigned char smem_raw[];
@@ -756,7 +832,7 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * 128;
-  const int nk = (t_len + 63) / 64;
+  const int nk = (kv_len + 63) / 64;
   const int tid = threadIdx.x;
   const float scale_log2 = scale * kLog2e;
   if (tid == 0) {
@@ -773,10 +849,10 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
     hopper::setmaxnreg_dec<kProducerRegs>();
     if (tid >= kConsumers + 32) return;
     // Producer warp: every lane copies four of the block's 128 lse and
-    // delta values (zero past T) and arrives; lane 0 also loads the Q and
-    // dO tiles, then streams the K and V tiles through the ring.
+    // delta values (zero past q_len) and arrives; lane 0 also loads the Q
+    // and dO tiles, then streams the K and V tiles through the ring.
     const int lane = tid - kConsumers;
-    const size_t head = static_cast<size_t>(bh) * t_len;
+    const size_t head = static_cast<size_t>(bh) * q_len;
     if (lane == 0) {
       hopper::mbar_expect_tx(qd_full, 4 * L::BYTES);
       for (int half = 0; half < 2; ++half) {
@@ -790,8 +866,8 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
 #pragma unroll
     for (int r = lane; r < 128; r += 32) {
       const int row = q0 + r;
-      vec[r] = row < t_len ? lse[head + row] * kLog2e : 0.0f;
-      vec[128 + r] = row < t_len ? delta[head + row] : 0.0f;
+      vec[r] = row < q_len ? lse[head + row] * kLog2e : 0.0f;
+      vec[128 + r] = row < q_len ? delta[head + row] : 0.0f;
     }
     hopper::mbar_arrive(qd_full);
     if (lane != 0) return;
@@ -813,8 +889,17 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
   const int wgi = tid / 128, t = tid % 128;
   const int w = t / 32, g = (t % 32) / 4, tq = t % 4;
   const int qb = q0 + 64 * wgi;
-  const Step c{bh, t_len, wgi, w, g, tq, scale, scale_log2, inv_keep,
-               seed, threshold};
+  const Step c{bh, q_len, kv_len, wgi, w, g, tq, scale, scale_log2,
+               inv_keep, seed, threshold};
+  // The mask rows of the thread's two queries (rows past q_len, never
+  // stored, read row q_len - 1).
+  const uint64_t* mrow[2] = {nullptr, nullptr};
+  if constexpr (MASK) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      mrow[h] = mask.row_of(bh, min(qb + 16 * w + g + 8 * h, q_len - 1),
+                            q_len, kv_len);
+  }
   const uint32_t q_s = hopper::smem_u32(smem + S::q_off + wgi * L::BYTES);
   const uint32_t do_s = hopper::smem_u32(smem + S::do_off + wgi * L::BYTES);
   float dq_acc[L::NBOX][L::C / 2];
@@ -841,16 +926,17 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
         hopper::smem_u32(smem + S::k_off + st * 2 * L::BYTES);
     const uint32_t v_s = k_s + L::BYTES;
     hopper::mbar_wait(&kv_full[st], (it >> 1) & 1);
-    if (t_len - k0 <= kTail)
-      dq_tile<DH, kTail>(dq_acc, q_s, do_s, k_s, v_s, lse_r, dl_r, qb, k0,
-                         c);
+    if (kv_len - k0 <= kTail)
+      dq_tile<DH, kTail, MASK>(dq_acc, q_s, do_s, k_s, v_s, lse_r, dl_r, qb,
+                               k0, c, mrow);
     else
-      dq_tile<DH, 64>(dq_acc, q_s, do_s, k_s, v_s, lse_r, dl_r, qb, k0, c);
+      dq_tile<DH, 64, MASK>(dq_acc, q_s, do_s, k_s, v_s, lse_r, dl_r, qb, k0,
+                            c, mrow);
     hopper::mbar_arrive(&kv_empty[st]);
   }
   if (wgi == 0) hopper::named_sync<kConsumers>(kTurn0);  // 1's last turn
 
-  store_rows<DH, L::NBOX>(dq_acc, dq, bh, qb, t_len, w, g, tq, 0);
+  store_rows<DH, L::NBOX>(dq_acc, dq, bh, qb, q_len, w, g, tq, 0);
 }
 
 // --------------------------------------------- dk/dv, bf16, Dh = 256
@@ -869,6 +955,7 @@ struct DkvSplitSmem {
   static constexpr int bytes = bar_off + 5 * 8 + 1024;
 };
 
+template <bool MASK>
 __global__ void __launch_bounds__(kWg2Threads, 1)
     flash_bwd_dkv_split(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
@@ -877,7 +964,8 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         bf16* __restrict__ dk, bf16* __restrict__ dv,
-                        int t_len, float scale, uint32_t seed, int threshold,
+                        vit::FlashMask mask, int q_len, int kv_len,
+                        float scale, uint32_t seed, int threshold,
                         float inv_keep) {
   constexpr int DH = 256;
   using L = hopper::Tile<DH>;
@@ -892,7 +980,7 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
 
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * 64;
-  const int nq = (t_len + 63) / 64;
+  const int nq = (q_len + 63) / 64;
   const int tid = threadIdx.x;
   const float scale_log2 = scale * kLog2e;
   if (tid == 0) {
@@ -910,7 +998,7 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
     if (tid >= kConsumers + 32) return;
     // Producer warp, as in flash_bwd_dkv_wg2 with one key tile.
     const int lane = tid - kConsumers;
-    const size_t head = static_cast<size_t>(bh) * t_len;
+    const size_t head = static_cast<size_t>(bh) * q_len;
     if (lane == 0) {
       hopper::mbar_expect_tx(kv_full, 2 * L::BYTES);
       hopper::tma_load_tile<DH>(smem + S::k_off, &map_k, kv_full, k0, bh);
@@ -930,8 +1018,8 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
 #pragma unroll
       for (int r = lane; r < 64; r += 32) {
         const int row = it * 64 + r;
-        vec[r] = row < t_len ? lse[head + row] * kLog2e : 0.0f;
-        vec[64 + r] = row < t_len ? delta[head + row] : 0.0f;
+        vec[r] = row < q_len ? lse[head + row] * kLog2e : 0.0f;
+        vec[64 + r] = row < q_len ? delta[head + row] : 0.0f;
       }
       hopper::mbar_arrive(&qd_full[st]);
     }
@@ -944,6 +1032,12 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
   // Warpgroup 1: x = dP^T, dS^T from warpgroup 0's P, dK += dS^T Q.
   const int wgi = tid / 128, t = tid % 128;
   const int w = t / 32, g = (t % 32) / 4, tq = t % 4;
+  // The word of the block's 64 keys in the head's query row 0, and the
+  // thread's two keys' bits in it, as in flash_bwd_dkv_wg2.
+  const uint64_t* mw0 = nullptr;
+  const int mstride = mask.stride(kv_len);
+  const int kbit[2] = {16 * w + g, 16 * w + g + 8};
+  if constexpr (MASK) mw0 = mask.head(bh, q_len, kv_len) + (k0 >> 6);
   const uint32_t a_s = hopper::smem_u32(smem + (wgi ? S::v_off : S::k_off));
   float acc[L::NBOX][L::C / 2];
   float x[32];
@@ -969,6 +1063,11 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
     hopper::wg_fence();
     logits<DH, 64>(x, a_s, wgi ? do_s : q_s);
     hopper::wg_commit();
+    // With a mask, warpgroup 0's bit i: element i attends, as in dkv_tile.
+    uint32_t att = 0;
+    if constexpr (MASK) {
+      if (wgi == 0) att = tile_bits<64>(mw0, mstride, q0, q_len, tq, kbit);
+    }
     hopper::wg_wait<0>();
     hopper::fence_regs(x);
 
@@ -977,7 +1076,8 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int c = 8 * (i / 4) + 2 * tq + (i % 2);
-        p[i] = q0 + c < t_len ? prob(x[i], scale_log2, lse_s[c]) : 0.0f;
+        const bool a = MASK ? (att >> i) & 1u : q0 + c < q_len;
+        p[i] = a ? prob(x[i], scale_log2, lse_s[c]) : 0.0f;
       }
       hopper::named_sync<kConsumers>(kHandB);  // 1 has read the last P
 #pragma unroll
@@ -1026,7 +1126,7 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
   }
   if (wgi == 0) hopper::named_sync<kConsumers>(kHandB);  // 1's last read
 
-  store_rows<DH, L::NBOX>(acc, wgi ? dk : dv, bh, k0, t_len, w, g, tq, 0);
+  store_rows<DH, L::NBOX>(acc, wgi ? dk : dv, bh, k0, kv_len, w, g, tq, 0);
 }
 
 // ------------------------------------------------ dq, bf16, Dh = 256
@@ -1046,6 +1146,7 @@ struct DqSplitSmem {
   static constexpr int bytes = bar_off + 5 * 8 + 1024;
 };
 
+template <bool MASK>
 __global__ void __launch_bounds__(kWg2Threads, 1)
     flash_bwd_dq_split(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
@@ -1053,7 +1154,8 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
                        const __grid_constant__ CUtensorMap map_do,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta, bf16* __restrict__ dq,
-                       int t_len, float scale, uint32_t seed, int threshold,
+                       vit::FlashMask mask, int q_len, int kv_len,
+                       float scale, uint32_t seed, int threshold,
                        float inv_keep) {
   constexpr int DH = 256;
   using L = hopper::Tile<DH>;
@@ -1069,7 +1171,7 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * 64;
-  const int nk = (t_len + 63) / 64;
+  const int nk = (kv_len + 63) / 64;
   const int tid = threadIdx.x;
   const float scale_log2 = scale * kLog2e;
   if (tid == 0) {
@@ -1087,7 +1189,7 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
     if (tid >= kConsumers + 32) return;
     // Producer warp, as in flash_bwd_dq_wg2 with one query tile.
     const int lane = tid - kConsumers;
-    const size_t head = static_cast<size_t>(bh) * t_len;
+    const size_t head = static_cast<size_t>(bh) * q_len;
     if (lane == 0) {
       hopper::mbar_expect_tx(qd_full, 2 * L::BYTES);
       hopper::tma_load_tile<DH>(smem + S::q_off, &map_q, qd_full, q0, bh);
@@ -1097,8 +1199,8 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
 #pragma unroll
     for (int r = lane; r < 64; r += 32) {
       const int row = q0 + r;
-      vec[r] = row < t_len ? lse[head + row] * kLog2e : 0.0f;
-      vec[64 + r] = row < t_len ? delta[head + row] : 0.0f;
+      vec[r] = row < q_len ? lse[head + row] * kLog2e : 0.0f;
+      vec[64 + r] = row < q_len ? delta[head + row] : 0.0f;
     }
     hopper::mbar_arrive(qd_full);
     if (lane != 0) return;
@@ -1122,6 +1224,14 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
   const int wgi = tid / 128, t = tid % 128;
   const int w = t / 32, g = (t % 32) / 4, tq = t % 4;
   const uint32_t a_s = hopper::smem_u32(smem + (wgi ? S::do_off : S::q_off));
+  // The mask rows of the thread's two queries, as in flash_bwd_dq_wg2.
+  const uint64_t* mrow[2] = {nullptr, nullptr};
+  if constexpr (MASK) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      mrow[h] = mask.row_of(bh, min(q0 + 16 * w + g + 8 * h, q_len - 1),
+                            q_len, kv_len);
+  }
   float acc[2][L::C / 2];
   float x[32];
 #pragma unroll
@@ -1151,6 +1261,15 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
     hopper::wg_fence();
     logits<DH, 64>(x, a_s, wgi ? v_s : k_s);
     hopper::wg_commit();
+    // With a mask, warpgroup 0's tile word of each of its two rows, loaded
+    // while the product runs.
+    uint64_t mw[2] = {0, 0};
+    if constexpr (MASK) {
+      if (wgi == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) mw[h] = __ldg(mrow[h] + (k0 >> 6));
+      }
+    }
     hopper::wg_wait<0>();
     hopper::fence_regs(x);
 
@@ -1159,8 +1278,11 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int col = k0 + 8 * (i / 4) + 2 * tq + (i % 2);
-        xp[i * 128 + t] =
-            col < t_len ? prob(x[i], scale_log2, lse_r[(i / 2) % 2]) : 0.0f;
+        const bool a = MASK ? vit::tile_bit(vit::tile_bits_of(mw[(i / 2) % 2],
+                                                               tq),
+                                            i)
+                            : col < kv_len;
+        xp[i * 128 + t] = a ? prob(x[i], scale_log2, lse_r[(i / 2) % 2]) : 0.0f;
       }
       hopper::named_arrive<kConsumers>(kHandA);  // P ready
       hopper::named_sync<kConsumers>(kHandB);    // dS ready
@@ -1205,7 +1327,7 @@ __global__ void __launch_bounds__(kWg2Threads, 1)
     hopper::mbar_arrive(&kv_empty[st]);
   }
 
-  store_rows<DH, 2>(acc, dq, bh, q0, t_len, w, g, tq, 2 * wgi);
+  store_rows<DH, 2>(acc, dq, bh, q0, q_len, w, g, tq, 2 * wgi);
 }
 
 // -------------------------------------------------------------- launch
@@ -1213,100 +1335,100 @@ struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   void *o0, *o1;  // dq (dq kernel) or dk, dv (dk/dv kernel)
-  int bh, t_len;
+  vit::FlashMask mask;
+  int bh, q_len, kv_len;
   float scale;
   uint32_t seed;
   int threshold;
   float inv_keep;
 };
 
-template <int DH>
-cudaError_t launch_dq_simt(const Args& a, cudaStream_t s) {
-  constexpr int BR = simt_rows<DH>();
-  auto kernel = flash_bwd_dq_simt<DH, BR>;
-  const int smem = static_cast<int>(DqSmem<DH, BR>::bytes);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((a.t_len + BR - 1) / BR, a.bh), kThreads, smem, s>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(a.o0), a.t_len, a.scale, a.seed,
-      a.threshold, a.inv_keep);
-  return cudaGetLastError();
-}
-
-template <int DH>
-cudaError_t launch_dkv_simt(const Args& a, cudaStream_t s) {
-  constexpr int BR = simt_rows<DH>();
-  auto kernel = flash_bwd_dkv_simt<DH, BR>;
-  const int smem = static_cast<int>(DkvSmem<DH, BR>::bytes);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((a.t_len + BR - 1) / BR, a.bh), kThreads, smem, s>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(a.o0), static_cast<float*>(a.o1),
-      a.t_len, a.scale, a.seed, a.threshold, a.inv_keep);
-  return cudaGetLastError();
-}
-
-// Set the kernel's shared memory and launch it on the bf16 arguments.
+// Set the kernel's shared memory and launch it.
 template <typename Kernel, typename... Rest>
-cudaError_t start(Kernel kernel, int smem, dim3 grid, cudaStream_t s,
-                  Rest... rest) {
+cudaError_t start(Kernel kernel, int smem, dim3 grid, int threads,
+                  cudaStream_t s, Rest... rest) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kWg2Threads, smem, s>>>(rest...);
+  kernel<<<grid, threads, smem, s>>>(rest...);
   return cudaGetLastError();
+}
+
+template <int DH, bool MASK>
+cudaError_t launch_simt(bool dkv, const Args& a, cudaStream_t s) {
+  constexpr int BR = simt_rows<DH>();
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
+  float* o0 = static_cast<float*>(a.o0);
+  if (dkv)
+    return start(flash_bwd_dkv_simt<DH, BR, MASK>,
+                 static_cast<int>(DkvSmem<DH, BR>::bytes),
+                 dim3((a.kv_len + BR - 1) / BR, a.bh), kThreads, s, q, k, v,
+                 dout, a.lse, a.delta, o0, static_cast<float*>(a.o1), a.mask,
+                 a.q_len, a.kv_len, a.scale, a.seed, a.threshold, a.inv_keep);
+  return start(flash_bwd_dq_simt<DH, BR, MASK>,
+               static_cast<int>(DqSmem<DH, BR>::bytes),
+               dim3((a.q_len + BR - 1) / BR, a.bh), kThreads, s, q, k, v,
+               dout, a.lse, a.delta, o0, a.mask, a.q_len, a.kv_len, a.scale,
+               a.seed, a.threshold, a.inv_keep);
 }
 
 // The bf16 kernels: the two-warpgroup row split for Dh <= 128 (128 rows a
 // CTA), the work split for Dh = 256 (64 rows a CTA).
-template <int DH>
+template <int DH, bool MASK>
 cudaError_t launch_wgmma(bool dkv, const Args& a, cudaStream_t s) {
   CUtensorMap mq, mk, mv, mdo;
-  if (!hopper::make_tile_map<DH>(&mq, a.q, a.bh, a.t_len) ||
-      !hopper::make_tile_map<DH>(&mk, a.k, a.bh, a.t_len) ||
-      !hopper::make_tile_map<DH>(&mv, a.v, a.bh, a.t_len) ||
-      !hopper::make_tile_map<DH>(&mdo, a.dout, a.bh, a.t_len))
+  if (!hopper::make_tile_map<DH>(&mq, a.q, a.bh, a.q_len) ||
+      !hopper::make_tile_map<DH>(&mk, a.k, a.bh, a.kv_len) ||
+      !hopper::make_tile_map<DH>(&mv, a.v, a.bh, a.kv_len) ||
+      !hopper::make_tile_map<DH>(&mdo, a.dout, a.bh, a.q_len))
     return cudaErrorInvalidValue;
   bf16* o0 = static_cast<bf16*>(a.o0);
   bf16* o1 = static_cast<bf16*>(a.o1);
+  const int rows = DH == 256 ? 64 : 128;
+  const dim3 grid(((dkv ? a.kv_len : a.q_len) + rows - 1) / rows, a.bh);
   if constexpr (DH == 256) {
-    const dim3 grid((a.t_len + 63) / 64, a.bh);
     if (dkv)
-      return start(flash_bwd_dkv_split, DkvSplitSmem::bytes, grid, s, mq, mk,
-                   mv, mdo, a.lse, a.delta, o0, o1, a.t_len, a.scale, a.seed,
-                   a.threshold, a.inv_keep);
-    return start(flash_bwd_dq_split, DqSplitSmem::bytes, grid, s, mq, mk, mv,
-                 mdo, a.lse, a.delta, o0, a.t_len, a.scale, a.seed,
-                 a.threshold, a.inv_keep);
+      return start(flash_bwd_dkv_split<MASK>, DkvSplitSmem::bytes, grid,
+                   kWg2Threads, s, mq, mk, mv, mdo, a.lse, a.delta, o0, o1,
+                   a.mask, a.q_len, a.kv_len, a.scale, a.seed, a.threshold,
+                   a.inv_keep);
+    return start(flash_bwd_dq_split<MASK>, DqSplitSmem::bytes, grid,
+                 kWg2Threads, s, mq, mk, mv, mdo, a.lse, a.delta, o0, a.mask,
+                 a.q_len, a.kv_len, a.scale, a.seed, a.threshold, a.inv_keep);
   } else {
-    const dim3 grid((a.t_len + 127) / 128, a.bh);
     if (dkv)
-      return start(flash_bwd_dkv_wg2<DH>, DkvWg2Smem<DH>::bytes, grid, s, mq,
-                   mk, mv, mdo, a.lse, a.delta, o0, o1, a.t_len, a.scale,
-                   a.seed, a.threshold, a.inv_keep);
-    return start(flash_bwd_dq_wg2<DH>, DqWg2Smem<DH>::bytes, grid, s, mq, mk,
-                 mv, mdo, a.lse, a.delta, o0, a.t_len, a.scale, a.seed,
-                 a.threshold, a.inv_keep);
+      return start(flash_bwd_dkv_wg2<DH, MASK>, DkvWg2Smem<DH>::bytes, grid,
+                   kWg2Threads, s, mq, mk, mv, mdo, a.lse, a.delta, o0, o1,
+                   a.mask, a.q_len, a.kv_len, a.scale, a.seed, a.threshold,
+                   a.inv_keep);
+    return start(flash_bwd_dq_wg2<DH, MASK>, DqWg2Smem<DH>::bytes, grid,
+                 kWg2Threads, s, mq, mk, mv, mdo, a.lse, a.delta, o0, a.mask,
+                 a.q_len, a.kv_len, a.scale, a.seed, a.threshold, a.inv_keep);
   }
 }
 
-// bf16: the wgmma kernels; f32: the SIMT kernels.
-template <int DH>
+// bf16: the wgmma kernels; f32: the SIMT kernels; each with and without
+// the mask.
+template <int DH, bool MASK>
 cudaError_t launch(int dtype, bool dkv, const Args& a, cudaStream_t s) {
-  if (dtype == 1) return launch_wgmma<DH>(dkv, a, s);
-  if (dtype == 0)
-    return dkv ? launch_dkv_simt<DH>(a, s) : launch_dq_simt<DH>(a, s);
+  if (dtype == 1) return launch_wgmma<DH, MASK>(dkv, a, s);
+  if (dtype == 0) return launch_simt<DH, MASK>(dkv, a, s);
   return cudaErrorInvalidValue;
 }
 
+template <int DH>
+cudaError_t launch(int dtype, bool dkv, const Args& a, cudaStream_t s) {
+  return a.mask.bits ? launch<DH, true>(dtype, dkv, a, s)
+                    : launch<DH, false>(dtype, dkv, a, s);
+}
+
 int run(int dtype, int dh, bool dkv, const Args& a, void* stream) {
-  if (a.bh <= 0 || a.bh > 65535 || a.t_len <= 0)
+  if (a.bh <= 0 || a.bh > 65535 || a.q_len <= 0 || a.kv_len <= 0 ||
+      (a.mask.bits &&
+       (a.mask.mode < 0 || a.mask.mode > 3 || a.mask.heads <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
@@ -1325,30 +1447,40 @@ int run(int dtype, int dh, bool dkv, const Args& a, void* stream) {
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes). q, k, v, dout and the outputs:
-// [bh, t, dh] contiguous in dtype (0 = float32, 1 = bf16; the bf16 kernels
-// read q, k, v and dout through TMA, 16-byte aligned), dh in {32, 64, 128,
-// 256}; lse, delta: [bh, t] float32; scale the logits' (Dh^-0.5 of the
-// unpadded head dim when the caller padded). Return the cudaError_t of the
-// map encoding, attribute call or launch (0 on success).
+// Plain C entry points (loaded with ctypes). q, dout, dq: [bh, q_len, dh];
+// k, v, dk, dv: [bh, kv_len, dh]; contiguous in dtype (0 = float32, 1 =
+// bf16; the bf16 kernels read q, k, v and dout through TMA, 16-byte
+// aligned), dh in {32, 64, 128, 256}; lse, delta: [bh, q_len] float32;
+// scale the logits' (Dh^-0.5 of the unpadded head dim when the caller
+// padded). mask: null, or the folded mask's bits as vit_flash_fwd takes
+// them.
+// Return the cudaError_t of the map encoding, attribute call or launch (0
+// on success).
 extern "C" int vit_flash_bwd_dq(int dtype, const void* q, const void* k,
                                 const void* v, const void* dout,
                                 const float* lse, const float* delta, void* dq,
-                                int bh, int t_len, int dh, float scale,
-                                uint32_t seed, int threshold, float inv_keep,
-                                void* stream) {
-  const Args a{q,     k,    v,         dout,    lse, delta, dq, nullptr, bh,
-               t_len, scale, seed, threshold, inv_keep};
+                                const void* mask, int mask_mode, int heads,
+                                int q_bcast, int bh, int q_len, int kv_len,
+                                int dh, float scale, uint32_t seed,
+                                int threshold, float inv_keep, void* stream) {
+  const vit::FlashMask m{static_cast<const uint64_t*>(mask), mask_mode, heads,
+                         q_bcast};
+  const Args a{q,  k,     v,      dout,  lse,  delta,     dq,      nullptr, m,
+               bh, q_len, kv_len, scale, seed, threshold, inv_keep};
   return run(dtype, dh, false, a, stream);
 }
 
 extern "C" int vit_flash_bwd_dkv(int dtype, const void* q, const void* k,
                                  const void* v, const void* dout,
                                  const float* lse, const float* delta, void* dk,
-                                 void* dv, int bh, int t_len, int dh,
-                                 float scale, uint32_t seed, int threshold,
-                                 float inv_keep, void* stream) {
-  const Args a{q,     k,    v,         dout,    lse, delta, dk, dv, bh,
-               t_len, scale, seed, threshold, inv_keep};
+                                 void* dv, const void* mask, int mask_mode,
+                                 int heads, int q_bcast, int bh, int q_len,
+                                 int kv_len, int dh, float scale,
+                                 uint32_t seed, int threshold, float inv_keep,
+                                 void* stream) {
+  const vit::FlashMask m{static_cast<const uint64_t*>(mask), mask_mode, heads,
+                         q_bcast};
+  const Args a{q,  k,     v,      dout,  lse,  delta,     dk,      dv, m,
+               bh, q_len, kv_len, scale, seed, threshold, inv_keep};
   return run(dtype, dh, true, a, stream);
 }

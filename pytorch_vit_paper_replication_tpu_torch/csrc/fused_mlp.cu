@@ -23,7 +23,9 @@ extern "C" long long vit_lnmlp_fwd_workspace(int dtype, int n, int d, int f) {
 }
 
 // x, w1, b1, w2, b2, out and h (null: not saved) in that dtype (16-byte
-// aligned; bf16 is read through TMA); gamma, beta float32; workspace of
+// aligned; bf16 is read through TMA); gamma, beta float32; LN over the
+// first d_ln <= d columns (the wrapper zero-pads D and F to multiples of
+// 64 and passes the true D here); workspace of
 // workspace_bytes >= vit_lnmlp_fwd_workspace(...). Launches every pass on
 // `stream`; returns the first cudaError_t that is not 0, else 0.
 extern "C" int vit_lnmlp_fwd(int dtype, const void* x, const float* gamma,
@@ -31,10 +33,10 @@ extern "C" int vit_lnmlp_fwd(int dtype, const void* x, const float* gamma,
                              const void* w2, const void* b2, void* out,
                              void* h, void* workspace,
                              long long workspace_bytes, int n, int d, int f,
-                             float eps, uint32_t seed, int threshold,
-                             float inv_keep, void* stream) {
+                             int d_ln, float eps, uint32_t seed,
+                             int threshold, float inv_keep, void* stream) {
   return static_cast<int>(vit::mlp_fwd::run<true>(
       dtype, x, gamma, beta, w1, b1, w2, b2, out, h, workspace,
-      workspace_bytes, n, d, f, eps, seed, threshold, inv_keep,
+      workspace_bytes, n, d, f, d_ln, eps, seed, threshold, inv_keep,
       static_cast<cudaStream_t>(stream)));
 }

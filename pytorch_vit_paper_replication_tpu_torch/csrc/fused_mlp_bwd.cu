@@ -24,8 +24,9 @@ extern "C" long long vit_lnmlp_bwd_workspace(int dtype, int n, int d, int f) {
 }
 
 // x, dout, dx [n, d], h [n, f], w1 [d, f], w2 [f, d] in that dtype (16-byte
-// aligned; bf16 is read through TMA); gamma, beta float32; workspace of
-// workspace_bytes >= vit_lnmlp_bwd_workspace(...). The seven gradients
+// aligned; bf16 is read through TMA); gamma, beta float32; LN over the
+// first d_ln <= d columns (the true D of the zero-padded operands); workspace
+// of workspace_bytes >= vit_lnmlp_bwd_workspace(...). The seven gradients
 // leave in float32: dgamma, dbeta, db2 [d], db1 [f], dw1 [d, f],
 // dw2 [f, d]. Launches every pass on `stream`; returns the first
 // cudaError_t that is not 0, else 0.
@@ -35,11 +36,11 @@ extern "C" int vit_lnmlp_bwd(int dtype, const void* x, const void* h,
                              void* dx, float* dgamma, float* dbeta, float* dw1,
                              float* db1, float* dw2, float* db2,
                              void* workspace, long long workspace_bytes, int n,
-                             int d, int f, float eps, uint32_t seed,
+                             int d, int f, int d_ln, float eps, uint32_t seed,
                              int threshold, float inv_keep, void* stream) {
   return static_cast<int>(backward<true>(
       dtype, x, h, gamma, beta, w1, w2, dout, dx, dgamma, dbeta, dw1, db1,
-      dw2, db2, workspace, workspace_bytes, n, d, f, eps, seed, threshold,
+      dw2, db2, workspace, workspace_bytes, n, d, f, d_ln, eps, seed, threshold,
       inv_keep,
       static_cast<cudaStream_t>(stream)));
 }

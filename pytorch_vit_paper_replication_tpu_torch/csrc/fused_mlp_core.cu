@@ -43,7 +43,7 @@ extern "C" int vit_mlp_fwd(int dtype, const void* x, const void* w1,
                            void* stream) {
   return static_cast<int>(vit::mlp_fwd::run<false>(
       dtype, x, nullptr, nullptr, w1, b1, w2, b2, out, h, workspace,
-      workspace_bytes, n, d, f, 0.0f, seed, threshold, inv_keep,
+      workspace_bytes, n, d, f, d, 0.0f, seed, threshold, inv_keep,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -68,7 +68,7 @@ extern "C" int vit_mlp_bwd(int dtype, const void* x, const void* h,
   using namespace vit::mlp_bwd;
   return static_cast<int>(backward<false>(
       dtype, x, h, nullptr, nullptr, w1, w2, dout, dx, nullptr, nullptr, dw1,
-      db1, dw2, db2, workspace, workspace_bytes, n, d, f, 0.0f, seed,
+      db1, dw2, db2, workspace, workspace_bytes, n, d, f, d, 0.0f, seed,
       threshold, inv_keep,
       static_cast<cudaStream_t>(stream)));
 }

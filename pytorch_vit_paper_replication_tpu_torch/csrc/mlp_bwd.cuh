@@ -16,8 +16,8 @@
 // dtypes (bf16: the products on mlp_common.cuh's wg::gemm_bf16, wgmma with
 // TMA operands; f32: on simt::gemm_f32 and gemm_tn_f32, exact f32 FMA, no
 // TF32, which would break the 1e-4 bounds):
-//   1. ln_rows_pre (LN only): the LN statistics recomputed from x as the
-//      forward computes them, y_c = cast(LN(x)) and df_c = cast(keep1 dO /
+//   1. ln_rows_pre (LN only): the LN statistics recomputed from x (over the
+//      true width d_ln) as the forward computes them, y_c = cast(LN(x)) and df_c = cast(keep1 dO /
 //      keep) written out; without LN the GEMM operands are x and dO.
 //   2. dg = df_c W2^T ([N, D] x [D, F], W2 read transposed) with the
 //      hidden-gradient epilogue: GELU' and the drop0 keep bit of the
@@ -114,8 +114,8 @@ template <typename T, bool LN>
 __global__ void __launch_bounds__(kRowThreads)
     rows_post(const T* __restrict__ x, const float* __restrict__ gamma,
               const T* __restrict__ dout, const float* __restrict__ dy,
-              T* __restrict__ dx, Scratch sc, int n, int d, float eps,
-              uint32_t seed, int threshold, float inv_keep) {
+              T* __restrict__ dx, Scratch sc, int n, int d, int d_ln,
+              float eps, uint32_t seed, int threshold, float inv_keep) {
   const int row0 = blockIdx.x * kRowBM;
   if constexpr (LN) {
     __shared__ float mu_s[kRowBM], rstd_s[kRowBM];
@@ -125,8 +125,9 @@ __global__ void __launch_bounds__(kRowThreads)
       float mu = 0.0f, rstd = 0.0f;
       if (grow < n) {
         const size_t base = static_cast<size_t>(grow) * d;
-        row_stats(x + base, d, mu, rstd, eps);
-        // dx = dO + rstd (dxh - mean(dxh) - xh mean(dxh xh)), dxh = dy g.
+        row_stats(x + base, d_ln, mu, rstd, eps);
+        // dx = dO + rstd (dxh - mean(dxh) - xh mean(dxh xh)), dxh = dy g,
+        // the means over d_ln columns (dxh is 0 past d_ln, where g is).
         float s1 = 0.0f, s2 = 0.0f, v[kChunk], g[kChunk];
         for (int c0 = 0; c0 < d; c0 += 32 * kChunk) {
           load_chunk(x + base, c0, d, v);
@@ -140,8 +141,8 @@ __global__ void __launch_bounds__(kRowThreads)
             s2 += dxh * ((v[j] - mu) * rstd);
           }
         }
-        const float m1 = warp_sum(s1) / static_cast<float>(d);
-        const float m2 = warp_sum(s2) / static_cast<float>(d);
+        const float m1 = warp_sum(s1) / static_cast<float>(d_ln);
+        const float m2 = warp_sum(s2) / static_cast<float>(d_ln);
         for (int c0 = 0; c0 < d; c0 += 32 * kChunk) {
           float o_[kChunk];
           load_chunk(x + base, c0, d, v);
@@ -319,7 +320,7 @@ template <typename T, bool LN>
 cudaError_t passes(const T* x, const T* h, const float* gamma,
                    const float* beta, const T* w1, const T* w2, const T* dout,
                    T* dx, float* dw1, float* dw2, const Plan& p, int n, int d,
-                   int f, float eps, uint32_t seed, int threshold,
+                   int f, int d_ln, float eps, uint32_t seed, int threshold,
                    float inv_keep, cudaStream_t s) {
   constexpr bool kBf16 = sizeof(T) == 2;
   cudaError_t err;
@@ -332,7 +333,7 @@ cudaError_t passes(const T* x, const T* h, const float* gamma,
   const T* df = LN ? df_c : dout;  // fc2's output gradient
   if constexpr (LN) {
     ln_rows_pre<T, true><<<t32, kRowThreads, 0, s>>>(
-        x, gamma, beta, dout, y_c, df_c, n, d, eps, seed, threshold,
+        x, gamma, beta, dout, y_c, df_c, n, d, d_ln, eps, seed, threshold,
         inv_keep);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
@@ -362,8 +363,8 @@ cudaError_t passes(const T* x, const T* h, const float* gamma,
   }
   if (err != cudaSuccess) return err;
   rows_post<T, LN><<<t32, kRowThreads, 0, s>>>(x, gamma, dout, p.dy, dx, p.sc,
-                                               n, d, eps, seed, threshold,
-                                               inv_keep);
+                                               n, d, d_ln, eps, seed,
+                                               threshold, inv_keep);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if constexpr (!kBf16) {
     // dW1 = y^T dh_c and dW2 = g_c^T df.
@@ -404,17 +405,18 @@ inline cudaError_t reduce(const float* part, float* out, int tiles, int width,
 
 // The whole backward of either form on `stream`, scratch carved from
 // `workspace` (plan()'s size). Without LN, gamma, beta, dgamma and dbeta
-// are null. Returns the first cudaError_t that is not 0.
+// are null; with LN the statistics run over the first d_ln columns.
+// Returns the first cudaError_t that is not 0.
 template <bool LN>
 cudaError_t backward(int dtype, const void* x, const void* h,
                      const float* gamma, const float* beta, const void* w1,
                      const void* w2, const void* dout, void* dx,
                      float* dgamma, float* dbeta, float* dw1, float* db1,
                      float* dw2, float* db2, void* workspace,
-                     long long workspace_bytes, int n, int d, int f,
+                     long long workspace_bytes, int n, int d, int f, int d_ln,
                      float eps, uint32_t seed, int threshold, float inv_keep,
                      cudaStream_t s) {
-  if (!valid_shape(dtype, n, d, f)) return cudaErrorInvalidValue;
+  if (!valid_shape(dtype, n, d, f, d_ln)) return cudaErrorInvalidValue;
   Plan p;
   if (workspace_bytes <
       static_cast<long long>(plan<LN>(dtype, n, d, f, workspace, &p)))
@@ -425,14 +427,14 @@ cudaError_t backward(int dtype, const void* x, const void* h,
                 static_cast<const bf16*>(x), static_cast<const bf16*>(h),
                 gamma, beta, static_cast<const bf16*>(w1),
                 static_cast<const bf16*>(w2), static_cast<const bf16*>(dout),
-                static_cast<bf16*>(dx), dw1, dw2, p, n, d, f, eps, seed,
+                static_cast<bf16*>(dx), dw1, dw2, p, n, d, f, d_ln, eps, seed,
                 threshold, inv_keep, s)
           : passes<float, LN>(
                 static_cast<const float*>(x), static_cast<const float*>(h),
                 gamma, beta, static_cast<const float*>(w1),
                 static_cast<const float*>(w2),
                 static_cast<const float*>(dout), static_cast<float*>(dx), dw1,
-                dw2, p, n, d, f, eps, seed, threshold, inv_keep, s);
+                dw2, p, n, d, f, d_ln, eps, seed, threshold, inv_keep, s);
   if (err != cudaSuccess) return err;
   const int t32 = row_tiles(n);
   if (LN && ((err = reduce(p.sc.p_dgamma, dgamma, t32, d, s)) != cudaSuccess ||
@@ -446,7 +448,7 @@ cudaError_t backward(int dtype, const void* x, const void* h,
 // does not take).
 template <bool LN>
 long long workspace_bytes(int dtype, int n, int d, int f) {
-  if (!valid_shape(dtype, n, d, f)) return -1;
+  if (!valid_shape(dtype, n, d, f, d)) return -1;
   return static_cast<long long>(plan<LN>(dtype, n, d, f, nullptr, nullptr));
 }
 

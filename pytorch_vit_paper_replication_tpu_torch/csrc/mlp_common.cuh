@@ -4,8 +4,11 @@
 // (namespace wg), one f32 GEMM kernel on SIMT FMA (namespace simt), and the
 // elementwise epilogues both GEMMs apply in their own register layouts.
 //
-// Shapes: d and f are multiples of 64 (every ViT preset's D and F = 4 D
-// are); n, the rows, is any positive count. The products are
+// Shapes: d and f are multiples of 64 (the wrappers zero-pad any other
+// width to the next multiple, ops/fused_mlp.py); n, the rows, is any
+// positive count. The LN forms normalize over the first d_ln <= d columns
+// (the true width; the padded columns of x, gamma and beta are zero). The
+// products are
 //   forward   fc1 = y W1   ([n, d] x [d, f]) -> GELU, keep bit -> g
 //             fc2 = g W2   ([n, f] x [f, d]) -> bias, keep bit, residual
 //   backward  dg = df W2^T, dy = dh W1^T, dW1 = y^T dh, dW2 = g^T df
@@ -25,9 +28,9 @@ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 inline int row_tiles(int n) { return cdiv(n, kRowBM); }
 
 // Argument checks shared by every MLP entry point.
-inline bool valid_shape(int dtype, int n, int d, int f) {
+inline bool valid_shape(int dtype, int n, int d, int f, int d_ln) {
   return (dtype == 0 || dtype == 1) && n > 0 && d > 0 && f > 0 &&
-         d % 64 == 0 && f % 64 == 0;
+         d % 64 == 0 && f % 64 == 0 && d_ln > 0 && d_ln <= d;
 }
 
 // A warp walks a row of d columns in chunks of kChunk * 32: lane j holds
@@ -47,8 +50,9 @@ __device__ __forceinline__ void load_chunk(const T* __restrict__ row, int c0,
   }
 }
 
-// LN statistics of one row xr[0..d) (one warp): f32, a two-pass mean and
-// centred variance, lane j summing columns j, j + 32, ... in order.
+// LN statistics of one row xr[0..d) (one warp; d is the true width d_ln):
+// f32, a two-pass mean and centred variance, lane j summing columns j,
+// j + 32, ... in order.
 template <typename T>
 __device__ __forceinline__ void row_stats(const T* __restrict__ xr, int d,
                                           float& mu, float& rstd, float eps) {
@@ -72,21 +76,24 @@ __device__ __forceinline__ void row_stats(const T* __restrict__ xr, int d,
   rstd = rsqrtf(warp_sum(s2) / static_cast<float>(d) + eps);
 }
 
-// y_c = cast(LN(x)) for 32 rows per CTA, one warp per row; with DF also
-// df_c = cast(keep1 dO / keep) (the backward's fc2 output gradient).
+// y_c = cast(LN(x)) for 32 rows per CTA, one warp per row, statistics over
+// the first d_ln columns of the d-wide rows (y_c is 0 past d_ln, where gamma
+// and beta are 0); with DF also df_c = cast(keep1 dO / keep) (the
+// backward's fc2 output gradient).
 template <typename T, bool DF>
 __global__ void __launch_bounds__(kRowThreads)
     ln_rows_pre(const T* __restrict__ x, const float* __restrict__ gamma,
                 const float* __restrict__ beta, const T* __restrict__ dout,
                 T* __restrict__ y_c, T* __restrict__ df_c, int n, int d,
-                float eps, uint32_t seed, int threshold, float inv_keep) {
+                int d_ln, float eps, uint32_t seed, int threshold,
+                float inv_keep) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < kRowBM; r += kRowThreads / 32) {
     const int grow = blockIdx.x * kRowBM + r;
     if (grow >= n) break;
     const size_t base = static_cast<size_t>(grow) * d;
     float mu, rstd;
-    row_stats(x + base, d, mu, rstd, eps);
+    row_stats(x + base, d_ln, mu, rstd, eps);
     for (int c0 = 0; c0 < d; c0 += 32 * kChunk) {
       float v[kChunk], g[kChunk];
       load_chunk(x + base, c0, d, v);

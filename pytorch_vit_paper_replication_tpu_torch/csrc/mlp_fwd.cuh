@@ -12,7 +12,7 @@
 // activation goes through device memory once, in the compute dtype, and
 // each pass is a GEMM the card runs at its tensor-core rate:
 //   1. (LN) ln_rows_pre: y_c = cast(LN(x)), f32 statistics (two-pass mean
-//      and centred variance), one warp per row, any D;
+//      and centred variance) over the true width d_ln, one warp per row;
 //   2. fc1 = y W1 ([N, D] x [D, F]; y read K-major, W1 MN-major) with the
 //      kFc1 epilogue: + b1 in f32, h saved in the compute dtype, A&S erf
 //      GELU, hidden keep bit (tag 0, the element's (row, hidden column)),
@@ -66,15 +66,15 @@ inline size_t plan(int dtype, int n, int d, int f, void* base, Plan* p) {
 template <typename T, bool LN>
 cudaError_t passes(const T* x, const float* gamma, const float* beta,
                    const T* w1, const T* b1, const T* w2, const T* b2, T* out,
-                   T* h_out, const Plan& p, int n, int d, int f, float eps,
-                   uint32_t seed, int threshold, float inv_keep,
+                   T* h_out, const Plan& p, int n, int d, int f, int d_ln,
+                   float eps, uint32_t seed, int threshold, float inv_keep,
                    cudaStream_t s) {
   cudaError_t err;
   T* y_c = static_cast<T*>(p.y_c);
   T* g = static_cast<T*>(p.g);
   if constexpr (LN) {
     ln_rows_pre<T, false><<<row_tiles(n), kRowThreads, 0, s>>>(
-        x, gamma, beta, nullptr, y_c, nullptr, n, d, eps, 0u, 0, 1.0f);
+        x, gamma, beta, nullptr, y_c, nullptr, n, d, d_ln, eps, 0u, 0, 1.0f);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   const T* y = LN ? y_c : x;
@@ -106,15 +106,15 @@ cudaError_t passes(const T* x, const float* gamma, const float* beta,
 
 // The whole forward of either form on `s`, scratch carved from
 // `workspace` (plan()'s size). dtype: 0 = float32, 1 = bf16. gamma/beta
-// are read only when LN.
+// are read only when LN, which normalizes over the first d_ln columns.
 template <bool LN>
 cudaError_t run(int dtype, const void* x, const float* gamma,
                 const float* beta, const void* w1, const void* b1,
                 const void* w2, const void* b2, void* out, void* h,
                 void* workspace, long long workspace_bytes, int n, int d,
-                int f, float eps, uint32_t seed, int threshold,
+                int f, int d_ln, float eps, uint32_t seed, int threshold,
                 float inv_keep, cudaStream_t s) {
-  if (!valid_shape(dtype, n, d, f)) return cudaErrorInvalidValue;
+  if (!valid_shape(dtype, n, d, f, d_ln)) return cudaErrorInvalidValue;
   Plan p;
   if (workspace_bytes <
       static_cast<long long>(plan<LN>(dtype, n, d, f, workspace, &p)))
@@ -124,20 +124,21 @@ cudaError_t run(int dtype, const void* x, const float* gamma,
         static_cast<const bf16*>(x), gamma, beta, static_cast<const bf16*>(w1),
         static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
         static_cast<const bf16*>(b2), static_cast<bf16*>(out),
-        static_cast<bf16*>(h), p, n, d, f, eps, seed, threshold, inv_keep, s);
+        static_cast<bf16*>(h), p, n, d, f, d_ln, eps, seed, threshold,
+        inv_keep, s);
   return passes<float, LN>(
       static_cast<const float*>(x), gamma, beta,
       static_cast<const float*>(w1), static_cast<const float*>(b1),
       static_cast<const float*>(w2), static_cast<const float*>(b2),
-      static_cast<float*>(out), static_cast<float*>(h), p, n, d, f, eps, seed,
-      threshold, inv_keep, s);
+      static_cast<float*>(out), static_cast<float*>(h), p, n, d, f, d_ln, eps,
+      seed, threshold, inv_keep, s);
 }
 
 // Bytes of workspace run<LN> needs for these shapes (-1: shapes it does
 // not take).
 template <bool LN>
 long long workspace_bytes(int dtype, int n, int d, int f) {
-  if (!valid_shape(dtype, n, d, f)) return -1;
+  if (!valid_shape(dtype, n, d, f, d)) return -1;
   return static_cast<long long>(plan<LN>(dtype, n, d, f, nullptr, nullptr));
 }
 

@@ -24,9 +24,15 @@ Training: when an input requires grad the wrapper goes through
 :func:`ln_mlp_residual_bwd_plain` on CPU tensors. In bf16 the backward's
 four products run on Hopper's wgmma with operands loaded by TMA. Every
 kernel takes 16-byte aligned operands (TMA in bf16, vector loads in f32;
-checked before the launch), any width ``D`` and hidden width ``F`` that
-are multiples of 64 (every ViT preset's), and its scratch as one
-workspace of the size the library reports (``_workspace``). The
+checked before the launch), a width ``D`` and hidden width ``F`` that
+are multiples of 64, and its scratch as one workspace of the size the
+library reports (``_workspace``). Any other ``D`` or ``F`` runs on
+operands zero-padded to the next multiple of 64 (:func:`_pad_operands`):
+the padded columns of x, W1, b1, W2, b2, gamma and beta are zero, so the
+padded hidden columns carry ``GELU(0) = 0`` and the padded output columns
+0; the LN statistics run over the true ``D`` (the C entry points take it
+beside the padded width); the keep bits hash (row, column) and so stay
+those of the real elements; every output and gradient is sliced back. The
 backward keeps the Pallas kernel's rounding points: LN statistics recomputed from x, ``df``
 and ``dh`` cast to the compute dtype before their products, ``db1``/
 ``db2``/``dgamma``/``dbeta`` summed in f32, ``dx = dO + dx_ln`` in f32,
@@ -188,8 +194,8 @@ def _kernel():
     if _FN is None:
         fn = _build.load("fused_mlp").vit_lnmlp_fwd
         p = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int] + [p] * 10 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        fn.argtypes = [ctypes.c_int] + [p] * 10 + [ctypes.c_longlong] + [
+            ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_uint32, ctypes.c_int, ctypes.c_float, p]
         fn.restype = ctypes.c_int
         _FN = fn
@@ -201,8 +207,8 @@ def _bwd_kernel():
     if _BWD_FN is None:
         fn = _build.load("fused_mlp_bwd").vit_lnmlp_bwd
         p = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int] + [p] * 15 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        fn.argtypes = [ctypes.c_int] + [p] * 15 + [ctypes.c_longlong] + [
+            ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_uint32, ctypes.c_int, ctypes.c_float, p]
         fn.restype = ctypes.c_int
         _BWD_FN = fn
@@ -221,13 +227,30 @@ def _workspace(lib: str, fn: str, x2, n: int, d: int, f: int):
     return torch.empty(nbytes, dtype=torch.uint8, device=x2.device)
 
 
-def _check_widths(name: str, d: int, f: int) -> None:
-    """Raise unless the kernels' one shape constraint holds: the width D
-    and the hidden width F are multiples of 64 (the 64-column boxes of the
-    TMA maps and the f32 GEMM tiles; every ViT preset meets it)."""
-    if d % 64 or f % 64:
-        raise ValueError(f"{name} kernels need D % 64 == 0 and F % 64 == 0 "
-                         f"(width and hidden width), got D={d}, F={f}")
+def _padded(width: int) -> int:
+    """The width the kernels run for ``width``: the next multiple of 64
+    (the 64-column boxes of the TMA maps and the f32 GEMM tiles)."""
+    return -(-width // 64) * 64
+
+
+def _pad_operands(d: int, f: int, **tensors):
+    """The operands zero-padded to the kernels' widths (``D`` and ``F`` to
+    :func:`_padded`): returns ``{name: tensor}`` in the order given.
+    Each name says which axes are ``D`` and which ``F``: rows (``x2``,
+    ``dout`` ``[N, D]``, ``h`` ``[N, F]``), ``w1`` ``[D, F]``, ``w2`` ``[F,
+    D]`` and the vectors (``gamma``, ``beta``, ``b2`` ``[D]``, ``b1``
+    ``[F]``). Unchanged when both widths are multiples of 64."""
+    dp, fp = _padded(d), _padded(f)
+    axes = {"x2": (None, dp), "dout": (None, dp), "h": (None, fp),
+            "w1": (dp, fp), "w2": (fp, dp), "gamma": (dp,), "beta": (dp,),
+            "b2": (dp,), "b1": (fp,)}
+    out = {}
+    for name, t in tensors.items():
+        pad = []
+        for size, want in zip(reversed(t.shape), reversed(axes[name])):
+            pad += [0, 0 if want is None else want - size]
+        out[name] = (torch.nn.functional.pad(t, pad) if any(pad) else t)
+    return out
 
 
 def _check_operands(x2, gamma, beta, w1, w2, **rest):
@@ -239,7 +262,6 @@ def _check_operands(x2, gamma, beta, w1, w2, **rest):
     if dt not in _DTYPE_CODE:
         raise TypeError(f"fused_ln_mlp_residual kernel takes float32 or "
                         f"bfloat16, got {dt}")
-    _check_widths("fused_ln_mlp_residual", d, f)
     shapes = {"gamma": (d,), "beta": (d,), "w1": (d, f), "w2": (f, d),
               "b1": (f,), "b2": (d,), "h": (x2.shape[0], f),
               "dout": tuple(x2.shape)}
@@ -256,32 +278,45 @@ def _check_operands(x2, gamma, beta, w1, w2, **rest):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _sliced(t: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``t`` cut back to ``shape`` (the true widths), contiguous."""
+    if tuple(t.shape) == shape:
+        return t
+    return t[tuple(slice(0, s) for s in shape)].contiguous()
+
+
 def _launch(x2, gamma, beta, w1, b1, w2, b2, *, eps, seed, threshold,
             save_h: bool = False):
-    """Validate and launch the forward kernel on ``[N, D]`` rows; with
-    ``save_h`` returns ``(out, h)``."""
+    """Validate and launch the forward kernel on ``[N, D]`` rows (any
+    ``D`` and ``F``, padded as the module docstring says); with ``save_h``
+    returns ``(out, h)``."""
     global launches
     _check_operands(x2, gamma, beta, w1, w2, b1=b1, b2=b2)
-    _build.check_aligned(x2, w1, w2)
-    _build.check_aligned(b1, b2, align=4)
     n, d = x2.shape
     f = w1.shape[1]
-    out = torch.empty_like(x2)
-    h = x2.new_empty((n, f)) if save_h else None
+    p = _pad_operands(d, f, x2=x2, gamma=gamma, beta=beta, w1=w1, b1=b1,
+                      w2=w2, b2=b2)
+    _build.check_aligned(p["x2"], p["w1"], p["w2"])
+    _build.check_aligned(p["b1"], p["b2"], align=4)
+    dp, fp = _padded(d), _padded(f)
+    out = p["x2"].new_empty((n, dp))
+    h = x2.new_empty((n, fp)) if save_h else None
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     with torch.cuda.device(x2.device):
-        work = _workspace("fused_mlp", "vit_lnmlp_fwd_workspace", x2, n, d,
-                          f)
-        err = _kernel()(_DTYPE_CODE[x2.dtype], x2.data_ptr(),
-                        gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
-                        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        work = _workspace("fused_mlp", "vit_lnmlp_fwd_workspace", x2, n, dp,
+                          fp)
+        err = _kernel()(_DTYPE_CODE[x2.dtype], p["x2"].data_ptr(),
+                        p["gamma"].data_ptr(), p["beta"].data_ptr(),
+                        p["w1"].data_ptr(), p["b1"].data_ptr(),
+                        p["w2"].data_ptr(), p["b2"].data_ptr(),
                         out.data_ptr(), h.data_ptr() if save_h else None,
-                        work.data_ptr(), work.numel(), n, d, f, eps,
+                        work.data_ptr(), work.numel(), n, dp, fp, d, eps,
                         seed & 0xFFFFFFFF, threshold,
                         256.0 / (256.0 - threshold), stream)
     _build.check(err, "vit_lnmlp_fwd")
     launches += 1
-    return (out, h) if save_h else out
+    out = _sliced(out, n, d)
+    return (out, _sliced(h, n, f)) if save_h else out
 
 
 def _launch_bwd(x2, h, gamma, beta, w1, w2, dout, *, eps, seed, threshold):
@@ -292,29 +327,34 @@ def _launch_bwd(x2, h, gamma, beta, w1, w2, dout, *, eps, seed, threshold):
     f = w1.shape[1]
     dt = x2.dtype
     _check_operands(x2, gamma, beta, w1, w2, h=h, dout=dout)
-    _build.check_aligned(x2, h, w1, w2, dout)
+    p = _pad_operands(d, f, x2=x2, h=h, gamma=gamma, beta=beta, w1=w1,
+                      w2=w2, dout=dout)
+    _build.check_aligned(p["x2"], p["h"], p["w1"], p["w2"], p["dout"])
+    dp, fp = _padded(d), _padded(f)
     f32 = dict(dtype=torch.float32, device=x2.device)
-    dx = torch.empty_like(x2)
-    dgamma, dbeta, db2 = (torch.empty(d, **f32) for _ in range(3))
-    db1 = torch.empty(f, **f32)
-    dw1 = torch.empty((d, f), **f32)
-    dw2 = torch.empty((f, d), **f32)
+    dx = x2.new_empty((n, dp))
+    dgamma, dbeta, db2 = (torch.empty(dp, **f32) for _ in range(3))
+    db1 = torch.empty(fp, **f32)
+    dw1 = torch.empty((dp, fp), **f32)
+    dw2 = torch.empty((fp, dp), **f32)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     with torch.cuda.device(x2.device):
         work = _workspace("fused_mlp_bwd", "vit_lnmlp_bwd_workspace", x2, n,
-                          d, f)
+                          dp, fp)
         err = _bwd_kernel()(
-            _DTYPE_CODE[dt], x2.data_ptr(), h.data_ptr(), gamma.data_ptr(),
-            beta.data_ptr(), w1.data_ptr(), w2.data_ptr(), dout.data_ptr(),
+            _DTYPE_CODE[dt], *(p[k].data_ptr() for k in (
+                "x2", "h", "gamma", "beta", "w1", "w2", "dout")),
             dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
             dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-            work.data_ptr(), work.numel(), n, d, f, eps, seed & 0xFFFFFFFF,
-            threshold, 256.0 / (256.0 - threshold), stream)
+            work.data_ptr(), work.numel(), n, dp, fp, d, eps,
+            seed & 0xFFFFFFFF, threshold, 256.0 / (256.0 - threshold),
+            stream)
     _build.check(err, "vit_lnmlp_bwd")
     bwd_launches += 1
-    return (dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
-            dw1.to(w1.dtype), db1.to(w1.dtype), dw2.to(w2.dtype),
-            db2.to(w2.dtype))
+    return (_sliced(dx, n, d), _sliced(dgamma, d).to(gamma.dtype),
+            _sliced(dbeta, d).to(beta.dtype), _sliced(dw1, d, f).to(w1.dtype),
+            _sliced(db1, f).to(w1.dtype), _sliced(dw2, f, d).to(w2.dtype),
+            _sliced(db2, d).to(w2.dtype))
 
 
 class _LnMlpFunction(torch.autograd.Function):
@@ -473,7 +513,6 @@ def _check_core(x2, w1, w2, **rest):
     if dt not in _DTYPE_CODE:
         raise TypeError(f"fused_mlp kernel takes float32 or bfloat16, got "
                         f"{dt}")
-    _check_widths("fused_mlp", d, f)
     shapes = {"w1": (d, f), "w2": (f, d), "b1": (f,), "b2": (d,),
               "h": (n, f), "dout": (n, d)}
     for name, t in dict(w1=w1, w2=w2, **rest).items():
@@ -493,25 +532,28 @@ def _launch_core(x2, w1, b1, w2, b2, *, seed, threshold,
     ``save_h`` returns ``(out, h)``."""
     global core_launches
     _check_core(x2, w1, w2, b1=b1, b2=b2)
-    _build.check_aligned(x2, w1, w2)
-    _build.check_aligned(b1, b2, align=4)
     n, d = x2.shape
     f = w1.shape[1]
-    out = torch.empty_like(x2)
-    h = x2.new_empty((n, f)) if save_h else None
+    p = _pad_operands(d, f, x2=x2, w1=w1, b1=b1, w2=w2, b2=b2)
+    _build.check_aligned(p["x2"], p["w1"], p["w2"])
+    _build.check_aligned(p["b1"], p["b2"], align=4)
+    dp, fp = _padded(d), _padded(f)
+    out = x2.new_empty((n, dp))
+    h = x2.new_empty((n, fp)) if save_h else None
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     with torch.cuda.device(x2.device):
         work = _workspace("fused_mlp_core", "vit_mlp_fwd_workspace", x2, n,
-                          d, f)
+                          dp, fp)
         err = _core_kernel()(
-            _DTYPE_CODE[x2.dtype], x2.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[x2.dtype], *(p[k].data_ptr() for k in (
+                "x2", "w1", "b1", "w2", "b2")), out.data_ptr(),
             h.data_ptr() if save_h else None, work.data_ptr(), work.numel(),
-            n, d, f, seed & 0xFFFFFFFF, threshold,
+            n, dp, fp, seed & 0xFFFFFFFF, threshold,
             256.0 / (256.0 - threshold), stream)
     _build.check(err, "vit_mlp_fwd")
     core_launches += 1
-    return (out, h) if save_h else out
+    out = _sliced(out, n, d)
+    return (out, _sliced(h, n, f)) if save_h else out
 
 
 def _launch_core_bwd(x2, h, w1, b1, w2, dout, *, seed, threshold):
@@ -521,27 +563,30 @@ def _launch_core_bwd(x2, h, w1, b1, w2, dout, *, seed, threshold):
     n, d = x2.shape
     f = w1.shape[1]
     _check_core(x2, w1, w2, h=h, dout=dout)
-    _build.check_aligned(x2, h, w1, w2, dout)
+    p = _pad_operands(d, f, x2=x2, h=h, w1=w1, w2=w2, dout=dout)
+    _build.check_aligned(*p.values())
+    dp, fp = _padded(d), _padded(f)
     f32 = dict(dtype=torch.float32, device=x2.device)
-    dx = torch.empty_like(x2)
-    dw1 = torch.empty((d, f), **f32)
-    dw2 = torch.empty((f, d), **f32)
-    db1 = torch.empty(f, **f32)
-    db2 = torch.empty(d, **f32)
+    dx = x2.new_empty((n, dp))
+    dw1 = torch.empty((dp, fp), **f32)
+    dw2 = torch.empty((fp, dp), **f32)
+    db1 = torch.empty(fp, **f32)
+    db2 = torch.empty(dp, **f32)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     with torch.cuda.device(x2.device):
         work = _workspace("fused_mlp_core", "vit_mlp_bwd_workspace", x2, n,
-                          d, f)
+                          dp, fp)
         err = _core_bwd_kernel()(
-            _DTYPE_CODE[x2.dtype], x2.data_ptr(), h.data_ptr(),
-            w1.data_ptr(), w2.data_ptr(), dout.data_ptr(), dx.data_ptr(),
-            dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-            work.data_ptr(), work.numel(), n, d, f, seed & 0xFFFFFFFF,
-            threshold, 256.0 / (256.0 - threshold), stream)
+            _DTYPE_CODE[x2.dtype], *(t.data_ptr() for t in p.values()),
+            dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
+            db2.data_ptr(), work.data_ptr(), work.numel(), n, dp, fp,
+            seed & 0xFFFFFFFF, threshold, 256.0 / (256.0 - threshold),
+            stream)
     _build.check(err, "vit_mlp_bwd")
     core_bwd_launches += 1
-    return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
-            db2.to(dout.dtype))
+    return (_sliced(dx, n, d), _sliced(dw1, d, f).to(w1.dtype),
+            _sliced(db1, f).to(b1.dtype), _sliced(dw2, f, d).to(w2.dtype),
+            _sliced(db2, d).to(dout.dtype))
 
 
 def _launch_gemm(a: torch.Tensor, b: torch.Tensor, form: str,
@@ -620,8 +665,7 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     compute dtype. ``dropout_rate`` applies to the hidden activation when
     not ``deterministic``; ``seed`` is its int32 positional-hash seed. CPU
     tensors run the plain PyTorch version (any ``D_out``); CUDA tensors
-    launch the kernels (``D_out = D``, ``D`` and ``F`` multiples of 64) or
-    raise.
+    launch the kernels (``D_out = D``, any ``D`` and ``F``) or raise.
     Inputs that require grad go through :class:`_MlpFunction`.
     """
     *lead, d = x.shape

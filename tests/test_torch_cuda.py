@@ -549,13 +549,181 @@ def test_mlp_fwd_kernels_every_width_match_plain(dev, ln, n, d, f,
     assert _rel(h, h_ref) < TOL[dtype]
 
 
-def test_mlp_kernels_refuse_widths_off_64(dev):
-    """D and F must be multiples of 64: anything else raises before a
-    launch, naming the constraint."""
+# Widths off the kernels' multiple of 64 (run on zero-padded operands):
+# rows of 16-byte pitch (200, 800), of none (100, 300), and a wide pair
+# whose padded F is not 4 D (1000 -> 1024, 4000 -> 4032).
+MLP_OFF64_DF = [(200, 800), (100, 300), (1000, 4000)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("threshold", [0, 26])
+@pytest.mark.parametrize("d,f", MLP_OFF64_DF)
+@pytest.mark.parametrize("n", [1, 33])
+@pytest.mark.parametrize("ln", [True, False], ids=["rows12", "rows67"])
+def test_mlp_kernels_off_64_widths_match_plain(dev, ln, n, d, f, threshold,
+                                               dtype):
+    """Rows 1 and 2 (LN forms, the LN statistics over the true D) and rows
+    6 and 7 at widths that are no multiple of 64: forward, saved h and
+    every gradient against the plain versions at the true widths, each
+    wrapper launching its kernel once per call, gradients bitwise equal
+    over two launches and of the parameters' shapes."""
     from pytorch_vit_paper_replication_tpu_torch.ops import fused_mlp
-    p = _mlp_args(dev, torch.bfloat16, 8, 200, 800)
-    with pytest.raises(ValueError, match="D % 64 == 0 and F % 64 == 0"):
-        fused_mlp._launch(**p, eps=1e-6, seed=0, threshold=0)
+    p = _mlp_args(dev, dtype, n, d, f, seed=n + d + threshold)
+    dout = torch.randn(n, d, generator=torch.Generator().manual_seed(n)).to(
+        dev, dtype)
+    if ln:
+        kw = dict(eps=1e-6, seed=-8, threshold=threshold)
+        args = p
+        fwd, fwd_plain = fused_mlp._launch, fused_mlp.ln_mlp_residual_plain
+        bwd, bwd_plain = (fused_mlp._launch_bwd,
+                          fused_mlp.ln_mlp_residual_bwd_plain)
+        counters = ("launches", "bwd_launches")
+        bwd_args = lambda h: (p["x2"], h, p["gamma"], p["beta"],  # noqa
+                              p["w1"], p["w2"], dout)
+    else:
+        kw = dict(seed=-8, threshold=threshold)
+        args = {k: p[k] for k in ("x2", "w1", "b1", "w2", "b2")}
+        fwd, fwd_plain = fused_mlp._launch_core, fused_mlp.mlp_core_plain
+        bwd, bwd_plain = (fused_mlp._launch_core_bwd,
+                          fused_mlp.mlp_core_bwd_plain)
+        counters = ("core_launches", "core_bwd_launches")
+        bwd_args = lambda h: (p["x2"], h, p["w1"], p["b1"],  # noqa
+                              p["w2"], dout)
+    before = [getattr(fused_mlp, c) for c in counters]
+    with torch.inference_mode():
+        out, h = fwd(**args, **kw, save_h=True)
+        ref, h_ref = fwd_plain(**args, **kw, save_h=True)
+        got = bwd(*bwd_args(h_ref), **kw)
+        again = bwd(*bwd_args(h_ref), **kw)
+        want = bwd_plain(*bwd_args(h_ref), **kw)
+    assert [getattr(fused_mlp, c) for c in counters] == [before[0] + 1,
+                                                          before[1] + 2]
+    assert out.shape == (n, d) and h.shape == (n, f)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert _rel(h, h_ref) < TOL[dtype]
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == c.dtype and a.shape == c.shape
+        assert torch.equal(a, b)
+        assert _rel(a, c) < TOL[dtype]
+
+
+# The mask forms of JAX's _normalize_mask at B = 2, H = 3: key padding
+# (batch mode, q-broadcast), shared (one), per head (head), full, per-head
+# q-broadcast, and key-broadcast (query rows, some fully masked).
+FLASH_MASKS = {"key_padding": (2, 1, 1, "k"), "shared": (1, 1, "q", "k"),
+               "per_head": (1, 3, "q", "k"), "full": (2, 3, "q", "k"),
+               "q_bcast_per_head": (1, 3, 1, "k"),
+               "key_bcast": (2, 1, "q", 1)}
+
+
+def _flash_case(dev, dtype, tq, tk, dh, form, seed):
+    """q, k, v, dO for B = 2, H = 3 folded, and the folded mask of
+    ``form`` (key 0 always attends but in the key-broadcast form)."""
+    from pytorch_vit_paper_replication_tpu_torch.ops import (
+        flash_attention as fa)
+    g = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn(6, tq, dh, generator=g).to(dev, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(6, tk, dh, generator=g).to(dev, dtype)
+            for _ in range(2))
+    mask = None
+    if form is not None:
+        shape = [{"q": tq, "k": tk}.get(x, x) for x in FLASH_MASKS[form]]
+        m = torch.rand(*shape, generator=g) < 0.7
+        if shape[-1] > 1:
+            m[..., 0] = True
+        mask = fa.normalize_mask(m.to(dev), 2, 3, tq, tk)
+    return q, k, v, do, mask
+
+
+def _flash_fwd_bwd_vs_plain(dev, dtype, tq, tk, dh, form, threshold,
+                            seed=0):
+    """The forward, dq and dk/dv kernels against the plain versions (out,
+    lse, each gradient); one launch each per call, the backward bitwise
+    deterministic. Returns (out, dq) for the callers' own checks."""
+    from pytorch_vit_paper_replication_tpu_torch.ops import (
+        flash_attention as fa)
+    q, k, v, do, mask = _flash_case(dev, dtype, tq, tk, dh, form,
+                                    seed + tq + 7 * tk + dh)
+    kw = dict(seed=13, threshold=threshold, mask=mask)
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    with torch.inference_mode():
+        out, lse = fa._launch(q, k, v, **kw)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw)
+        delta = (do.float() * ref.float()).sum(-1)
+        dq = fa._launch_bwd_dq(q, k, v, do, ref_lse, delta, **kw)
+        dk, dv = fa._launch_bwd_dkv(q, k, v, do, ref_lse, delta, **kw)
+        assert torch.equal(dq, fa._launch_bwd_dq(q, k, v, do, ref_lse,
+                                                 delta, **kw))
+        assert all(torch.equal(a, b) for a, b in zip(
+            (dk, dv), fa._launch_bwd_dkv(q, k, v, do, ref_lse, delta, **kw)))
+        want = fa.flash_attention_bwd_plain(q, k, v, do, ref_lse, delta,
+                                            **kw)
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == (
+        counts[0] + 1, counts[1] + 2, counts[2] + 2)
+    assert out.shape == q.shape and lse.shape == (6, tq)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    for a, b in zip((dq, dk, dv), want):
+        assert a.shape == b.shape
+        assert _rel(a, b) < TOL[dtype]
+    return out, dq, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [64, 80, 256])
+@pytest.mark.parametrize("threshold", [0, 26])
+@pytest.mark.parametrize("form", list(FLASH_MASKS))
+def test_flash_mask_forms_kernels_match_plain(dev, form, threshold, dh,
+                                              dtype):
+    """Rows 3-5 with every mask form at T = 197 (bf16: the wgmma kernels,
+    the Dh = 256 work split included; f32: SIMT): within the flash bounds
+    of the plain versions, dropout keep bits composed with the mask; rows
+    that attend to no key have out and dq exactly 0 and lse -1e30."""
+    out, dq, mask = _flash_fwd_bwd_vs_plain(dev, dtype, 197, 197, dh, form,
+                                            threshold)
+    dead = ~mask.expand(6).expand(-1, 197, -1).any(-1)   # [BH, Tq]
+    if form == "key_bcast":
+        assert dead.any()
+    assert not out[dead].any() and not dq[dead].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [32, 64, 256])
+@pytest.mark.parametrize("form", [None, "full", "key_padding"])
+@pytest.mark.parametrize("tq,tk", [(197, 577), (577, 197), (40, 72),
+                                   (72, 40), (1, 65), (65, 3), (17, 16)])
+def test_flash_unequal_lengths_kernels_match_plain(dev, tq, tk, form, dh,
+                                                   dtype):
+    """Rows 3-5 with Tq != Tk (the q and k tails on both axes, the narrow
+    16-row tail step), unmasked and masked, dropout on. (Tk = 1 would
+    make dq and dk rounding noise, see test_flash_bwd_kernels_match_plain;
+    Tk = 3 keeps them real.)"""
+    _flash_fwd_bwd_vs_plain(dev, dtype, tq, tk, dh, form, 26)
+
+
+def test_masked_attention_on_card_launches_flash(dev):
+    """``dot_product_attention(mask=..., impl="auto")`` at T = 197 on the
+    card launches the flash kernels (forward and backward), never the xla
+    path, and agrees with the xla path where a row attends to some key."""
+    from pytorch_vit_paper_replication_tpu_torch.ops import (
+        attention, flash_attention as fa)
+    g = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(2, 197, 3, 64, generator=g).to(
+        dev, torch.bfloat16).requires_grad_() for _ in range(3))
+    mask = (torch.rand(2, 1, 1, 197, generator=g) < 0.8).to(dev)
+    mask[..., 0] = True
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    out = attention.dot_product_attention(q, k, v, mask=mask)
+    out.float().square().sum().backward()
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 1)
+    with torch.no_grad():
+        ref = attention.dot_product_attention(q, k, v, mask=mask,
+                                              impl="xla")
+    assert _rel(out, ref) < 2e-2
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -76,12 +76,19 @@ def test_flash_plain_lse_is_logsumexp():
 
 
 def test_flash_refuses_mask_and_cpu_runs_no_launch():
+    """Masks are ported (the refusal this test once pinned is gone): a
+    masked call and an unmasked one on CPU tensors run the plain version,
+    no kernel launch; an all-True mask gives the unmasked result, and a
+    mask that does not broadcast is still refused."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(2, 1, 8, 1, 32))
-    with pytest.raises(NotImplementedError, match="mask"):
-        fa.flash_attention(q, k, v, mask=torch.ones(1, 1, 8, 8, dtype=bool))
     before = fa.launches
-    fa.flash_attention(q, k, v)
+    masked = fa.flash_attention(q, k, v,
+                                mask=torch.ones(1, 1, 8, 8, dtype=bool))
+    plain = fa.flash_attention(q, k, v)
     assert fa.launches == before
+    torch.testing.assert_close(masked, plain, atol=0.0, rtol=0.0)
+    with pytest.raises(ValueError, match="broadcast"):
+        fa.flash_attention(q, k, v, mask=torch.ones(1, 1, 8, 9, dtype=bool))
 
 
 def test_bf16_kernel_operands_must_be_16_byte_aligned():

@@ -1,21 +1,24 @@
 """The port's MLP and flash plain versions at every preset width and head
 dim, against the JAX package's Pallas kernels.
 
-The CUDA kernels take any D and F that are multiples of 64 (rows 1, 2, 6
-and 7) and any head dim up to 256 (rows 3-5: 32, 64, 128 and 256 natively,
-others on zero-padded operands). Their plain versions, which the CPU runs,
-are held here to the JAX functions (Pallas in interpret mode, as the JAX
-package's own tests run them on the CPU) at the widths the ViT presets
-use beyond S/16 and B/16: D in {192, 1024, 1280} (Ti/16, L/16, H/14) with
-F = 4 D, and Dh in {80, 256} (H/14's, and the widest kernel). Same seeded
+The CUDA kernels take any D and F (rows 1, 2, 6 and 7: multiples of 64
+natively, others on operands zero-padded to the next multiple) and any
+head dim up to 256 (rows 3-5: 32, 64, 128 and 256 natively, others on
+zero-padded operands). Their plain versions, which the CPU runs, are held
+here to the JAX functions (Pallas in interpret mode, as the JAX package's
+own tests run them on the CPU) at the widths the ViT presets use beyond
+S/16 and B/16: D in {192, 1024, 1280} (Ti/16, L/16, H/14) with F = 4 D,
+at widths no preset has, (D, F) in {(200, 800), (100, 300)}, and at Dh in
+{80, 256} (H/14's, and the widest kernel). Same seeded
 numpy inputs and cotangent on both sides, f32; tolerances: forward 1e-4,
 gradients 2e-3 relative to each gradient's largest element (the JAX
 package's own). N = 33 rows is not a multiple of the JAX row block (16);
 T = 17 is not a multiple of a flash block.
 
-The padding itself is held on the plain versions: the forward and the
+The padding itself is held on the plain versions: the flash forward and
 backward of zero-padded operands with the true scale equal those of the
-unpadded problem.
+unpadded problem, and so do the MLP core's forward and backward on the
+operands ``fused_mlp._pad_operands`` pads.
 """
 
 import jax
@@ -39,9 +42,9 @@ LN_NAMES = ("x", "gamma", "beta", "w1", "b1", "w2", "b2")
 CORE_NAMES = ("x", "w1", "b1", "w2", "b2")
 
 
-def _mlp_inputs(d, seed, n=33):
+def _mlp_inputs(d, seed, n=33, f=None):
     rng = np.random.default_rng(seed + d)
-    f, f32 = 4 * d, np.float32
+    f, f32 = (4 * d if f is None else f), np.float32
     p = dict(x=rng.standard_normal((n, d)).astype(f32),
              gamma=(1.0 + 0.1 * rng.standard_normal(d)).astype(f32),
              beta=(0.1 * rng.standard_normal(d)).astype(f32),
@@ -97,6 +100,67 @@ def test_mlp_core_plain_matches_jax_at_preset_widths(d, rate):
     out = _both(jax_mlp, fused_mlp.fused_mlp, CORE_NAMES, p, ct, rate,
                 jax.random.key(4))
     _check(*out, CORE_NAMES)
+
+
+# Widths off the kernels' multiple of 64: a 16-byte row pitch in bf16
+# (200, 800) and none (100, 300).
+OFF_64 = [(200, 800), (100, 300)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d,f", OFF_64)
+def test_ln_mlp_plain_matches_jax_off_64_widths(d, f, rate):
+    """Rows 1 and 2 at widths no preset has."""
+    p, ct = _mlp_inputs(d, 2, f=f)
+    out = _both(jax_ln_mlp, fused_mlp.fused_ln_mlp_residual, LN_NAMES, p,
+                ct, rate, jax.random.key(5))
+    _check(*out, LN_NAMES)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d,f", OFF_64)
+def test_mlp_core_plain_matches_jax_off_64_widths(d, f, rate):
+    """Rows 6 and 7 at widths no preset has."""
+    p, ct = _mlp_inputs(d, 3, f=f)
+    out = _both(jax_mlp, fused_mlp.fused_mlp, CORE_NAMES, p, ct, rate,
+                jax.random.key(6))
+    _check(*out, CORE_NAMES)
+
+
+@pytest.mark.parametrize("threshold", [0, 26])
+@pytest.mark.parametrize("d,f", OFF_64)
+def test_mlp_width_padding_is_exact(d, f, threshold):
+    """The wrappers' zero padding to the kernels' widths, run through the
+    core's plain versions: the padded hidden columns carry GELU(0) = 0 and
+    the keep bits hash (row, column), so the forward, the saved h and the
+    five gradients are the unpadded ones with zeros in every padded row
+    and column (dx's too: the padded rows of W1 are zero)."""
+    p, _ = _mlp_inputs(d, 4, f=f)
+    t = {k: torch.from_numpy(v) for k, v in p.items()}
+    dout = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (33, d)).astype(np.float32))
+    kw = dict(seed=77, threshold=threshold)
+    out, h = fused_mlp.mlp_core_plain(t["x"], t["w1"], t["b1"], t["w2"],
+                                      t["b2"], save_h=True, **kw)
+    grads = fused_mlp.mlp_core_bwd_plain(t["x"], h, t["w1"], t["b1"],
+                                         t["w2"], dout, **kw)
+    pp = fused_mlp._pad_operands(d, f, x2=t["x"], w1=t["w1"], b1=t["b1"],
+                                 w2=t["w2"], b2=t["b2"], dout=dout)
+    dp, fp = fused_mlp._padded(d), fused_mlp._padded(f)
+    assert pp["x2"].shape == (33, dp) and pp["w1"].shape == (dp, fp)
+    assert pp["w2"].shape == (fp, dp) and pp["b1"].shape == (fp,)
+    out_p, h_p = fused_mlp.mlp_core_plain(
+        pp["x2"], pp["w1"], pp["b1"], pp["w2"], pp["b2"], save_h=True, **kw)
+    grads_p = fused_mlp.mlp_core_bwd_plain(
+        pp["x2"], fused_mlp._pad_operands(d, f, h=h)["h"], pp["w1"],
+        pp["b1"], pp["w2"], pp["dout"], **kw)
+    for got, want in [(out_p, out), (h_p, h)] + list(zip(grads_p, grads)):
+        assert got.shape != want.shape
+        pad = []
+        for have, size in zip(reversed(want.shape), reversed(got.shape)):
+            pad += [0, size - have]
+        torch.testing.assert_close(got, torch.nn.functional.pad(want, pad),
+                                   atol=1e-6, rtol=1e-6)
 
 
 def _qkv(dh, t=17, b=2, h=2, seed=5):
