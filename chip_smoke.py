@@ -89,6 +89,29 @@ final ``ok`` line is never printed:
              PRESET_LAYERS layers, PRESET_STEPS steps + eval under the
              default ``auto`` impls, the fused MLP kernels launched in
              every block (flash where ``auto`` picks it).
+4b. train_cli — the Quickstart training path through the port's CLIs:
+             ViT-B/16 at 224 px, bf16, batch 32, ``--attention auto
+             --mlp-impl auto``, on a seeded synthetic image folder (96
+             train and 24 test JPEGs, 3 steps an epoch). Run A: ``python
+             -m ...train`` as a subprocess, 2 epochs, a checkpoint every
+             2 steps, the metrics JSONL (2 rows, the JAX keys, finite
+             losses) and the final/ export. Run B: the same command
+             through ``train.main`` in this process, the launch counters
+             set to 0 right before and read right after, rows 1-5
+             launched 12 times in every train step; then every step
+             after 4 and final/ deleted and the command rerun: it resumes
+             at step 4 and its final params equal run A's bit for bit.
+             ``--eval-only`` on A equals A's last JSONL row; ``python -m
+             ...predict`` on a test image prints what ``predict_image``
+             gives on the same export. Run C: two 10-step epochs, steps
+             3-10 profiled (the card's idle share: host wall minus the
+             union of kernel intervals), epoch 2 unprofiled (the CLI's
+             img/s with no checkpoint saves). Reports: the loader's img/s
+             (1 and os.cpu_count() threads, os.cpu_count() processes,
+             native decode where it built and PIL, 224 and 512 px
+             sources), H2D ms of a [32, 224, 224, 3] f32 batch pinned and
+             pageable, B/16 checkpoint save and restore seconds, and
+             whether the native JPEG decoder built on this machine.
 5. parallel — the data x tensor x pipeline path through the port's
              ``parallel.spawn``, four rank processes sharing the one card
              (gloo, every transfer through host memory; the phase prints
@@ -274,11 +297,18 @@ def close(a, b, tol: float) -> float:
 
 # ------------------------------------------------------------- phase 1
 def phase_build(card: str) -> None:
+    from pytorch_vit_paper_replication_tpu_torch import native
     from pytorch_vit_paper_replication_tpu_torch.ops import _build
     t0 = time.perf_counter()
     info = _build.build()
     for name in info:
         _build.load(name)
+    # The host JPEG decoder (g++ + libjpeg), optional by contract: the
+    # loader decodes with PIL where it does not build; which one ran is
+    # printed here and in phase train_cli.
+    t_native = time.perf_counter()
+    native_ok = native.available()
+    native_s = time.perf_counter() - t_native
     regs = {}
     for name, i in info.items():
         regs[name] = [int(line.split("Used ")[1].split()[0])
@@ -288,7 +318,12 @@ def phase_build(card: str) -> None:
           "seconds": round(time.perf_counter() - t0, 3),
           "per_library_s": {n: round(i["seconds"], 3)
                             for n, i in info.items()},
-          "registers_per_instantiation": regs, "card": card})
+          "registers_per_instantiation": regs,
+          "native_jpeg_decoder": {
+              "available": native_ok, "seconds": round(native_s, 3),
+              "library": str(native.library_path().relative_to(REPO)),
+              "reason": native.unavailable_reason()},
+          "card": card})
 
 
 # ------------------------------------------------------------- phase 2
@@ -2244,6 +2279,372 @@ def phase_parallel(dev) -> dict:
     return ranks[0]["launches"]
 
 
+# ------------------------------------------------------------- phase 5b
+# The Quickstart training path through the port's train and predict CLIs:
+# ViT-B/16 at 224 px, bf16, batch 32, auto attention and MLP, on a seeded
+# synthetic image folder (CLI_PER_CLASS x 3 train JPEGs, a quarter of
+# that per class for test: 3 steps an epoch with drop_last, one eval
+# batch).
+CLI_PER_CLASS = (32, 8)
+CLI_EPOCHS = 2
+CLI_EVERY_STEPS = 2
+CLI_RESUME_FROM = 4
+# Run C: two epochs of CLI_C_PER_CLASS x 3 images (10 steps each), no
+# checkpoints: epoch 1's steady window (steps CLI_WINDOW[0]..CLI_WINDOW[1])
+# profiled for the card's idle share, epoch 2 unprofiled for the CLI's
+# img/s.
+CLI_C_PER_CLASS = 107
+CLI_WINDOW = (3, 10)
+CLI_JSONL_KEYS = {"time", "step", "epoch", "train_loss", "train_acc",
+                  "test_loss", "test_acc", "images_per_sec", "grad_norm",
+                  "lr"}
+# Rows 1-5 launch once per block in every train step (forward and
+# backward); rows 6 and 7 (tensor-parallel blocks only) never.
+CLI_STEP_LAUNCHES = {"fused_ln_mlp_residual": 12,
+                     "fused_ln_mlp_residual_bwd": 12,
+                     "fused_mlp_core": 0, "fused_mlp_core_bwd": 0,
+                     "flash_attention": 12, "flash_attention_bwd_dq": 12,
+                     "flash_attention_bwd_dkv": 12}
+
+
+class StepProbe:
+    """Wraps ``engine.make_train_step`` while installed: records each
+    step's launch-count deltas and, over global steps ``window``
+    (inclusive, counted from 1 in the run), the host wall (ending in a
+    synchronize) and the union of the card's kernel intervals from
+    ``torch.profiler``."""
+
+    def __init__(self, window=None):
+        self.window = window
+        self.deltas = []
+        self.wall_s = self.busy_s = None
+
+    def __enter__(self):
+        from pytorch_vit_paper_replication_tpu_torch import engine
+        self._engine, self._make = engine, engine.make_train_step
+
+        def make(**kw):
+            step = self._make(**kw)
+
+            def probed(state, batch):
+                n = state.step + 1
+                if self.window and n == self.window[0]:
+                    self._open()
+                before = read_counts()
+                state, m = step(state, batch)
+                after = read_counts()
+                self.deltas.append({k: after[k] - before[k] for k in after})
+                if self.window and n == self.window[1]:
+                    self._close()
+                return state, m
+            return probed
+        engine.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self._engine.make_train_step = self._make
+
+    def _open(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        self._prof = profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA])
+        self._prof.__enter__()
+        self._t0 = time.perf_counter()
+
+    def _close(self):
+        import torch
+        from torch.autograd import DeviceType
+        torch.cuda.synchronize()
+        self.wall_s = time.perf_counter() - self._t0
+        self._prof.__exit__(None, None, None)
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in self._prof.events()
+                       if getattr(e, "device_type", None) == DeviceType.CUDA)
+        busy, end = 0.0, float("-inf")
+        for s, e in spans:
+            if e > end:
+                busy += e - max(s, end)
+                end = e
+        self.busy_s = busy / 1e6
+        self.kernels = len(spans)
+
+
+def _cli_main(module: str, argv):
+    """``module.main(argv)`` in this process, its stdout kept (returned)
+    and shown only when it raises."""
+    import contextlib
+    import importlib
+    import io
+    buf = io.StringIO()
+    mod = importlib.import_module(f"{PKG}.{module}")
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = mod.main(argv)
+    except BaseException:
+        print(buf.getvalue()[-4000:], file=sys.stderr)
+        raise
+    return out, buf.getvalue()
+
+
+def _cli_subprocess(module: str, argv, timeout: int = 600) -> str:
+    proc = subprocess.run([sys.executable, "-m", f"{PKG}.{module}", *argv],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=REPO)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m {PKG}.{module} exit "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def _jsonl(path: Path) -> list:
+    return [json.loads(x) for x in path.read_text().splitlines()]
+
+
+def _check_step_launches(tag: str, deltas) -> None:
+    bad = [(i, d) for i, d in enumerate(deltas) if d != CLI_STEP_LAUNCHES]
+    if bad or not deltas:
+        raise AssertionError(f"{tag}: a train step's launches != "
+                             f"{CLI_STEP_LAUNCHES}: {bad[:2]}")
+
+
+def loader_rates(folder: Path) -> list:
+    """img/s of the CLI's train loader (Resize + to_array at 224 px,
+    batch 32) over one epoch of ``folder``: 1 and os.cpu_count() decode
+    threads and os.cpu_count() forked processes, with the native decoder
+    (where it built) and with PIL; host only."""
+    import os
+    from pytorch_vit_paper_replication_tpu_torch import native
+    from pytorch_vit_paper_replication_tpu_torch.data import (
+        DataLoader, ImageFolderDataset)
+    from pytorch_vit_paper_replication_tpu_torch.data.transforms import (
+        make_transform)
+    cores = os.cpu_count() or 1
+    rows = []
+    for decoder in (["native"] if native.available() else []) + ["pil"]:
+        ds = ImageFolderDataset(folder, make_transform(224),
+                                native_decode=decoder == "native")
+        for kind, workers in (("thread", 1), ("thread", cores),
+                              ("process", cores)):
+            dl = DataLoader(ds, TRAIN_BATCH, shuffle=True, drop_last=True,
+                            num_workers=workers, worker_type=kind)
+            try:
+                list(dl)  # page cache and pool warm
+                t0 = time.perf_counter()
+                n = sum(len(b["label"]) for b in dl)
+                rate = n / (time.perf_counter() - t0)
+            finally:
+                dl.close()
+            rows.append({"decoder": decoder, "workers": workers,
+                         "worker_type": kind, "images": n,
+                         "img_per_s": rate})
+    return rows
+
+
+def h2d_ms(dev) -> dict:
+    """CUDA-event ms of one [32, 224, 224, 3] f32 batch to the card, from
+    pinned and from pageable host memory."""
+    import numpy as np
+    import torch
+    arr = np.random.default_rng(0).standard_normal(
+        (TRAIN_BATCH, 224, 224, 3)).astype(np.float32)
+    pageable = torch.from_numpy(arr)
+    pinned = pageable.pin_memory()
+    out = {"bytes": arr.nbytes}
+    for name, src in (("pinned", pinned), ("pageable", pageable),
+                      ("pinned_again", pinned), ("pageable_again", pageable)):
+        out[name + "_ms"] = time_ms(
+            lambda: src.to(dev, non_blocking=True), reps=20)
+    return out
+
+
+def checkpoint_seconds(dev, root: Path) -> dict:
+    """Save and restore seconds of a B/16 TrainState (params, both Adam
+    moments) through the port's Checkpointer (digest and verify
+    included), on this machine's disk."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch import engine, optim
+    from pytorch_vit_paper_replication_tpu_torch.checkpoint import (
+        Checkpointer)
+    from pytorch_vit_paper_replication_tpu_torch.configs import (
+        PRESETS, TrainConfig)
+    from pytorch_vit_paper_replication_tpu_torch.convert import seeded_params
+    from pytorch_vit_paper_replication_tpu_torch.models import ViT
+    cfg = PRESETS[PRESET](num_classes=3)
+    model = ViT(cfg)
+    model.load_state_dict(seeded_params(cfg, 0))
+    model.to(dev)
+    state = engine.TrainState.create(
+        model=model, seed=0, tx=optim.make_optimizer(TrainConfig(), 10))
+    state.step = 1
+    ck = Checkpointer(root / "ck_time", max_to_keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(state)
+    save_s = time.perf_counter() - t0
+    nbytes = (ck.step_dir(1) / "state.pt").stat().st_size
+    t0 = time.perf_counter()
+    ck.restore(state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del state, model
+    torch.cuda.empty_cache()
+    return {"save_s": save_s, "restore_s": restore_s, "bytes": nbytes}
+
+
+def phase_train_cli(dev, root: Path) -> dict:
+    """Run A through ``python -m ...train`` (2 epochs, saves every 2
+    steps, metrics JSONL); run B the same command in this process with
+    the launch counters, then interrupted after step 4 and resumed: its
+    final export must equal A's bit for bit; ``--eval-only`` on A equal to
+    A's last JSONL row; ``predict`` on A's export equal to
+    ``predict_image``; run C two 10-step epochs, the first with a
+    profiled steady window; then the loader, H2D and checkpoint
+    measurements. Returns the launch counts of run B's first
+    (uninterrupted) run."""
+    import math
+    import shutil
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch import native
+    from pytorch_vit_paper_replication_tpu_torch.convert import (
+        load_params_npz)
+    from pytorch_vit_paper_replication_tpu_torch.data import (
+        make_synthetic_image_folder)
+    from pytorch_vit_paper_replication_tpu_torch.predictions import (
+        load_inference_checkpoint, predict_image)
+
+    t_phase = time.perf_counter()
+    train_dir, test_dir = make_synthetic_image_folder(
+        root / "ds", train_per_class=CLI_PER_CLASS[0],
+        test_per_class=CLI_PER_CLASS[1], image_size=224)
+    classes = ["pizza", "steak", "sushi"]
+    common = ["--train-dir", str(train_dir), "--test-dir", str(test_dir),
+              "--preset", PRESET, "--image-size", "224", "--dtype",
+              "bfloat16", "--batch-size", str(TRAIN_BATCH), "--attention",
+              "auto", "--mlp-impl", "auto", "--epochs", str(CLI_EPOCHS),
+              "--seed", "0"]
+    ck_a, ck_b = root / "A", root / "B"
+    run_a = common + ["--checkpoint-dir", str(ck_a), "--metrics-jsonl",
+                      str(ck_a / "m.jsonl"), "--checkpoint-every-steps",
+                      str(CLI_EVERY_STEPS)]
+    t0 = time.perf_counter()
+    _cli_subprocess("train", run_a)
+    a_s = time.perf_counter() - t0
+    rows = _jsonl(ck_a / "m.jsonl")
+    if len(rows) != CLI_EPOCHS or any(
+            not CLI_JSONL_KEYS <= set(r) or not math.isfinite(r["train_loss"])
+            or not math.isfinite(r["test_loss"]) for r in rows):
+        raise AssertionError(f"run A's JSONL rows are wrong: {rows}")
+    if "time_to_first_step" not in rows[0]:
+        raise AssertionError("run A's first row lacks time_to_first_step")
+    for name in ("final/params.npz", "transform.json", "model_meta.json"):
+        if not (ck_a / name).is_file():
+            raise AssertionError(f"run A wrote no {name}")
+
+    # ---- the main path, in this process: counts to 0, drive, read.
+    run_b = common + ["--checkpoint-dir", str(ck_b), "--metrics-jsonl",
+                      str(ck_b / "m.jsonl"), "--checkpoint-every-steps",
+                      str(CLI_EVERY_STEPS), "--keep-checkpoints", "20"]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with StepProbe() as probe:
+        _cli_main("train", run_b)
+    torch.cuda.synchronize()
+    b_s = time.perf_counter() - t0
+    launches = read_counts()
+    _check_step_launches("run B", probe.deltas)
+    steps = len(probe.deltas)
+    for d in ck_b.iterdir():
+        if d.is_dir() and (d.name == "final" or (
+                d.name.isdigit() and int(d.name) > CLI_RESUME_FROM)):
+            shutil.rmtree(d)
+    with StepProbe() as resumed:
+        _, resume_out = _cli_main("train", run_b)
+    _check_step_launches("run B resumed", resumed.deltas)
+    if f"resumed from step {CLI_RESUME_FROM}" not in resume_out or \
+            len(resumed.deltas) != steps - CLI_RESUME_FROM:
+        raise AssertionError(f"run B did not resume from step "
+                             f"{CLI_RESUME_FROM}: {resume_out[-600:]}")
+    pa = load_params_npz(ck_a / "final" / "params.npz")
+    pb = load_params_npz(ck_b / "final" / "params.npz")
+    differ = [k for k in pa if not torch.equal(pa[k], pb[k])]
+    if set(pa) != set(pb) or differ:
+        raise AssertionError(f"resumed run B's final params differ from "
+                             f"run A's: {differ[:5]}")
+
+    ev, _ = _cli_main("train", ["--test-dir", str(test_dir), "--preset",
+                                PRESET, "--image-size", "224",
+                                "--batch-size", str(TRAIN_BATCH),
+                                "--eval-only", "--checkpoint-dir",
+                                str(ck_a)])
+    if (ev["test_loss"][0], ev["test_acc"][0]) != (rows[-1]["test_loss"],
+                                                   rows[-1]["test_acc"]):
+        raise AssertionError(f"--eval-only {ev} != run A's last row "
+                             f"{rows[-1]}")
+
+    img = sorted(Path(test_dir).rglob("*.jpg"))[0]
+    out = _cli_subprocess("predict", [str(img), "--checkpoint", str(ck_a),
+                                      "--classes", *classes, "--preset",
+                                      PRESET]).strip().splitlines()
+    model, transform, _ = load_inference_checkpoint(ck_a, PRESET,
+                                                    len(classes), device=dev)
+    label, prob, _ = predict_image(model, img, classes, transform)
+    want = f"{img}: {label} ({prob:.3f})"
+    if out != [want]:
+        raise AssertionError(f"predict printed {out}, predict_image gives "
+                             f"{want!r}")
+    del model
+    torch.cuda.empty_cache()
+
+    train_c, test_c = make_synthetic_image_folder(
+        root / "ds_c", train_per_class=CLI_C_PER_CLASS,
+        test_per_class=CLI_PER_CLASS[1], image_size=224, seed=1)
+    run_c = ["--train-dir", str(train_c), "--test-dir", str(test_c),
+             "--preset", PRESET, "--image-size", "224", "--batch-size",
+             str(TRAIN_BATCH), "--epochs", "2", "--seed", "1",
+             "--metrics-jsonl", str(root / "C.jsonl")]
+    with StepProbe(window=CLI_WINDOW) as window:
+        _cli_main("train", run_c)
+    _check_step_launches("run C", window.deltas)
+    c_rows = _jsonl(root / "C.jsonl")
+    n_win = CLI_WINDOW[1] - CLI_WINDOW[0] + 1
+    big, _ = make_synthetic_image_folder(root / "ds_512", train_per_class=54,
+                                         test_per_class=1, image_size=512,
+                                         seed=2)
+    emit({"phase": "train_cli", "ok": True, "model": PRESET, "px": 224,
+          "batch": TRAIN_BATCH, "steps_per_epoch": steps // CLI_EPOCHS,
+          "run_a_subprocess_s": round(a_s, 3), "run_b_s": round(b_s, 3),
+          "launches": launches, "launches_per_step": CLI_STEP_LAUNCHES,
+          "resumed_from_step": CLI_RESUME_FROM,
+          "resumed_final_params_bit_identical": True,
+          "eval_only": {"test_loss": ev["test_loss"][0],
+                        "test_acc": ev["test_acc"][0]},
+          "predict": want,
+          "epochs": [{k: r[k] for k in ("epoch", "train_loss", "test_loss",
+                                        "images_per_sec")} for r in rows],
+          "time_to_first_step_s": rows[0]["time_to_first_step"],
+          "run_c": {"steps": len(window.deltas),
+                    "images_per_sec_profiled_epoch":
+                        c_rows[0]["images_per_sec"],
+                    "images_per_sec_epoch_2": c_rows[1]["images_per_sec"],
+                    "window_steps": list(CLI_WINDOW),
+                    "window_wall_ms_per_step": window.wall_s * 1e3 / n_win,
+                    "window_device_busy_ms_per_step":
+                        window.busy_s * 1e3 / n_win,
+                    "window_idle_share": 1 - window.busy_s / window.wall_s,
+                    "window_device_events": window.kernels},
+          "native_decoder": {"available": native.available(),
+                             "reason": native.unavailable_reason()},
+          "loader_224px_sources": loader_rates(train_c),
+          "loader_512px_sources": loader_rates(big),
+          "h2d": h2d_ms(dev),
+          "checkpoint_b16": checkpoint_seconds(dev, root),
+          "seconds": round(time.perf_counter() - t_phase, 3)})
+    return launches
+
+
 # ------------------------------------------------------------- phase 6
 # How each kernel multiplies on the card, bf16 (f32 runs SIMT everywhere).
 KERNEL_DESIGN = {
@@ -2255,7 +2656,8 @@ KERNEL_DESIGN = {
     "fused_mlp_core": "wgmma+tma", "fused_mlp_core_bwd": "wgmma+tma"}
 
 
-def kernel_list(k_rows, launches, serve_launches, par_launches, ops):
+def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
+                cli_launches):
     """The seven ported kernels with their main-path numbers: rows 1-5 at
     batch 32, bf16, dropout off, T = 197; rows 6 and 7 (the MLP core) at
     the parallel phase's per-microbatch shape (4 * 197 rows, F / tp =
@@ -2264,8 +2666,10 @@ def kernel_list(k_rows, launches, serve_launches, par_launches, ops):
     ``serve_launches`` the serve phase's, ``par_launches`` rank 0's in the
     parallel phase (a), ``ops`` the ops phase's result: each entry's
     ``checked`` lists the mask forms, Tq != Tk cases, head dims and widths
-    its kernel was held to its plain version at in this run, and
-    ``ops_launches`` its launches on the ops phase's path."""
+    its kernel was held to its plain version at in this run,
+    ``ops_launches`` its launches on the ops phase's path and
+    ``train_cli_launches`` on the train_cli phase's (run B through
+    ``train.main``)."""
     def pick(kernel, **match):
         return next(r for r in k_rows if r.get("kernel") == kernel and all(
             r[k] == v for k, v in match.items()))
@@ -2355,6 +2759,7 @@ def kernel_list(k_rows, launches, serve_launches, par_launches, ops):
                  "bound_ms": b_ms, "bound_by": b_by,
                  "bound_share": b_ms / ms, "library_ms": lib,
                  "ops_launches": ops["path"][name],
+                 "train_cli_launches": cli_launches[name],
                  "checked": (flash_checked if name.startswith("flash")
                              else mlp_checked)}
         if dev_ms is not None:
@@ -2404,12 +2809,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_presets(dev)
     torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    try:
+        cli_launches = phase_train_cli(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
     par_launches = phase_parallel(dev)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             3)})
     print(card, flush=True)
     print(json.dumps(kernel_list(k_rows, launches, serve_launches,
-                                 par_launches, ops)), flush=True)
+                                 par_launches, ops, cli_launches)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

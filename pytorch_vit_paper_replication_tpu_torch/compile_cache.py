@@ -1,6 +1,7 @@
 """Cold-start instrumentation shared with the JAX package's serving stack.
 
-The subset of the JAX package's ``compile_cache.py`` that serving needs:
+The subset of the JAX package's ``compile_cache.py`` that serving and the
+train loop need:
 
 * :func:`seconds_since_process_start` — the denominator of
   ``time_to_first_batch_s`` (honest restart latency includes interpreter,

@@ -19,9 +19,10 @@ float, ``label`` ``[B]`` int, optionally ``mask`` (eval) and
 ``teacher_logits`` (distillation); the step moves them to the model's
 device.
 
-Not ported yet: the metrics logger, checkpoints, step telemetry and
-profiler windows (ROADMAP Queue 1 items 5 and 6); passing any of them to
-:func:`train` raises.
+:func:`train` logs per-epoch rows to a :class:`..metrics.MetricsLogger`
+and saves through a :class:`..checkpoint.Checkpointer`. Not ported yet:
+step telemetry and profiler windows (ROADMAP Queue 1 item 5); passing
+either to :func:`train` raises.
 """
 
 from __future__ import annotations
@@ -236,35 +237,64 @@ def train(state: TrainState, train_batches: Callable[[], Iterable[Batch]],
           eval_step: Optional[Callable] = None, logger=None,
           checkpointer=None, verbose: bool = True,
           profile_dir: Optional[str] = None, start_epoch: int = 0,
+          checkpoint_every_steps: int = 0,
+          checkpoint_every_epochs: int = 1,
+          lr_schedule: Optional[Callable[[int], float]] = None,
           telemetry=None,
           stop_check: Optional[Callable[[int], bool]] = None
           ) -> Tuple[TrainState, Dict[str, list]]:
     """The epoch loop (reference ``engine.train``): per epoch the train
     steps, then one eval pass; returns ``(state, {"train_loss", "train_acc",
-    "test_loss", "test_acc"})``. ``stop_check(global_step)`` is called
-    after every step; True stops at that step without the partial epoch's
-    eval. ``start_epoch`` continues the printed epoch numbers."""
-    for name, val, item in (("logger", logger, 6),
-                            ("checkpointer", checkpointer, 5),
-                            ("telemetry", telemetry, 6),
-                            ("profile_dir", profile_dir, 6)):
+    "test_loss", "test_acc"})``.
+
+    ``logger`` (a :class:`..metrics.MetricsLogger`) gets one row per epoch
+    with the JAX loop's keys: ``step``, ``epoch``, ``train_loss``,
+    ``train_acc``, ``test_loss``, ``test_acc``, ``images_per_sec``, plus
+    ``grad_norm``, ``skipped_steps`` (when the nan-guard skipped any),
+    ``lr`` (with ``lr_schedule``, a ``micro_step -> lr`` callable: the
+    end-of-epoch learning rate) and ``time_to_first_step`` on the first
+    epoch (process start to the first step applied, with a one-off
+    device barrier). ``checkpointer`` (a :class:`..checkpoint.
+    Checkpointer`) saves every ``checkpoint_every_steps`` micro-steps (0 =
+    off) and every ``checkpoint_every_epochs`` epochs; the final epoch
+    always saves. Mid-epoch resume is the loader's job
+    (``DataLoader.epoch`` / ``skip_next_batches``), never this loop's.
+    ``stop_check(global_step)`` is called after every step; True stops at
+    that step without the partial epoch's eval. ``start_epoch`` continues
+    the printed and logged epoch numbers."""
+    for name, val in (("telemetry", telemetry),
+                      ("profile_dir", profile_dir)):
         if val is not None:
             raise NotImplementedError(
                 f"engine.train({name}=...) is not ported yet (ROADMAP "
-                f"Queue 1 item {item})")
+                f"Queue 1 item 5)")
+    from .compile_cache import seconds_since_process_start
+    from .metrics import block_until_ready
+
     train_step = train_step or make_train_step()
     eval_step = eval_step or make_eval_step()
     results = {"train_loss": [], "train_acc": [], "test_loss": [],
                "test_acc": []}
     global_step = state.step
+    time_to_first_step = None
     for epoch in range(epochs):
         t0 = time.perf_counter()
+        epoch_no = start_epoch + epoch + 1
         total, steps, stopped = None, 0, False
         for batch in train_batches():
             state, metrics = train_step(state, batch)
+            if time_to_first_step is None:
+                block_until_ready(metrics["loss_sum"])
+                time_to_first_step = seconds_since_process_start()
+                if verbose:
+                    print(f"time_to_first_step: {time_to_first_step:.2f}s "
+                          f"(process start -> first train step applied)")
             total = _accumulate(total, metrics)
             steps += 1
             global_step += 1
+            if (checkpoint_every_steps and checkpointer is not None
+                    and global_step % checkpoint_every_steps == 0):
+                checkpointer.save(state)
             if stop_check is not None and stop_check(global_step):
                 stopped = True
                 break
@@ -280,11 +310,32 @@ def train(state: TrainState, train_batches: Callable[[], Iterable[Batch]],
         results["train_acc"].append(train_m["acc"])
         results["test_loss"].append(eval_m["loss"])
         results["test_acc"].append(eval_m["acc"])
+        img_per_sec = train_m["count"] / max(train_time, 1e-9)
         if verbose:
-            print(f"Epoch: {start_epoch + epoch + 1} | "
+            print(f"Epoch: {epoch_no} | "
                   f"train_loss: {train_m['loss']:.4f} | "
                   f"train_acc: {train_m['acc']:.4f} | "
                   f"test_loss: {eval_m['loss']:.4f} | "
                   f"test_acc: {eval_m['acc']:.4f} | "
-                  f"img/s: {train_m['count'] / max(train_time, 1e-9):.1f}")
+                  f"img/s: {img_per_sec:.1f}")
+        if logger is not None:
+            extra = {}
+            if "grad_norm" in train_m:
+                extra["grad_norm"] = train_m["grad_norm"]
+            if train_m["skipped"]:
+                extra["skipped_steps"] = train_m["skipped"]
+            if lr_schedule is not None:
+                extra["lr"] = float(lr_schedule(state.step))
+            if epoch == 0 and time_to_first_step is not None:
+                extra["time_to_first_step"] = round(time_to_first_step, 3)
+            logger.log(step=state.step, epoch=epoch_no,
+                       train_loss=train_m["loss"], train_acc=train_m["acc"],
+                       test_loss=eval_m["loss"], test_acc=eval_m["acc"],
+                       images_per_sec=img_per_sec, **extra)
+        if checkpointer is not None and (
+                epoch_no % max(1, checkpoint_every_epochs) == 0
+                or epoch == epochs - 1):
+            checkpointer.save(state)
+    if checkpointer is not None:
+        checkpointer.wait()
     return state, results

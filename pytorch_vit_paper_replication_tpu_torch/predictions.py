@@ -84,6 +84,82 @@ def predict_image(
     return label, float(probs[idx]), probs
 
 
+def predict_batch(
+    model: torch.nn.Module,
+    images: Sequence[str | Path],
+    class_names: Optional[Sequence[str]] = None,
+    transform: Optional[Transform] = None,
+    image_size: int = 224,
+    buckets: Optional[Sequence[int]] = None,
+) -> List[Tuple[str | int, float]]:
+    """Classify many images in device batches on the model's device.
+
+    Batches are chunked onto the serve **bucket ladder**
+    (:mod:`.serve.bucketing`, shared with the online engine): full
+    top-rung chunks plus padded-and-masked tails, so a directory runs at
+    most ``len(ladder)`` batch shapes. Pad rows are masked out of the
+    results; rows of a ViT forward are independent, so they cannot perturb
+    real rows. One image runs at bucket 1, the shape :func:`predict_image`
+    runs. ``buckets=None`` uses the serve default ladder.
+    """
+    from .serve.bucketing import (DEFAULT_BUCKETS, pad_rows_to_bucket,
+                                  plan_buckets)
+
+    if transform is None:
+        transform = eval_transform(image_size)
+    ladder = tuple(buckets) if buckets is not None else DEFAULT_BUCKETS
+    rows = [image_row(p, transform) for p in images]
+    device = next(model.parameters()).device
+    out: List[Tuple[str | int, float]] = []
+    done = 0
+    for bucket in plan_buckets(len(rows), ladder):
+        take = min(bucket, len(rows) - done)
+        padded, mask = pad_rows_to_bucket(np.stack(rows[done:done + take]),
+                                          bucket)
+        done += take
+        x = torch.from_numpy(np.ascontiguousarray(padded, np.float32))
+        with torch.inference_mode():
+            probs = forward_probs(model, x.to(device)).cpu().numpy()
+        for row in probs[mask.astype(bool)]:
+            idx = int(row.argmax())
+            label = class_names[idx] if class_names is not None else idx
+            out.append((label, float(row[idx])))
+    return out
+
+
+def pred_and_plot_image(
+    model: torch.nn.Module,
+    class_names: Sequence[str],
+    image_path: str | Path,
+    transform: Optional[Transform] = None,
+    image_size: int = 224,
+    save_path: Optional[str | Path] = None,
+):
+    """API-parity port of reference ``pred_and_plot_image``
+    (predictions.py:20-83): predict, then a matplotlib figure titled
+    ``Pred: <class> | Prob: <p>`` (matplotlib imported lazily; without it
+    the prediction is printed and returned)."""
+    label, prob, _ = predict_image(model, image_path, class_names, transform,
+                                   image_size)
+    try:
+        import matplotlib
+        if save_path is not None:
+            matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        print(f"Pred: {label} | Prob: {prob:.3f} (matplotlib unavailable)")
+        return label, prob
+    with Image.open(image_path) as img:
+        fig, ax = plt.subplots()
+        ax.imshow(img)
+        ax.set_title(f"Pred: {label} | Prob: {prob:.3f}")
+        ax.axis("off")
+    if save_path is not None:
+        fig.savefig(save_path, dpi=120)
+    plt.close(fig)
+    return label, prob
+
+
 def load_class_names(path: str | Path) -> List[str]:
     """Read class names from a file, one label per line (blank lines and
     ``#`` comments skipped) — the ``--classes-file`` format."""

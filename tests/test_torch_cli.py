@@ -1,0 +1,272 @@
+"""The port's ``train`` and ``predict`` CLIs against the JAX package's.
+
+Same synthetic folder (24 train images, batch 8, drop_last: 3 steps an
+epoch), ViT-Ti/16 at 32 px, f32, ``--attention xla --mlp-impl xla
+--dropout 0``, seed 7, one decode worker, two epochs. The port's
+``train.initial_params`` is patched to the JAX CLI's own init (Flax
+``model.init`` with ``key(seed)``), converted: the port cannot reproduce
+Flax's RNG. Per-epoch losses agree within ``tests/test_torch_engine.py``'s
+trajectory bound (rtol 5e-4), the final params within its drift bounds
+(0.5% per leaf, 0.2% global; the qkv bias within 2e-3 absolute) and the
+JSONL rows carry the same keys.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pytorch_vit_paper_replication_tpu.configs import PRESETS as JPRESETS
+from pytorch_vit_paper_replication_tpu.models import ViT as JViT
+from pytorch_vit_paper_replication_tpu.train import main as jax_train_main
+from pytorch_vit_paper_replication_tpu_torch import train as ttrain
+from pytorch_vit_paper_replication_tpu_torch.checkpoint import Checkpointer
+from pytorch_vit_paper_replication_tpu_torch.convert import (
+    flatten_tree, load_params_npz, params_from_flax, params_to_flax)
+from pytorch_vit_paper_replication_tpu_torch.data import (
+    make_synthetic_image_folder)
+from pytorch_vit_paper_replication_tpu_torch.predictions import (
+    load_inference_checkpoint, predict_image)
+
+REPO = Path(__file__).resolve().parent.parent
+# JSONL keys of the JAX CLI that the port does not write, with the reason.
+PORT_OMITS = {
+    "compile_cache_hits": "the port has no persistent compilation cache "
+                          "(eager PyTorch; ROADMAP Queue 1 item 9)",
+    "compile_cache_misses": "as compile_cache_hits",
+}
+MODEL = ["--preset", "ViT-Ti/16", "--image-size", "32", "--patch-size", "16",
+         "--dtype", "float32", "--batch-size", "8", "--num-workers", "1"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these steps are tiny, and under a parallel
+    test run more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def folder(tmp_path_factory):
+    return make_synthetic_image_folder(
+        tmp_path_factory.mktemp("torch_cli") / "ds", train_per_class=8,
+        test_per_class=2, image_size=32)
+
+
+@pytest.fixture(scope="module")
+def trained(folder, tmp_path_factory):
+    """One epoch (seed 5, default dropout) with a checkpoint dir and the
+    metrics JSONL: ``(checkpoint_dir, results)``."""
+    ck = tmp_path_factory.mktemp("torch_cli_run") / "ckpt"
+    res = ttrain.main(_cpu(_common(folder, "5")) + [
+        "--epochs", "1", "--checkpoint-dir", str(ck),
+        "--metrics-jsonl", str(ck / "m.jsonl")])
+    return ck, res
+
+
+def _common(folder, seed="7"):
+    train, test = folder
+    return ["--train-dir", str(train), "--test-dir", str(test), *MODEL,
+            "--seed", seed]
+
+
+def _cpu(argv):
+    return argv + ["--device", "cpu"]
+
+
+def _jax_init(seed: int, **overrides):
+    cfg = JPRESETS["ViT-Ti/16"](num_classes=3, image_size=32, patch_size=16,
+                                dtype="float32", **overrides)
+    params = JViT(cfg).init(jax.random.key(seed),
+                            jnp.zeros((1, 32, 32, 3)))["params"]
+    return jax.device_get(params)
+
+
+def _rows(path):
+    return [json.loads(line) for line in Path(path).read_text().splitlines()]
+
+
+def test_train_cli_matches_jax_cli(folder, tmp_path, monkeypatch):
+    init = _jax_init(7)
+    monkeypatch.setattr(ttrain, "initial_params",
+                        lambda cfg, seed: params_from_flax(init))
+    argv = _common(folder) + ["--attention", "xla", "--mlp-impl", "xla",
+                              "--dropout", "0", "--epochs", "2"]
+    jres = jax_train_main(argv + [
+        "--checkpoint-dir", str(tmp_path / "jax"),
+        "--metrics-jsonl", str(tmp_path / "jax.jsonl")])
+    tres = ttrain.main(_cpu(argv) + [
+        "--checkpoint-dir", str(tmp_path / "port"),
+        "--metrics-jsonl", str(tmp_path / "port.jsonl")])
+    for key in ("train_loss", "test_loss"):
+        np.testing.assert_allclose(tres[key], jres[key], rtol=5e-4,
+                                   err_msg=key)
+    for key in ("train_acc", "test_acc"):
+        assert tres[key] == jres[key], key
+    jrows, trows = _rows(tmp_path / "jax.jsonl"), _rows(tmp_path /
+                                                       "port.jsonl")
+    assert [set(r) for r in trows] == [set(r) - set(PORT_OMITS)
+                                       for r in jrows]
+    for tr, jr in zip(trows, jrows):
+        assert (tr["step"], tr["epoch"]) == (jr["step"], jr["epoch"])
+        np.testing.assert_allclose(tr["lr"], jr["lr"], rtol=1e-6)
+        np.testing.assert_allclose(tr["grad_norm"], jr["grad_norm"],
+                                   rtol=5e-4)
+    # Final params: the port's export against JAX's final/ export.
+    import orbax.checkpoint as ocp
+    ckptr = ocp.StandardCheckpointer()
+    try:
+        jfinal = jax.device_get(ckptr.restore(tmp_path / "jax" / "final"))
+    finally:
+        ckptr.close()
+    flat_j = flatten_tree(jfinal)
+    flat_t = flatten_tree(params_to_flax(
+        load_params_npz(tmp_path / "port" / "final" / "params.npz")))
+    flat_0 = flatten_tree(init)
+    assert set(flat_j) == set(flat_t)
+    num = den = 0.0
+    for key, t in flat_t.items():
+        j, t0, t = (np.float64(x) for x in (flat_j[key], flat_0[key], t))
+        num += np.linalg.norm(t - j) ** 2
+        den += np.linalg.norm(j - t0) ** 2
+        if key.endswith("qkv/bias"):
+            assert np.abs(t - j).max() < 2e-3, key
+        else:
+            move = max(np.linalg.norm(j - t0), 1e-4)
+            assert np.linalg.norm(t - j) / move < 5e-3, key
+    assert (num / den) ** 0.5 < 2e-3
+    for name in ("transform.json", "model_meta.json"):
+        assert json.loads((tmp_path / "port" / name).read_text()) == \
+            json.loads((tmp_path / "jax" / name).read_text()), name
+
+
+def test_mid_epoch_resume_matches_uninterrupted(folder, tmp_path):
+    """Train with step-interval checkpoints, delete everything after the
+    mid-epoch step-4 save (1 of epoch 2's 3 batches trained) and the final
+    export, rerun the same command: the resumed run reaches step 6 with
+    params bit-identical to the uninterrupted run's (default dropout
+    on)."""
+    ck = tmp_path / "B"
+    argv = _cpu(_common(folder) + ["--epochs", "2"]) + [
+        "--checkpoint-dir", str(ck), "--checkpoint-every-steps", "2",
+        "--keep-checkpoints", "20"]
+    ttrain.main(argv)
+    a = load_params_npz(ck / "final" / "params.npz")
+    for d in ck.iterdir():
+        if d.is_dir() and (d.name == "final"
+                           or (d.name.isdigit() and int(d.name) > 4)):
+            shutil.rmtree(d)
+    assert Checkpointer(ck).latest_step() == 4
+    ttrain.main(argv)
+    assert Checkpointer(ck).latest_step() == 6
+    b = load_params_npz(ck / "final" / "params.npz")
+    assert set(a) == set(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_eval_only_matches_final_metrics(folder, trained):
+    ck, res = trained
+    last = _rows(ck / "m.jsonl")[-1]
+    eval_argv = _cpu(["--test-dir", str(folder[1]), *MODEL, "--seed", "5",
+                      "--eval-only", "--checkpoint-dir", str(ck)])
+    ev = ttrain.main(eval_argv)
+    assert ev["train_loss"] == []
+    assert ev["test_loss"][0] == res["test_loss"][-1] == last["test_loss"]
+    assert ev["test_acc"][0] == res["test_acc"][-1] == last["test_acc"]
+    # Without step checkpoints eval-only scores the final/ export.
+    for d in ck.iterdir():
+        if d.is_dir() and d.name.isdigit():
+            shutil.rmtree(d)
+    ev2 = ttrain.main(eval_argv)
+    assert ev2["test_loss"][0] == res["test_loss"][-1]
+    with pytest.raises(SystemExit, match="checkpoint-dir"):
+        ttrain.main(_cpu(["--test-dir", str(folder[1]), *MODEL,
+                          "--eval-only"]))
+
+
+def test_resume_schedule_horizon_guard(folder, tmp_path):
+    ck = tmp_path / "ck"
+    base = _cpu(_common(folder)) + ["--checkpoint-dir", str(ck),
+                                    "--attention", "xla", "--mlp-impl",
+                                    "xla", "--dropout", "0"]
+    ttrain.main(base + ["--epochs", "1"])
+    with pytest.raises(SystemExit, match="extend-schedule"):
+        ttrain.main(base + ["--epochs", "2"])
+    assert json.loads((ck / "run_meta.json").read_text())["epochs"] == 1
+    res = ttrain.main(base + ["--epochs", "2", "--extend-schedule"])
+    assert len(res["train_loss"]) == 1
+    assert Checkpointer(ck).latest_step() == 6
+    assert json.loads((ck / "run_meta.json").read_text())["epochs"] == 2
+    # A same-horizon resume of a finished run trains nothing.
+    assert ttrain.main(base + ["--epochs", "2"])["train_loss"] == []
+
+
+@pytest.mark.parametrize("extra,item", [
+    (["--dataset", "packed"], 2), (["--dataset", "cifar10"], 2),
+    (["--pretrained", "w.pth"], 8), (["--freeze-backbone"], 8),
+    (["--model", "tinyvgg"], 8), (["--distill-from", "sink"], 9),
+    (["--elastic", "2"], 7), (["--mesh-data", "2"], 7),
+    (["--mesh-model", "2"], 7), (["--mesh-pipe", "2"], 7),
+    (["--multihost"], 7), (["--telemetry-jsonl", "t.jsonl"], 5),
+    (["--profile-steps", "2:3"], 5), (["--profile-dir", "p"], 5),
+    (["--ship-to", "127.0.0.1:9"], 5), (["--tensorboard-dir", "tb"], 5),
+    (["--compile-cache-dir", "cc"], 9)])
+def test_unported_flags_exit_nonzero(folder, extra, item):
+    with pytest.raises(SystemExit, match=f"not yet ported \\(ROADMAP Queue "
+                                         f"1 item {item}\\)"):
+        ttrain.main(_cpu(_common(folder)) + extra)
+
+
+def test_rng_impl_is_refused(folder):
+    with pytest.raises(SystemExit, match="rng-impl"):
+        ttrain.main(_cpu(_common(folder)) + ["--rng-impl", "threefry2x32"])
+
+
+def test_cuda_is_the_default_and_raises_without_a_card(folder, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device: the default is valid")
+    from pytorch_vit_paper_replication_tpu_torch import predict
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.main(_common(folder) + ["--epochs", "1"])
+    img = next(Path(folder[1]).rglob("*.jpg"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predict.main([str(img), "--checkpoint", str(tmp_path),
+                      "--classes", "pizza", "steak", "sushi",
+                      "--preset", "ViT-Ti/16"])
+
+
+def test_predict_cli_prints_predict_image(folder, trained):
+    """``python -m ...predict`` as a user runs it on a trained run's
+    directory: the printed label and probability are predict_image's on
+    the same export."""
+    ck, _ = trained
+    images = sorted(Path(folder[1]).rglob("*.jpg"))[:3]
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "pytorch_vit_paper_replication_tpu_torch.predict",
+         *map(str, images), "--checkpoint", str(ck), "--classes", "pizza",
+         "steak", "sushi", "--preset", "ViT-Ti/16", "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    lines = proc.stdout.strip().splitlines()
+    model, transform, spec = load_inference_checkpoint(
+        ck, "ViT-Ti/16", 3, device="cpu")
+    assert spec["image_size"] == 32 and spec["normalize"] is False
+    for img, line in zip(images, lines):
+        label, prob, _ = predict_image(model, img, ["pizza", "steak",
+                                                    "sushi"], transform)
+        assert line == f"{img}: {label} ({prob:.3f})"
+    assert len(lines) == len(images)

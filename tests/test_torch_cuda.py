@@ -831,3 +831,79 @@ def test_bf16_tma_operands_must_be_aligned_on_card(dev):
         fused_mlp._launch_gemm(odd(64, 64), q.new_zeros(64, 64), "tn")
     assert counts == (fused_mlp.bwd_launches, fused_mlp.core_bwd_launches,
                       fa.dq_launches)
+
+
+def test_pinned_prefetch_yields_the_batches_on_the_card(dev):
+    """``prefetch_to_device`` on the card: every batch arrives as device
+    tensors equal to its numpy batch, in order, while the consumer keeps
+    the card busy (so copies and reuse of the pinned buffers overlap it)."""
+    from pytorch_vit_paper_replication_tpu_torch.data import (
+        prefetch_to_device)
+    rng = np.random.default_rng(0)
+    batches = [{"image": rng.standard_normal((8, 32, 32, 3)).astype(
+                    np.float32),
+                "label": rng.integers(0, 10, 8).astype(np.int32)}
+               for _ in range(12)]
+    for size in (1, 2, 3):
+        got = []
+        for b in prefetch_to_device(iter(batches), size=size, device=dev):
+            torch.cuda._sleep(2_000_000)
+            assert all(t.is_cuda for t in b.values())
+            got.append({k: (t * 1).cpu().numpy() for k, t in b.items()})
+        assert len(got) == len(batches)
+        for g, w in zip(got, batches):
+            for k in w:
+                np.testing.assert_array_equal(g[k], w[k])
+
+
+def test_pinned_buffer_reused_only_after_its_copy_completed(dev):
+    """A pinned buffer set whose copy is still queued (behind a spin
+    kernel) is rewritten only after that copy's event completes: the
+    device copy reads the old contents."""
+    from pytorch_vit_paper_replication_tpu_torch.data.image_folder import (
+        _pinned_copy)
+    host = {"image": torch.zeros((4, 64, 64, 3), pin_memory=True)}
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)
+        on_card = host["image"].to(dev, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(side)
+    free = [(event, host)]
+    assert not event.query()
+    out = _pinned_copy({"image": np.ones((4, 64, 64, 3), np.float32)}, free)
+    assert event.query() and free == []
+    assert out["image"] is host["image"] and bool((out["image"] == 1).all())
+    torch.cuda.synchronize()
+    assert bool((on_card == 0).all())
+
+
+def test_train_cli_epoch_on_card_matches_cpu(dev, tmp_path):
+    """One Ti/16 epoch through the train CLI (f32, the fused MLP and
+    flash kernels, dropout off) on the card against the same epoch with
+    ``--device cpu``, within chip_smoke's card-vs-CPU step bound (2e-3
+    relative on the loss)."""
+    from pytorch_vit_paper_replication_tpu_torch import train
+    from pytorch_vit_paper_replication_tpu_torch.convert import (
+        load_params_npz)
+    from pytorch_vit_paper_replication_tpu_torch.data import (
+        make_synthetic_image_folder)
+    tr, te = make_synthetic_image_folder(tmp_path / "ds", train_per_class=8,
+                                         test_per_class=2, image_size=32)
+    argv = ["--train-dir", str(tr), "--test-dir", str(te), "--preset",
+            "ViT-Ti/16", "--image-size", "32", "--patch-size", "16",
+            "--dtype", "float32", "--batch-size", "8", "--epochs", "1",
+            "--attention", "flash", "--mlp-impl", "fused", "--dropout", "0",
+            "--seed", "3", "--num-workers", "1"]
+    res = {d: train.main(argv + ["--device", d, "--checkpoint-dir",
+                                 str(tmp_path / d)])
+           for d in ("cuda", "cpu")}
+    for key in ("train_loss", "test_loss"):
+        np.testing.assert_allclose(res["cuda"][key], res["cpu"][key],
+                                   rtol=2e-3, err_msg=key)
+    card = load_params_npz(tmp_path / "cuda" / "final" / "params.npz")
+    cpu = load_params_npz(tmp_path / "cpu" / "final" / "params.npz")
+    num = sum(float((card[k].double() - cpu[k].double()).square().sum())
+              for k in cpu)
+    den = sum(float(cpu[k].double().square().sum()) for k in cpu)
+    assert (num / den) ** 0.5 < 2e-3

@@ -262,7 +262,38 @@ def test_train_stop_check_and_unported_hooks_raise():
         state, lambda: iter(_batches(n=3)), lambda: iter([]), epochs=2,
         verbose=False, stop_check=lambda s: seen.append(s) or s == 2)
     assert seen == [1, 2] and state.step == 2 and res["train_loss"] == []
-    for kw in (dict(logger=object()), dict(checkpointer=object()),
-               dict(telemetry=object()), dict(profile_dir="x")):
+    for kw in (dict(telemetry=object()), dict(profile_dir="x")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             engine.train(state, list, list, epochs=1, **kw)
+
+
+def test_train_logs_and_checkpoints(tmp_path):
+    """``logger`` and ``checkpointer`` (ported): one JSONL row per epoch with
+    the JAX loop's keys, a save every ``checkpoint_every_steps`` and at the
+    final epoch."""
+    import json
+
+    from pytorch_vit_paper_replication_tpu_torch.checkpoint import (
+        Checkpointer)
+    from pytorch_vit_paper_replication_tpu_torch.metrics import MetricsLogger
+
+    cfg, params = _init()
+    state = _port_state(cfg, params, RECIPE, 6)
+    ck = Checkpointer(tmp_path / "ck", max_to_keep=10)
+    with MetricsLogger(tmp_path / "m.jsonl") as logger:
+        state, res = engine.train(
+            state, lambda: iter(_batches(n=3)), lambda: iter(_batches(n=1)),
+            epochs=2, verbose=False, logger=logger, checkpointer=ck,
+            checkpoint_every_steps=2, lr_schedule=lambda s: 1e-3 * s)
+    rows = [json.loads(x) for x in
+            (tmp_path / "m.jsonl").read_text().splitlines()]
+    assert [(r["step"], r["epoch"]) for r in rows] == [(3, 1), (6, 2)]
+    assert set(rows[0]) == {"time", "step", "epoch", "train_loss",
+                            "train_acc", "test_loss", "test_acc",
+                            "images_per_sec", "grad_norm", "lr",
+                            "time_to_first_step"}
+    assert "time_to_first_step" not in rows[1]
+    assert rows[1]["lr"] == 1e-3 * 6
+    np.testing.assert_allclose([r["train_loss"] for r in rows],
+                               res["train_loss"])
+    assert ck.all_steps() == [2, 3, 4, 6]
