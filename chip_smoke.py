@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (ViT-B/16 serving and
-training paths).
+training paths, the Quickstart and the ImageNet-scale training CLIs).
 
 Run from the repository root on a machine with one CUDA card::
 
@@ -111,7 +111,34 @@ final ``ok`` line is never printed:
              native decode where it built and PIL, 224 and 512 px
              sources), H2D ms of a [32, 224, 224, 3] f32 batch pinned and
              pageable, B/16 checkpoint save and restore seconds, and
-             whether the native JPEG decoder built on this machine.
+             whether the native JPEG decoder built on this machine. The
+             checkpoint reading has a sync save and two async ones (time
+             in ``save()`` and until durable).
+4c. train_packed — the ImageNet-scale recipe: a seeded folder of 321
+             train / 24 test JPEGs at 512 px packed with ``python -m
+             ...data.pack --pack-size 256 --shard-images 64
+             --shuffle-seed 0``, then B/16 at 224 px, bf16, batch 32, one
+             loader thread, ``--shuffle-window 128 --readahead 2``, 2
+             epochs of 10 steps, a save every 4 steps. P1: ``python -m
+             ...train --dataset packed`` (async saves, the default
+             augmentation, telemetry JSONL every step, the watchdog, a
+             profile window over steps 6-7) as a subprocess. P2: the same
+             command with ``--sync-checkpoints`` through ``train.main``,
+             the counters set to 0 right before and read right after:
+             rows 1-5 launched 12 times a step, rows 6, 7 never. Checks:
+             P1's final params equal P2's bit for bit; the command without
+             augmentation stopped after step 6 and resumed from its async
+             step-4 save equals the uninterrupted run; every telemetry row
+             has the JAX package's keys for its event; every tel_mfu is in
+             (0, 1) and equals tel_images_per_sec x FLOPs / the card's
+             bf16 peak within 1%; each profile trace names the kernels of
+             rows 1-5; no postmortem; the memory gauges non-zero and
+             mem_dev0_bytes_peak within 5% of max_memory_allocated;
+             ``--dataset cifar10`` on a fake archive one epoch with the
+             same launches a step. Prints the epoch img/s of P1 and P2,
+             the host's blocked seconds per save, each profile window's
+             idle share, tel_mfu and the packed loader's img/s alone at 1
+             and all threads with its transform path.
 5. parallel — the data x tensor x pipeline path through the port's
              ``parallel.spawn``, four rank processes sharing the one card
              (gloo, every transfer through host memory; the phase prints
@@ -131,6 +158,8 @@ final ``ok`` line is never printed:
              is printed). Wall times there are four ranks sharing one
              H100, not parallel-training throughput.
 6. the kernel list, the card's name and power limit, and the ``ok`` line.
+   Every entry's ``ms``, ``plain_ms`` and ``library_ms`` are event times,
+   its ``device_ms`` and ``library_device_ms`` device times.
 
 Phase 2 also holds the MLP core kernels (rows 6 and 7, ``csrc/
 fused_mlp_core.cu``) against their plain versions at N = 32*197, D = 768,
@@ -159,13 +188,6 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 PKG = "pytorch_vit_paper_replication_tpu_torch"
 
-# Peak rates by card (NVIDIA data sheets, dense, at the full power limit):
-# (bf16 tensor FLOP/s, f32 non-tensor FLOP/s, HBM bytes/s).
-PEAKS = {
-    "H100 PCIe": (756e12, 51e12, 2.0e12),
-    "H200": (989e12, 67e12, 4.8e12),
-    "H100": (989e12, 67e12, 3.35e12),
-}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 PRESET = "ViT-B/16"
 NUM_CLASSES = 1000
@@ -186,10 +208,14 @@ def card_line() -> str:
 
 
 def peaks(name: str):
-    for key, val in PEAKS.items():
-        if key in name:
-            return val
-    raise RuntimeError(f"no peak-rate entry for card {name!r}")
+    """(bf16 tensor FLOP/s, f32 non-tensor FLOP/s, HBM bytes/s) of the
+    card, from the port's one table (``telemetry/flops.py``)."""
+    from pytorch_vit_paper_replication_tpu_torch.telemetry.flops import (
+        peaks as table)
+    val = table(name)
+    if val is None:
+        raise RuntimeError(f"no peak-rate entry for card {name!r}")
+    return val
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -2462,7 +2488,9 @@ def h2d_ms(dev) -> dict:
 def checkpoint_seconds(dev, root: Path) -> dict:
     """Save and restore seconds of a B/16 TrainState (params, both Adam
     moments) through the port's Checkpointer (digest and verify
-    included), on this machine's disk."""
+    included), on this machine's disk: a synchronous save, then async
+    saves (the second one reuses the pinned buffers the first allocated):
+    the host's time in ``save()`` and until ``wait()`` returns."""
     import torch
     from pytorch_vit_paper_replication_tpu_torch import engine, optim
     from pytorch_vit_paper_replication_tpu_torch.checkpoint import (
@@ -2478,7 +2506,7 @@ def checkpoint_seconds(dev, root: Path) -> dict:
     state = engine.TrainState.create(
         model=model, seed=0, tx=optim.make_optimizer(TrainConfig(), 10))
     state.step = 1
-    ck = Checkpointer(root / "ck_time", max_to_keep=1)
+    ck = Checkpointer(root / "ck_time", max_to_keep=1, async_save=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ck.save(state)
@@ -2488,9 +2516,21 @@ def checkpoint_seconds(dev, root: Path) -> dict:
     ck.restore(state)
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
+    ak = Checkpointer(root / "ck_async", max_to_keep=1)
+    async_s = []
+    for step in (2, 3):
+        state.step = step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ak.save(state)
+        returned = time.perf_counter() - t0
+        ak.wait()
+        async_s.append({"save_returned_s": returned,
+                        "durable_s": time.perf_counter() - t0})
     del state, model
     torch.cuda.empty_cache()
-    return {"save_s": save_s, "restore_s": restore_s, "bytes": nbytes}
+    return {"save_s": save_s, "restore_s": restore_s, "bytes": nbytes,
+            "async": async_s}
 
 
 def phase_train_cli(dev, root: Path) -> dict:
@@ -2645,6 +2685,324 @@ def phase_train_cli(dev, root: Path) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- phase 4c
+# The ImageNet-scale recipe on a seeded folder of 512 px JPEGs: packed at
+# 256 px into 64-record shards, then B/16 at 224 px, batch 32, 10 steps an
+# epoch (PACKED_PER_CLASS x 3 train records), one loader thread (the
+# augmentation's draws are bitwise reproducible with one worker).
+PACKED_PER_CLASS = (107, 8)
+PACKED_EPOCHS = 2
+PACKED_EVERY_STEPS = 4
+PACKED_PROFILE = (6, 7)
+PACKED_STOP_AT = 6
+# The JSONL rows' keys by event (the JAX package's row grammar: ROW_KEYS
+# plus the declared tel_ instruments and the time/step/epoch spine).
+TEL_ROW_KEYS = {
+    "step": {"time", "event", "tel_data_wait_s", "tel_step_exec_s",
+             "tel_step_s", "tel_images_per_sec", "tel_block_sampled",
+             "tel_step_amortized_s", "tel_mfu", "step", "epoch"},
+    "span": {"time", "event", "span", "seconds"},
+    "epoch_summary": {"time", "event", "tel_steps", "tel_images",
+                      "tel_epoch_wall_s", "tel_step_p50_s",
+                      "tel_step_p95_s", "tel_step_p99_s",
+                      "tel_data_wait_frac", "tel_goodput_pct",
+                      "tel_images_per_sec", "tel_data_wait_s_sum",
+                      "tel_step_exec_s_sum", "tel_ckpt_s_sum",
+                      "tel_eval_s_sum", "tel_mfu", "epoch", "step"}}
+# A name each kernel of rows 1-5 carries in a torch.profiler trace.
+ROW_TRACE_NAMES = {"fused_ln_mlp_residual": ("ln_rows_pre", "gemm_bf16"),
+                   "fused_ln_mlp_residual_bwd": ("rows_post",),
+                   "flash_attention": ("flash_fwd_wgmma",),
+                   "flash_attention_bwd_dq": ("flash_bwd_dq_wg2",),
+                   "flash_attention_bwd_dkv": ("flash_bwd_dkv_wg2",)}
+MEM_GAUGES = ("mem_live_bytes", "mem_live_bytes_peak", "mem_live_arrays",
+              "mem_dev0_bytes_in_use", "mem_dev0_bytes_peak",
+              "mem_dev0_bytes_limit")
+
+
+def trace_window(path: Path) -> dict:
+    """A ``torch.profiler`` Chrome trace: its wall (first event start to
+    last event end), the union of its device intervals (kernels, copies,
+    sets), the idle share and the kernel names."""
+    events = json.loads(path.read_text())["traceEvents"]
+    timed = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                 for e in timed if e.get("cat") in
+                 ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for s, e in dev:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    t0 = min(float(e["ts"]) for e in timed)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in timed)
+    wall = t1 - t0
+    return {"wall_ms": wall / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / wall if wall else None,
+            "kernels": {e["name"] for e in timed if e.get("cat") == "kernel"}}
+
+
+def _check_trace_names(tag: str, names) -> None:
+    missing = [row for row, keys in ROW_TRACE_NAMES.items()
+               if not all(any(k in n for n in names) for k in keys)]
+    if missing:
+        raise AssertionError(f"{tag}: the profile trace names no kernel of "
+                             f"{missing} ({len(names)} kernel names)")
+
+
+def _check_tel_rows(tag: str, rows, flops: float, peak_tflops: float) -> list:
+    """Every telemetry row has its event's keys; every tel_mfu is in (0, 1)
+    and equals tel_images_per_sec x flops / peak within 1% (plus the row's
+    4-decimal rounding). Returns the step rows."""
+    events = {r["event"] for r in rows}
+    if events != set(TEL_ROW_KEYS):
+        raise AssertionError(f"{tag}: telemetry events {events}")
+    for r in rows:
+        want = TEL_ROW_KEYS[r["event"]]
+        if r["event"] == "step" and not r["tel_block_sampled"]:
+            want = want - {"tel_step_amortized_s"}
+        if set(r) != want:
+            raise AssertionError(f"{tag}: a {r['event']} row has keys "
+                                 f"{sorted(set(r) ^ want)} off the JAX "
+                                 f"grammar: {r}")
+        if "tel_mfu" in r:
+            mfu = r["tel_mfu"]
+            exp = r["tel_images_per_sec"] * flops / 1e12 / peak_tflops
+            if not (0 < mfu < 1 and abs(mfu - exp) <= 0.01 * exp + 5e-5):
+                raise AssertionError(f"{tag}: tel_mfu {mfu} against "
+                                     f"{exp} from tel_images_per_sec: {r}")
+    return [r for r in rows if r["event"] == "step"]
+
+
+def packed_loader_rates(train: Path, test: Path) -> list:
+    """img/s of the packed train loader alone (the default augmentation at
+    224 px, batch 32, the phase's shuffle window and readahead) over one
+    epoch after a warm one, at 1 and os.cpu_count() threads, and which
+    transform path it took."""
+    import os
+    from pytorch_vit_paper_replication_tpu_torch import native
+    from pytorch_vit_paper_replication_tpu_torch.data import (
+        create_packed_dataloaders)
+    path = ("native resize_crop_f32" if native.available()
+            else "composed PIL (no native library)")
+    rows = []
+    for workers in (1, os.cpu_count() or 1):
+        dl, test_dl, _ = create_packed_dataloaders(
+            train, test, 224, TRAIN_BATCH, normalize=False,
+            num_workers=workers, shuffle_window=128, readahead=2)
+        try:
+            list(dl)
+            t0 = time.perf_counter()
+            n = sum(len(b["label"]) for b in dl)
+            rate = n / (time.perf_counter() - t0)
+        finally:
+            dl.close()
+            test_dl.close()
+        rows.append({"threads": workers, "images": n, "img_per_s": rate,
+                     "path": path})
+    return rows
+
+
+def phase_train_packed(dev, root: Path) -> dict:
+    """Pack a seeded 512 px folder with ``python -m ...data.pack``; run P1,
+    ``python -m ...train --dataset packed`` with async saves, telemetry, the
+    watchdog and a profile window, as a subprocess; run P2, the same
+    command with ``--sync-checkpoints``, through ``train.main`` in this
+    process with the launch counters; hold P1's final params equal to
+    P2's, P1's command (no augmentation, one epoch) stopped after step 6
+    and resumed from its async step-4 save equal to the uninterrupted run,
+    the telemetry rows, tel_mfu, the traces' kernel names, the watchdog,
+    the memory gauges; then one epoch of ``--dataset cifar10`` on a fake
+    archive. The card's idle share is read from P1's and P2's profile
+    windows (steps 6-7, between two saves). Returns P2's launch counts."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch import engine
+    from pytorch_vit_paper_replication_tpu_torch.configs import PRESETS
+    from pytorch_vit_paper_replication_tpu_torch.convert import (
+        load_params_npz)
+    from pytorch_vit_paper_replication_tpu_torch.data import (
+        make_fake_cifar10, make_synthetic_image_folder)
+    from pytorch_vit_paper_replication_tpu_torch.telemetry import (
+        bf16_peak_tflops, get_registry, train_step_flops_per_image)
+
+    t_phase = time.perf_counter()
+    src_train, src_test = make_synthetic_image_folder(
+        root / "src", train_per_class=PACKED_PER_CLASS[0],
+        test_per_class=PACKED_PER_CLASS[1], image_size=512, seed=3)
+    # Both splits pack at once: the pack CLI is host-only.
+    procs = {split: subprocess.Popen(
+        [sys.executable, "-m", f"{PKG}.data.pack", str(src), str(root / split),
+         "--pack-size", "256", "--shard-images", "64", "--shuffle-seed", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
+        for split, src in (("train", src_train), ("test", src_test))}
+    packs = {}
+    for split, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"python -m {PKG}.data.pack {split} exit "
+                                 f"{proc.returncode}: {err[-3000:]}")
+        packs[split] = out.strip().splitlines()[-1]
+    pack_s = time.perf_counter() - t_phase
+    n_shards = len(list((root / "train").glob("shard-*.bin")))
+    flops = train_step_flops_per_image(PRESETS[PRESET](num_classes=3))
+    peak = bf16_peak_tflops(torch.cuda.get_device_name(0))
+
+    def command(ck: Path, *extra):
+        return ["--dataset", "packed", "--train-dir", str(root / "train"),
+                "--test-dir", str(root / "test"), "--preset", PRESET,
+                "--image-size", "224", "--dtype", "bfloat16",
+                "--batch-size", str(TRAIN_BATCH), "--attention", "auto",
+                "--mlp-impl", "auto", "--seed", "0", "--num-workers", "1",
+                "--shuffle-window", "128", "--readahead", "2",
+                "--checkpoint-dir", str(ck), "--keep-checkpoints", "20",
+                "--checkpoint-every-steps", str(PACKED_EVERY_STEPS),
+                *extra]
+
+    observe = ["--epochs", str(PACKED_EPOCHS), "--telemetry-every", "1",
+               "--watchdog-s", "300", "--profile-steps",
+               "{}:{}".format(*PACKED_PROFILE)]
+    p1, p2 = root / "P1", root / "P2"
+    t0 = time.perf_counter()
+    _cli_subprocess("train", command(
+        p1, *observe, "--telemetry-jsonl", str(p1 / "tel.jsonl"),
+        "--metrics-jsonl", str(p1 / "m.jsonl")))
+    p1_s = time.perf_counter() - t0
+
+    # ---- the main path, in this process: counts to 0, drive, read.
+    get_registry().reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with StepProbe() as probe:
+        _cli_main("train", command(
+            p2, *observe, "--sync-checkpoints", "--telemetry-jsonl",
+            str(p2 / "tel.jsonl"), "--metrics-jsonl", str(p2 / "m.jsonl")))
+    torch.cuda.synchronize()
+    p2_s = time.perf_counter() - t0
+    launches = read_counts()
+    max_alloc = torch.cuda.max_memory_allocated()
+    snap = get_registry().snapshot()
+    _check_step_launches("P2", probe.deltas)
+    steps = len(probe.deltas)
+    if steps != PACKED_EPOCHS * 10:
+        raise AssertionError(f"P2 ran {steps} steps, not "
+                             f"{PACKED_EPOCHS * 10}")
+
+    f1 = load_params_npz(p1 / "final" / "params.npz")
+    f2 = load_params_npz(p2 / "final" / "params.npz")
+    differ = [k for k in f1 if not torch.equal(f1[k], f2[k])]
+    if set(f1) != set(f2) or differ:
+        raise AssertionError(f"P1 (async saves) and P2 (sync) final params "
+                             f"differ: {differ[:5]}")
+
+    # ---- resume from an async save, P1's command without augmentation
+    # (a resumed epoch never makes the skipped batches' draws).
+    t0 = time.perf_counter()
+    r_cmd = command(root / "R", "--no-augment", "--epochs", "1")
+    _cli_main("train", command(root / "U", "--no-augment", "--epochs", "1"))
+    train_fn = engine.train
+
+    def stopped(*a, **kw):
+        return train_fn(*a, stop_check=lambda s: s >= PACKED_STOP_AT, **kw)
+    engine.train = stopped
+    try:
+        _cli_main("train", r_cmd)
+    finally:
+        engine.train = train_fn
+    committed = sorted(int(d.name) for d in (root / "R").iterdir()
+                       if d.name.isdigit())
+    if committed != [PACKED_EVERY_STEPS]:
+        raise AssertionError(f"the stopped run committed {committed}")
+    shutil.rmtree(root / "R" / "final")
+    _, resume_out = _cli_main("train", r_cmd)
+    if f"resumed from step {PACKED_EVERY_STEPS}" not in resume_out:
+        raise AssertionError(f"no resume: {resume_out[-600:]}")
+    fu = load_params_npz(root / "U" / "final" / "params.npz")
+    fr = load_params_npz(root / "R" / "final" / "params.npz")
+    differ = [k for k in fu if not torch.equal(fu[k], fr[k])]
+    if differ:
+        raise AssertionError(f"resumed run differs from the uninterrupted "
+                             f"one: {differ[:5]}")
+    resume_s = time.perf_counter() - t0
+
+    # ---- telemetry, traces, watchdog, memory gauges.
+    readings = {}
+    for tag, ck in (("P1", p1), ("P2", p2)):
+        rows = _jsonl(ck / "tel.jsonl")
+        step_rows = _check_tel_rows(tag, rows, flops, peak)
+        if len(step_rows) != steps:
+            raise AssertionError(f"{tag}: {len(step_rows)} step rows")
+        traces = sorted((ck / "profiles").glob("capture_*/trace.json"))
+        if len(traces) != 1 or "_step{}_".format(PACKED_PROFILE[0]) \
+                not in traces[0].parent.name:
+            raise AssertionError(f"{tag}: profile captures {traces}")
+        window = trace_window(traces[0])
+        _check_trace_names(tag, window.pop("kernels"))
+        if (ck / "postmortem.txt").exists():
+            raise AssertionError(f"{tag}: the watchdog fired: "
+                                 f"{(ck / 'postmortem.txt').read_text()[:2000]}")
+        ckpt = [r["seconds"] for r in rows if r.get("span") == "checkpoint"]
+        summaries = [r for r in rows if r["event"] == "epoch_summary"]
+        readings[tag] = {
+            "epochs": [{k: r[k] for k in ("epoch", "images_per_sec",
+                                          "train_loss")}
+                       for r in _jsonl(ck / "m.jsonl")],
+            "save_blocked_s": ckpt,
+            "profile_window": window,
+            "tel_mfu_steps_2_on": [r["tel_mfu"] for r in step_rows[1:]],
+            "epoch_summaries": [{k: r[k] for k in (
+                "tel_images_per_sec", "tel_mfu", "tel_goodput_pct",
+                "tel_data_wait_frac", "tel_ckpt_s_sum",
+                "tel_step_p50_s")} for r in summaries]}
+    gauges, counters = snap["gauges"], snap["counters"]
+    missing = [g for g in MEM_GAUGES if not gauges.get(g)]
+    if missing:
+        raise AssertionError(f"P2: memory gauges missing or zero: {missing}")
+    if not 0.95 * max_alloc <= gauges["mem_dev0_bytes_peak"] <= max_alloc:
+        raise AssertionError(f"P2: mem_dev0_bytes_peak "
+                             f"{gauges['mem_dev0_bytes_peak']} against "
+                             f"max_memory_allocated {max_alloc}")
+    if counters.get("watchdog_stalls_total") or not counters.get(
+            "watchdog_beats_total"):
+        raise AssertionError(f"P2: watchdog counters {counters}")
+
+    # ---- CIFAR-10 (a fake archive in the real format), one epoch.
+    t0 = time.perf_counter()
+    fake = make_fake_cifar10(root / "cifar")
+    with StepProbe() as cifar:
+        _cli_main("train", ["--dataset", "cifar10", "--data-root", str(fake),
+                            "--preset", PRESET, "--image-size", "224",
+                            "--batch-size", str(TRAIN_BATCH), "--epochs",
+                            "1", "--seed", "0", "--num-workers", "1"])
+    _check_step_launches("cifar10", cifar.deltas)
+    cifar_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loader = packed_loader_rates(root / "train", root / "test")
+
+    emit({"phase": "train_packed", "ok": True, "model": PRESET, "px": 224,
+          "batch": TRAIN_BATCH, "pack": packs, "train_shards": n_shards,
+          "steps": steps, "pack_s": round(pack_s, 3),
+          "p1_subprocess_s": round(p1_s, 3), "p2_s": round(p2_s, 3),
+          "resume_s": round(resume_s, 3), "cifar10_s": round(cifar_s, 3),
+          "loader_s": round(time.perf_counter() - t0, 3),
+          "launches": launches,
+          "launches_per_step": CLI_STEP_LAUNCHES,
+          "async_equals_sync_bit_for_bit": True,
+          "resumed_from_async_step": PACKED_EVERY_STEPS,
+          "stopped_after_step": PACKED_STOP_AT,
+          "resumed_final_params_bit_identical": True,
+          "flops_per_image": flops, "peak_tflops": peak,
+          "p1_async": readings["P1"], "p2_sync": readings["P2"],
+          "memory": {**{g: gauges[g] for g in MEM_GAUGES},
+                     "max_memory_allocated": max_alloc},
+          "watchdog_beats": counters["watchdog_beats_total"],
+          "cifar10_steps": len(cifar.deltas),
+          "packed_loader": loader,
+          "seconds": round(time.perf_counter() - t_phase, 3)})
+    return launches
+
+
 # ------------------------------------------------------------- phase 6
 # How each kernel multiplies on the card, bf16 (f32 runs SIMT everywhere).
 KERNEL_DESIGN = {
@@ -2657,7 +3015,7 @@ KERNEL_DESIGN = {
 
 
 def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
-                cli_launches):
+                cli_launches, packed_launches):
     """The seven ported kernels with their main-path numbers: rows 1-5 at
     batch 32, bf16, dropout off, T = 197; rows 6 and 7 (the MLP core) at
     the parallel phase's per-microbatch shape (4 * 197 rows, F / tp =
@@ -2669,7 +3027,12 @@ def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
     its kernel was held to its plain version at in this run,
     ``ops_launches`` its launches on the ops phase's path and
     ``train_cli_launches`` on the train_cli phase's (run B through
-    ``train.main``)."""
+    ``train.main``), ``train_packed_launches`` on the train_packed phase's
+    (P2 through ``train.main``). ``ms``, ``plain_ms`` and ``library_ms``
+    are event times on every row, ``device_ms`` and ``library_device_ms``
+    device times (calls queued behind a spin kernel). The two clocks part
+    most for the flash backward's library call: its event time includes
+    the host's ``torch.autograd.grad`` call, which the card waits on."""
     def pick(kernel, **match):
         return next(r for r in k_rows if r.get("kernel") == kernel and all(
             r[k] == v for k, v in match.items()))
@@ -2692,33 +3055,38 @@ def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
     fl_b = pick("flash_attention_bwd", dtype="bfloat16", threshold=0,
                 shape=[32, 197, 12, 64])
     # (name, source, replaces, max |err|, row with the main path's numbers,
-    # its keys for kernel / plain / device ms, bound and bound_by,
-    # library_ms, and the four-GEMM yardstick where there is one).
+    # its keys for kernel / plain / device ms, bound and bound_by, the
+    # library call's event and device ms, and the GEMM yardstick's where
+    # there is one).
+    none = (None, None)
     rows = [
         ("fused_ln_mlp_residual", "fused_mlp.cu", "fused_mlp.py:461",
          max_err("fused_ln_mlp_residual"), mlp,
          ("kernel_ms", "plain_ms", "device_ms", "bound_ms", "bound_by"),
-         None, mlp["gemms_library_ms"]),
+         none, (mlp["gemms_library_ms"], mlp["gemms_library_device_ms"])),
         ("fused_ln_mlp_residual_bwd", "fused_mlp_bwd.cu", "fused_mlp.py:501",
          max_err("fused_ln_mlp_residual_bwd"), mlp_b,
          ("kernel_ms", "plain_ms", "device_ms", "bound_ms", "bound_by"),
-         None, mlp_b["gemms_library_ms"]),
+         none, (mlp_b["gemms_library_ms"],
+                mlp_b["gemms_library_device_ms"])),
         ("flash_attention", "flash_attention.cu", "flash_attention.py:295",
          max_err("flash_attention"), fl,
          ("kernel_ms", "plain_ms", "kernel_device_ms", "bound_ms",
-          "bound_by"), fl["library_ms"], None),
+          "bound_by"), (fl["library_ms"], fl["library_device_ms"]), none),
         # plain_ms and library_ms of the two backward kernels are one call
         # each computing dq, dk and dv together.
         ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
          "flash_attention.py:485", max_err("flash_attention_bwd", "dq"),
          fl_b, ("dq_ms", "plain_ms", "dq_device_ms", "dq_bound_ms",
-                "dq_bound_by"), fl_b["library_ms"], None),
+                "dq_bound_by"),
+         (fl_b["library_ms"], fl_b["library_device_ms"]), none),
         ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
          "flash_attention.py:503",
          max(max_err("flash_attention_bwd", "dk"),
              max_err("flash_attention_bwd", "dv")), fl_b,
          ("dkv_ms", "plain_ms", "dkv_device_ms", "dkv_bound_ms",
-          "dkv_bound_by"), fl_b["library_ms"], None),
+          "dkv_bound_by"),
+         (fl_b["library_ms"], fl_b["library_device_ms"]), none),
     ]
     n, f, dt, t = CORE_MAIN_PATH
     core = pick("fused_mlp_core", shape=[n, 768, f], dtype=dt, threshold=t)
@@ -2728,11 +3096,12 @@ def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
         ("fused_mlp_core", "fused_mlp_core.cu", "fused_mlp.py:236",
          max(r["max_abs_err"] for r in core_rows), core,
          ("kernel_ms", "plain_ms", "device_ms", "bound_ms", "bound_by"),
-         None, core["gemms_library_ms"]),
+         none, (core["gemms_library_ms"], core["gemms_library_device_ms"])),
         ("fused_mlp_core_bwd", "fused_mlp_core.cu", "fused_mlp.py:278",
          max(r["bwd_max_abs_err"] for r in core_rows), core,
          ("bwd_ms", "bwd_plain_ms", "bwd_device_ms", "bwd_bound_ms",
-          "bwd_bound_by"), None, core["bwd_gemms_library_ms"]),
+          "bwd_bound_by"), none,
+         (core["bwd_gemms_library_ms"], core["bwd_gemms_library_device_ms"])),
     ]
     launches = {**launches, "fused_mlp_core": par_launches["fused_mlp_core"],
                 "fused_mlp_core_bwd": par_launches["fused_mlp_core_bwd"]}
@@ -2757,15 +3126,15 @@ def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
                  "serve_launches": serve_launches.get(name, 0),
                  "max_abs_err": err, "ms": ms, "plain_ms": plain,
                  "bound_ms": b_ms, "bound_by": b_by,
-                 "bound_share": b_ms / ms, "library_ms": lib,
+                 "bound_share": b_ms / ms, "library_ms": lib[0],
+                 "device_ms": dev_ms, "library_device_ms": lib[1],
                  "ops_launches": ops["path"][name],
                  "train_cli_launches": cli_launches[name],
+                 "train_packed_launches": packed_launches[name],
                  "checked": (flash_checked if name.startswith("flash")
                              else mlp_checked)}
-        if dev_ms is not None:
-            entry["device_ms"] = dev_ms
-        if gemms is not None:
-            entry["gemms_library_ms"] = gemms
+        if gemms[0] is not None:
+            entry["gemms_library_ms"], entry["gemms_library_device_ms"] = gemms
         out.append(entry)
     return {"kernels": out, "to_port": []}
 
@@ -2815,12 +3184,19 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_packed_"))
+    try:
+        packed_launches = phase_train_packed(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
     par_launches = phase_parallel(dev)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             3)})
     print(card, flush=True)
     print(json.dumps(kernel_list(k_rows, launches, serve_launches,
-                                 par_launches, ops, cli_launches)),
+                                 par_launches, ops, cli_launches,
+                                 packed_launches)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -19,16 +19,28 @@ Orbax).
   (:mod:`..utils.integrity`); :meth:`Checkpointer.restore` verifies it and
   raises :class:`CheckpointCorruptError` on a mismatch.
 
-Saves are synchronous (:meth:`Checkpointer.wait` returns at once); async
-saves are a later slice (ROADMAP Queue 1 item 4). :func:`save_model` /
-:func:`load_model` write and read the port's params export
-(``params.npz``, :func:`..convert.save_params_npz`).
+* Saves are asynchronous by default (``async_save=True``, as in the JAX
+  package): :meth:`Checkpointer.save` snapshots the state into host
+  buffers allocated once per Checkpointer and returns; a writer thread
+  commits the step. On a CUDA state the snapshot runs on the card: an
+  event recorded on the compute stream, non-blocking copies into pinned
+  buffers on a side stream, and the compute stream made to wait on the
+  copy's completion event, so an in-place optimizer update queued after
+  ``save()`` cannot overwrite a parameter before it is copied, and the
+  host does not block. :meth:`Checkpointer.wait` blocks until the last
+  save is durable and raises a writer error; ``restore``,
+  ``latest_step``, ``all_steps`` and ``verify`` wait first.
+  ``async_save=False`` writes in ``save()``.
+
+:func:`save_model` / :func:`load_model` write and read the port's params
+export (``params.npz``, :func:`..convert.save_params_npz`).
 """
 
 from __future__ import annotations
 
 import os
 import shutil
+import threading
 from pathlib import Path
 from typing import Any, Dict, List, Mapping, Optional
 
@@ -107,57 +119,172 @@ def _cpu(tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
 
 
+def _write_payload(path: Path, payload: Dict[str, Any]) -> None:
+    """``torch.save`` to ``path``, flushed and fsynced (durable on return)."""
+    with open(path, "wb") as fh:
+        torch.save(payload, fh)
+        fh.flush()
+        os.fsync(fh.fileno())
+
+
+def _state_tensors(state) -> Dict[str, Mapping[str, torch.Tensor]]:
+    """The tensors of a checkpoint, by payload group."""
+    opt: OptState = state.opt_state
+    return {"params": state.model.state_dict(), "mu": opt.mu, "nu": opt.nu,
+            "acc": opt.acc}
+
+
+def _payload(state, tensors: Dict[str, Mapping[str, torch.Tensor]]
+             ) -> Dict[str, Any]:
+    opt: OptState = state.opt_state
+    return {"params": tensors["params"],
+            "opt_state": {"count": int(opt.count),
+                          "mini_step": int(opt.mini_step),
+                          "mu": tensors["mu"], "nu": tensors["nu"],
+                          "acc": tensors["acc"]},
+            "step": int(state.step), "seed": int(state.seed)}
+
+
+class _Snapshot:
+    """Host copies of a state's tensors, for one save in flight at a time.
+
+    The buffer set is allocated at the first save and reused while the
+    shapes stay; pinned when the state lives on a CUDA card. There the copy
+    runs on a side stream: it waits on an event recorded on the compute
+    stream, and the compute stream then waits on the copy's completion
+    event, so later kernels on it (the next optimizer update, which writes
+    the params and moments in place) run only after the copy. The host
+    does not block; :meth:`ready` is what the writer waits on. A CPU
+    state is copied before :meth:`take` returns."""
+
+    def __init__(self):
+        self._bufs: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._stream = None
+        self._done = None
+
+    def _buffers(self, tensors, pin: bool):
+        want = {g: {k: (tuple(v.shape), v.dtype) for k, v in d.items()}
+                for g, d in tensors.items()}
+        have = {g: {k: (tuple(v.shape), v.dtype) for k, v in d.items()}
+                for g, d in self._bufs.items()}
+        if want != have:
+            self._bufs = {g: {k: torch.empty(shape, dtype=dt,
+                                             pin_memory=pin)
+                              for k, (shape, dt) in d.items()}
+                          for g, d in want.items()}
+        return self._bufs
+
+    def take(self, tensors: Dict[str, Mapping[str, torch.Tensor]]
+             ) -> Dict[str, Dict[str, torch.Tensor]]:
+        devs = {v.device for d in tensors.values() for v in d.values()}
+        cuda = [d for d in devs if d.type == "cuda"]
+        if len(cuda) > 1 or (cuda and len(devs) > 1):
+            raise ValueError(f"checkpoint tensors span devices {devs}")
+        bufs = self._buffers(tensors, pin=bool(cuda))
+        self._done = None
+        if not cuda:
+            for g, d in tensors.items():
+                for k, v in d.items():
+                    bufs[g][k].copy_(v.detach())
+            return bufs
+        dev = cuda[0]
+        compute = torch.cuda.current_stream(dev)
+        if self._stream is None or self._stream.device != dev:
+            self._stream = torch.cuda.Stream(dev)
+        start = torch.cuda.Event()
+        start.record(compute)
+        self._stream.wait_event(start)
+        with torch.cuda.stream(self._stream):
+            for g, d in tensors.items():
+                for k, v in d.items():
+                    bufs[g][k].copy_(v.detach(), non_blocking=True)
+                    v.record_stream(self._stream)
+        self._done = torch.cuda.Event()
+        self._done.record(self._stream)
+        compute.wait_event(self._done)
+        return bufs
+
+    def ready(self) -> None:
+        """Block until the last :meth:`take`'s copies have landed."""
+        if self._done is not None:
+            self._done.synchronize()
+
+
 class Checkpointer:
-    """Managed, rotating checkpoints of an :class:`..engine.TrainState`.
+    """Managed, rotating, async checkpoints of an
+    :class:`..engine.TrainState`.
 
     One writer per directory: a new Checkpointer removes ``.tmp-*``
-    directories that a killed save left behind.
+    directories that a killed save left behind. At most one save is in
+    flight: a new ``save()`` first waits for the previous one (it reuses
+    the snapshot buffers). A writer error is raised at the next ``save``
+    or ``wait``.
     """
 
     def __init__(self, directory: str | Path, *, max_to_keep: int = 3,
-                 integrity: bool = True):
+                 async_save: bool = True, integrity: bool = True):
         self.directory = Path(directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
         self._integrity = bool(integrity)
         self._max_to_keep = int(max_to_keep) if max_to_keep else None
+        self._async = bool(async_save)
+        self._snapshot = _Snapshot()
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
         for tmp in self.directory.glob(".tmp-*"):
             shutil.rmtree(tmp, ignore_errors=True)
 
     def step_dir(self, step: int) -> Path:
         return self.directory / str(int(step))
 
-    def all_steps(self) -> List[int]:
-        """Committed steps, ascending."""
+    def _committed(self) -> List[int]:
         return sorted(int(p.name) for p in self.directory.iterdir()
                       if p.name.isdigit() and (p / STATE_FILE).is_file())
+
+    def all_steps(self) -> List[int]:
+        """Committed steps, ascending (after any save in flight)."""
+        self.wait()
+        return self._committed()
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
     def save(self, state, *, force: bool = False) -> bool:
-        """Commit ``state`` as step ``state.step``. Returns False (and
-        writes nothing) when that step is already committed, unless
-        ``force``."""
+        """Commit ``state`` as step ``state.step``: with ``async_save``,
+        snapshot it and return before the step is durable (:meth:`wait`
+        makes it so). Returns False (and writes nothing) when that step is
+        already committed, unless ``force``."""
+        self.wait()
         step = int(state.step)
-        final = self.step_dir(step)
-        if final.is_dir() and not force:
+        if self.step_dir(step).is_dir() and not force:
             return False
-        opt: OptState = state.opt_state
-        payload = {
-            "params": _cpu(state.model.state_dict()),
-            "opt_state": {"count": int(opt.count),
-                          "mini_step": int(opt.mini_step),
-                          "mu": _cpu(opt.mu), "nu": _cpu(opt.nu),
-                          "acc": _cpu(opt.acc)},
-            "step": step, "seed": int(state.seed)}
+        if not self._async:
+            self._commit(step, _payload(state, {
+                g: _cpu(d) for g, d in _state_tensors(state).items()}))
+            return True
+        payload = _payload(state, self._snapshot.take(_state_tensors(state)))
+        self._writer = threading.Thread(
+            target=self._write_async, args=(step, payload),
+            name=f"checkpoint-writer-{step}")
+        self._writer.start()
+        return True
+
+    def _write_async(self, step: int, payload: Dict[str, Any]) -> None:
+        try:
+            self._snapshot.ready()
+            self._commit(step, payload)
+        except BaseException as e:  # noqa: BLE001 — re-raised by wait()
+            self._error = e
+
+    def _commit(self, step: int, payload: Dict[str, Any]) -> None:
+        """Write ``payload`` under a temp name, fsync, rename it into
+        ``<dir>/<step>``, rotate, record the digest."""
+        final = self.step_dir(step)
         tmp = self.directory / f".tmp-{step}-{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir()
-        with open(tmp / STATE_FILE, "wb") as fh:
-            torch.save(payload, fh)
-            fh.flush()
-            os.fsync(fh.fileno())
+        _write_payload(tmp / STATE_FILE, payload)
         if final.is_dir():
             old = self.directory / f".tmp-old-{step}-{os.getpid()}"
             os.rename(final, old)
@@ -168,7 +295,6 @@ class Checkpointer:
         self._rotate()
         if self._integrity:
             self._record_digest(step)
-        return True
 
     def restore(self, state, step: Optional[int] = None, *,
                 verify: bool = True):
@@ -179,6 +305,7 @@ class Checkpointer:
         ``verify=True`` checks the step's digest first and raises
         :class:`CheckpointCorruptError` on a mismatch; a step saved with
         no digest recorded restores unverified."""
+        self.wait()
         step = self.latest_step() if step is None else int(step)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
@@ -218,7 +345,7 @@ class Checkpointer:
                   f"pins ({type(e).__name__}: {e}); retrying at the next "
                   f"save")
             return
-        committed = self.all_steps()
+        committed = self._committed()
         keep = set(committed[-self._max_to_keep:]) | pins
         for s in committed:
             if s not in keep:
@@ -229,7 +356,7 @@ class Checkpointer:
         payload byte), then merge it into the manifest under the lock,
         dropping digests of rotated-away steps and keeping the pins."""
         digest = digest_dir(self.step_dir(step))
-        committed = set(self.all_steps())
+        committed = set(self._committed())
         with integrity_lock(self.directory):
             manifest = read_integrity_file(self.directory)
             steps = {k: v for k, v in manifest.get("steps", {}).items()
@@ -242,13 +369,14 @@ class Checkpointer:
         """Recompute ``step``'s digest against the recorded one. False when
         none was recorded; raises :class:`CheckpointCorruptError` on a
         mismatch."""
+        self.wait()
         recorded = read_integrity_file(self.directory).get(
             "steps", {}).get(str(step))
         if recorded is None:
             return False
         actual = digest_dir(self.step_dir(step))
         if actual["sha256"] != recorded["sha256"]:
-            others = [s for s in self.all_steps() if s != step]
+            others = [s for s in self._committed() if s != step]
             hint = (f"restore(step={max(others)}) to use the previous "
                     f"good checkpoint" if others else
                     "no earlier checkpoint exists in this directory")
@@ -290,7 +418,9 @@ class Checkpointer:
             f"verification; delete the directory and restart from scratch")
 
     def pin_step(self, step: int) -> bool:
-        """Exempt ``step`` from rotation (see module :func:`pin_step`)."""
+        """Exempt ``step`` from rotation (see module :func:`pin_step`),
+        after any save in flight."""
+        self.wait()
         return pin_step(self.directory, step)
 
     def unpin_step(self, step: int) -> None:
@@ -298,7 +428,15 @@ class Checkpointer:
         unpin_step(self.directory, step)
 
     def wait(self) -> None:
-        """Saves are synchronous: nothing is ever pending."""
+        """Block until the save in flight is durable (committed, rotated,
+        its digest recorded); raise the writer's error if it failed. Call
+        before process exit."""
+        writer, self._writer = self._writer, None
+        if writer is not None:
+            writer.join()
+        err, self._error = self._error, None
+        if err is not None:
+            raise err
 
     def close(self) -> None:
         self.wait()

@@ -19,10 +19,11 @@ float, ``label`` ``[B]`` int, optionally ``mask`` (eval) and
 ``teacher_logits`` (distillation); the step moves them to the model's
 device.
 
-:func:`train` logs per-epoch rows to a :class:`..metrics.MetricsLogger`
-and saves through a :class:`..checkpoint.Checkpointer`. Not ported yet:
-step telemetry and profiler windows (ROADMAP Queue 1 item 5); passing
-either to :func:`train` raises.
+:func:`train` logs per-epoch rows to a :class:`..metrics.MetricsLogger`,
+saves through a :class:`..checkpoint.Checkpointer`, records step spans
+through a :class:`..telemetry.StepTelemetry` (with its watchdog and
+profiler capture windows) and traces its first epoch with
+``profile_dir``.
 """
 
 from __future__ import annotations
@@ -222,12 +223,18 @@ _EMPTY = {"loss": 0.0, "acc": 0.0, "count": 0.0, "skipped": 0.0}
 
 
 def evaluate(state: TrainState, eval_batches: Callable[[], Iterable[Batch]],
-             *, eval_step: Optional[Callable] = None) -> Dict[str, float]:
-    """One pass over ``eval_batches``: example-weighted loss/accuracy."""
+             *, eval_step: Optional[Callable] = None,
+             on_batch: Optional[Callable[[], None]] = None
+             ) -> Dict[str, float]:
+    """One pass over ``eval_batches``: example-weighted loss/accuracy.
+    ``on_batch()`` is called after each batch (the watchdog's heartbeat,
+    so a long eval pass reads as progress, not a stall)."""
     eval_step = eval_step or make_eval_step()
     total = None
     for batch in eval_batches():
         total = _accumulate(total, eval_step(state, batch))
+        if on_batch is not None:
+            on_batch()
     return _finalize(total) if total else dict(_EMPTY)
 
 
@@ -261,15 +268,19 @@ def train(state: TrainState, train_batches: Callable[[], Iterable[Batch]],
     (``DataLoader.epoch`` / ``skip_next_batches``), never this loop's.
     ``stop_check(global_step)`` is called after every step; True stops at
     that step without the partial epoch's eval. ``start_epoch`` continues
-    the printed and logged epoch numbers."""
-    for name, val in (("telemetry", telemetry),
-                      ("profile_dir", profile_dir)):
-        if val is not None:
-            raise NotImplementedError(
-                f"engine.train({name}=...) is not ported yet (ROADMAP "
-                f"Queue 1 item 5)")
+    the printed and logged epoch numbers.
+
+    ``telemetry`` (a :class:`..telemetry.StepTelemetry`) splits every
+    step into data-wait (blocked on the batch iterator) and dispatch +
+    device seconds, waits on the card every ``telemetry.sample_every``
+    steps so the split is honest, records the checkpoint and eval spans,
+    beats its watchdog on every step, span and eval batch, opens its
+    profiler's capture windows before a step's dispatch, and closes each
+    epoch with a goodput summary row. ``profile_dir`` traces the first
+    epoch with ``torch.profiler`` (``metrics.profile_trace``). With
+    neither, their only cost is two clock reads a step."""
     from .compile_cache import seconds_since_process_start
-    from .metrics import block_until_ready
+    from .metrics import block_until_ready, profile_trace
 
     train_step = train_step or make_train_step()
     eval_step = eval_step or make_eval_step()
@@ -281,23 +292,50 @@ def train(state: TrainState, train_batches: Callable[[], Iterable[Batch]],
         t0 = time.perf_counter()
         epoch_no = start_epoch + epoch + 1
         total, steps, stopped = None, 0, False
-        for batch in train_batches():
-            state, metrics = train_step(state, batch)
-            if time_to_first_step is None:
-                block_until_ready(metrics["loss_sum"])
-                time_to_first_step = seconds_since_process_start()
-                if verbose:
-                    print(f"time_to_first_step: {time_to_first_step:.2f}s "
-                          f"(process start -> first train step applied)")
-            total = _accumulate(total, metrics)
-            steps += 1
-            global_step += 1
-            if (checkpoint_every_steps and checkpointer is not None
-                    and global_step % checkpoint_every_steps == 0):
-                checkpointer.save(state)
-            if stop_check is not None and stop_check(global_step):
-                stopped = True
-                break
+        with profile_trace(profile_dir or "",
+                           enabled=profile_dir is not None and epoch == 0):
+            batches = iter(train_batches())
+            while True:
+                t_wait = time.perf_counter()
+                try:
+                    batch = next(batches)
+                except StopIteration:
+                    break
+                t_step = time.perf_counter()
+                if telemetry is not None:
+                    # Opens an armed capture window before the dispatch.
+                    telemetry.step_begin(global_step + 1)
+                state, metrics = train_step(state, batch)
+                blocked = False
+                if telemetry is not None and telemetry.should_block():
+                    # Sampled honesty barrier: the launches return before
+                    # the card finishes, so only a step that waits for it
+                    # measures it.
+                    block_until_ready(metrics["loss_sum"])
+                    blocked = True
+                if time_to_first_step is None:
+                    block_until_ready(metrics["loss_sum"])
+                    blocked = True
+                    time_to_first_step = seconds_since_process_start()
+                    if verbose:
+                        print(f"time_to_first_step: "
+                              f"{time_to_first_step:.2f}s (process start "
+                              f"-> first train step applied)")
+                total = _accumulate(total, metrics)
+                steps += 1
+                global_step += 1
+                if telemetry is not None:
+                    telemetry.step(
+                        data_wait_s=t_step - t_wait,
+                        exec_s=time.perf_counter() - t_step,
+                        images=int(batch["label"].shape[0]),
+                        step=global_step, epoch=epoch_no, blocked=blocked)
+                if (checkpoint_every_steps and checkpointer is not None
+                        and global_step % checkpoint_every_steps == 0):
+                    _save(checkpointer, state, telemetry)
+                if stop_check is not None and stop_check(global_step):
+                    stopped = True
+                    break
         if stopped:
             break
         train_m = _finalize(total, steps) if total else dict(_EMPTY)
@@ -305,7 +343,12 @@ def train(state: TrainState, train_batches: Callable[[], Iterable[Batch]],
         if train_m["skipped"] and verbose:
             print(f"[warn] nan-guard skipped {int(train_m['skipped'])} "
                   f"nonfinite update(s) this epoch")
-        eval_m = evaluate(state, eval_batches, eval_step=eval_step)
+        t_ev = time.perf_counter()
+        eval_m = evaluate(
+            state, eval_batches, eval_step=eval_step,
+            on_batch=telemetry.heartbeat if telemetry is not None else None)
+        if telemetry is not None:
+            telemetry.span("eval", time.perf_counter() - t_ev)
         results["train_loss"].append(train_m["loss"])
         results["train_acc"].append(train_m["acc"])
         results["test_loss"].append(eval_m["loss"])
@@ -335,7 +378,19 @@ def train(state: TrainState, train_batches: Callable[[], Iterable[Batch]],
         if checkpointer is not None and (
                 epoch_no % max(1, checkpoint_every_epochs) == 0
                 or epoch == epochs - 1):
-            checkpointer.save(state)
+            _save(checkpointer, state, telemetry)
+        if telemetry is not None:
+            telemetry.epoch_end(epoch=epoch_no, step=global_step)
     if checkpointer is not None:
         checkpointer.wait()
     return state, results
+
+
+def _save(checkpointer, state: TrainState, telemetry) -> None:
+    """One checkpoint save; with telemetry, the host's blocked seconds as a
+    ``checkpoint`` span (an async save blocks for its snapshot, and for
+    the previous save if that is still being written)."""
+    t_ck = time.perf_counter()
+    checkpointer.save(state)
+    if telemetry is not None:
+        telemetry.span("checkpoint", time.perf_counter() - t_ck)

@@ -16,8 +16,13 @@ the existing library. Exposes:
   ``"shorter_crop"``, matching ``transforms.Resize`` /
   ``ResizeShorter + CenterCrop``).
 * :func:`decode_jpeg_file` — the same, from a path.
+* :func:`resize_crop`, :func:`resize_crop_f32`, :func:`u8_to_f32` — the
+  array passes of the packed-shard augmentation (``data/imagenet.py``):
+  a bilinear crop+resize of a uint8 HWC frame, the same fused with the
+  flip and the float affine, and the affine alone. Each returns None when
+  the library is unavailable, and the caller takes its composed path.
 
-Host decode, not a device kernel. Thread-safe: the build is locked and the
+Host code, not device kernels. Thread-safe: the build is locked and the
 C call releases the GIL (ctypes does), so loader threads decode in
 parallel.
 """
@@ -87,6 +92,22 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_int, ctypes.POINTER(ctypes.c_uint8)]
     lib.psr_abi_version.restype = ctypes.c_int
     lib.psr_abi_version.argtypes = []
+    lib.psr_resize_crop.restype = ctypes.c_int
+    lib.psr_resize_crop.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_uint8)]
+    lib.psr_resize_crop_f32.restype = ctypes.c_int
+    lib.psr_resize_crop_f32.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float)]
+    lib.psr_u8_to_f32.restype = ctypes.c_int
+    lib.psr_u8_to_f32.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_float)]
     return lib
 
 
@@ -156,3 +177,79 @@ def decode_jpeg_file(path, target: int, mode: str = "squash",
     except OSError:
         return None
     return decode_jpeg(data, target, mode, resize)
+
+
+def _hwc_u8(arr: np.ndarray) -> bool:
+    return arr.dtype == np.uint8 and arr.ndim == 3 and arr.shape[2] == 3
+
+
+def resize_crop(arr: np.ndarray, top: int, left: int, crop_h: int,
+                crop_w: int, target: int) -> Optional[np.ndarray]:
+    """Bilinear-resize a crop box of a uint8 HWC RGB array to
+    ``[target, target, 3]`` in one native pass (PIL crop+resize affine).
+    None when unavailable or the box/array is unsupported.
+
+    No antialiasing: point-sampled bilinear matches PIL closely up to
+    ~1.5x reductions (the RandomResizedCrop-on-packed-shards regime,
+    where reduction <= pack_size/image_size) but aliases beyond that —
+    for heavy downscales use the PIL path.
+    """
+    lib = _load()
+    if lib is None or not _hwc_u8(arr):
+        return None
+    arr = np.ascontiguousarray(arr)
+    out = np.empty((target, target, 3), np.uint8)
+    rc = lib.psr_resize_crop(
+        arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        arr.shape[0], arr.shape[1], top, left, crop_h, crop_w, target,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return out if rc == 0 else None
+
+
+def _f3(v) -> np.ndarray:
+    """Broadcast a scalar or [3] vector to a contiguous float32 [3]."""
+    return np.ascontiguousarray(np.broadcast_to(
+        np.asarray(v, np.float32), (3,)))
+
+
+def resize_crop_f32(arr: np.ndarray, top: int, left: int, crop_h: int,
+                    crop_w: int, target: int, *, hflip: bool = False,
+                    scale=1.0 / 255.0, offset=0.0) -> Optional[np.ndarray]:
+    """Fused RandomResizedCrop(+flip)+normalize: one native pass from a
+    uint8 HWC frame to float32 ``[target, target, 3]`` with
+    ``out = round_u8(bilinear) * scale + offset`` per channel. Bit-equal
+    to :func:`resize_crop` + flip + the numpy affine. None when
+    unavailable/unsupported (callers fall back)."""
+    lib = _load()
+    if lib is None or not _hwc_u8(arr):
+        return None
+    arr = np.ascontiguousarray(arr)
+    s, o = _f3(scale), _f3(offset)
+    out = np.empty((target, target, 3), np.float32)
+    rc = lib.psr_resize_crop_f32(
+        arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        arr.shape[0], arr.shape[1], top, left, crop_h, crop_w, target,
+        1 if hflip else 0,
+        s.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        o.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return out if rc == 0 else None
+
+
+def u8_to_f32(arr: np.ndarray, scale=1.0 / 255.0,
+              offset=0.0) -> Optional[np.ndarray]:
+    """uint8 HWC RGB -> float32 with a fused per-channel affine
+    (``x * scale + offset``). None when unavailable/unsupported."""
+    lib = _load()
+    if lib is None or not _hwc_u8(arr):
+        return None
+    arr = np.ascontiguousarray(arr)
+    s, o = _f3(scale), _f3(offset)
+    out = np.empty(arr.shape, np.float32)
+    rc = lib.psr_u8_to_f32(
+        arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        arr.shape[0] * arr.shape[1],
+        s.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        o.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return out if rc == 0 else None

@@ -45,11 +45,34 @@ DEFAULT_HIST_WINDOW = 4096
 # Event ring depth — what a postmortem shows as "the last things done".
 DEFAULT_EVENT_RING = 256
 
-# The serve-side instruments this package publishes, name -> kind
-# (the serve_/compile_cache_/trace_ subset of the JAX package's
-# declared schema; dynamic serve_lat_*/serve_latency_* names ride the
-# serve_ prefix).
+# The instruments this package publishes, name -> kind: the train-side
+# (tel_/watchdog_/profiler_/mem_) and serve-side (serve_/compile_cache_/
+# trace_) subsets of the JAX package's declared schema. Dynamic names ride
+# their prefixes (mem_devN_*, serve_lat_*, serve_latency_*).
 INSTRUMENTS: Dict[str, str] = {
+    'tel_step_s': 'histogram',
+    'tel_data_wait_s': 'histogram',
+    'tel_step_exec_s': 'histogram',
+    'tel_ckpt_s': 'histogram',
+    'tel_eval_s': 'histogram',
+    'tel_images_per_sec': 'gauge',
+    'tel_mfu': 'gauge',
+    'tel_goodput_pct': 'gauge',
+    'tel_data_wait_frac': 'gauge',
+    'tel_steps_total': 'counter',
+    'tel_images_total': 'counter',
+    'watchdog_beats_total': 'counter',
+    'watchdog_stalls_total': 'counter',
+    'watchdog_postmortems_total': 'counter',
+    'profiler_captures_total': 'counter',
+    'profiler_capture_errors_total': 'counter',
+    'profiler_arms_refused_total': 'counter',
+    'profiler_capture_active': 'gauge',
+    'profiler_last_capture_path': 'gauge',
+    'mem_live_bytes': 'gauge',
+    'mem_live_bytes_peak': 'gauge',
+    'mem_live_arrays': 'gauge',
+    'mem_sample_errors_total': 'counter',
     'compile_cache_requests_total': 'counter',
     'compile_cache_hits_total': 'counter',
     'compile_cache_saved_seconds_total': 'counter',
@@ -73,6 +96,29 @@ INSTRUMENTS: Dict[str, str] = {
 # Prometheus # HELP text for the declared instruments (the renderer
 # emits a generic fallback for dynamically-named ones).
 HELP_TEXT: Dict[str, str] = {
+    'tel_step_s': 'Train step wall seconds (barrier-window amortized)',
+    'tel_data_wait_s': 'Seconds blocked on the batch iterator',
+    'tel_step_exec_s': 'Step dispatch+device seconds (amortized)',
+    'tel_ckpt_s': 'Checkpoint-save span seconds (host blocked)',
+    'tel_eval_s': 'Eval-pass span seconds',
+    'tel_images_per_sec': 'Live window throughput, images/sec',
+    'tel_mfu': 'Analytic model-FLOPs utilization per card (bf16 peak)',
+    'tel_goodput_pct': 'Step-exec share of epoch wall time, percent',
+    'tel_data_wait_frac': 'Data-wait share of epoch wall time',
+    'tel_steps_total': 'Train steps recorded',
+    'tel_images_total': 'Train images recorded',
+    'watchdog_beats_total': 'Watchdog heartbeats received',
+    'watchdog_stalls_total': 'Stall deadlines missed',
+    'watchdog_postmortems_total': 'Postmortem dumps written',
+    'profiler_captures_total': 'torch.profiler capture windows opened',
+    'profiler_capture_errors_total': 'Profiler start/stop failures',
+    'profiler_arms_refused_total': 'Capture requests refused (window active or budget spent)',
+    'profiler_capture_active': '1 while a capture window is open',
+    'profiler_last_capture_path': 'Most recent capture directory (string)',
+    'mem_live_bytes': 'CUDA allocator bytes held by live tensors at last sample',
+    'mem_live_bytes_peak': 'Peak of mem_live_bytes over the run',
+    'mem_live_arrays': 'CUDA allocator allocations held at last sample',
+    'mem_sample_errors_total': 'Device-memory probes that raised',
     'compile_cache_requests_total': 'XLA modules that consulted the persistent compile cache',
     'compile_cache_hits_total': 'XLA modules deserialized from the persistent compile cache',
     'compile_cache_saved_seconds_total': 'Compile seconds saved by persistent-cache hits',

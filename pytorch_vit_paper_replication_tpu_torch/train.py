@@ -1,7 +1,8 @@
 """CLI training entry point (port of the JAX package's ``train.py``).
 
-One command trains a preset on an image-folder dataset on one CUDA card,
-with checkpoints, mid-epoch resume and JSONL metrics::
+One command trains a preset on an image folder, packed uint8 shards or
+CIFAR-10 on one CUDA card, with async checkpoints, mid-epoch resume, JSONL
+metrics and step telemetry::
 
     python -m pytorch_vit_paper_replication_tpu_torch.train \\
         --train-dir data/pizza_steak_sushi/train \\
@@ -13,11 +14,22 @@ with checkpoints, mid-epoch resume and JSONL metrics::
     python -m pytorch_vit_paper_replication_tpu_torch.train --synthetic \\
         --preset ViT-Ti/16 --image-size 64 --epochs 2
 
+    # ImageNet scale: pack once, train from memory-mapped shards with the
+    # array-space augmentation, watch the run through the telemetry JSONL
+    python -m pytorch_vit_paper_replication_tpu_torch.data.pack \\
+        imagenet/train packs/train --pack-size 256 --shuffle-seed 0
+    python -m pytorch_vit_paper_replication_tpu_torch.train \\
+        --dataset packed --train-dir packs/train --test-dir packs/val \\
+        --shuffle-window 65536 --readahead 2 --checkpoint-dir runs/in1k \\
+        --checkpoint-every-steps 1000 --telemetry-jsonl runs/in1k/tel.jsonl \\
+        --watchdog-s 300 --profile-steps 100:102
+
 It runs on ``cuda`` unless ``--device cpu`` is given (then the kernels'
 plain PyTorch versions run); without a card it raises ``no CUDA device``.
-The flags keep the JAX CLI's names, defaults and semantics. Those whose
-path is not ported yet (packed and CIFAR data, transfer, distillation,
-elastic and multi-card meshes, telemetry, profiling, the compile cache)
+Checkpoint saves are asynchronous unless ``--sync-checkpoints``. The flags
+keep the JAX CLI's names, defaults and semantics. Those whose path is not
+ported yet (transfer, distillation, elastic and multi-card meshes, the
+metrics HTTP endpoint, the fleet shipper, TensorBoard, the compile cache)
 are parsed and refused with ``... not yet ported (ROADMAP Queue 1 item
 N)`` when given a value other than their default.
 
@@ -48,6 +60,7 @@ from .metrics import MetricsLogger
 from .models import ViT
 from .optim import make_lr_schedule, make_optimizer
 from .predictions import resolve_device, write_model_meta
+from .telemetry.profiling import parse_profile_steps
 from .utils.atomic import atomic_write_json
 from .utils.model_summary import count_params
 from .utils.plotting import plot_loss_curves
@@ -58,7 +71,6 @@ from .utils.seeding import set_seeds
 # other value exits non-zero (--mesh-data is checked on its own: -1 and 1
 # both mean the one card).
 NOT_PORTED: Dict[str, int] = {
-    "dataset": 2, "data_root": 2, "no_augment": 2,
     "model": 8, "hidden_units": 8, "pretrained": 8, "freeze_backbone": 8,
     "distill_from": 9, "distill_t": 9, "distill_alpha": 9,
     "compile_cache_dir": 9,
@@ -69,11 +81,8 @@ NOT_PORTED: Dict[str, int] = {
     "elastic_generation": 7, "elastic_collective": 7,
     "mesh_model": 7, "mesh_seq": 7, "mesh_pipe": 7, "pipe_microbatches": 7,
     "multihost": 7, "sp_impl": 7,
-    "tensorboard_dir": 5, "profile_dir": 5, "telemetry_jsonl": 5,
-    "telemetry_every": 5, "watchdog_s": 5, "postmortem": 5,
-    "profile_steps": 5, "profile_auto": 5, "profile_auto_pct": 5,
-    "profile_trace_dir": 5, "metrics_port": 5, "ship_to": 5,
-    "ship_interval_s": 5, "worker_id": 5,
+    "tensorboard_dir": 6, "metrics_port": 6, "ship_to": 6,
+    "ship_interval_s": 6, "worker_id": 6,
 }
 
 
@@ -84,18 +93,21 @@ def build_parser() -> argparse.ArgumentParser:
     data = p.add_argument_group("data")
     data.add_argument("--dataset",
                       choices=["imagefolder", "cifar10", "packed"],
-                      default="imagefolder",
-                      help="only imagefolder is ported")
-    data.add_argument("--train-dir", type=str, default=None)
+                      default="imagefolder")
+    data.add_argument("--train-dir", type=str, default=None,
+                      help="train split: image folder, or for --dataset "
+                           "packed a data.pack output dir")
     data.add_argument("--test-dir", type=str, default=None)
     data.add_argument("--data-root", type=str, default=None,
-                      help="for --dataset cifar10 (not ported)")
+                      help="for --dataset cifar10: the cifar-10-batches-py "
+                           "dir or the .tar.gz archive")
     data.add_argument("--augment", action="store_true",
                       help="RandomResizedCrop + horizontal-flip train "
-                           "augmentation; eval keeps the deterministic "
-                           "transform")
+                           "augmentation for --dataset imagefolder; eval "
+                           "keeps the deterministic transform")
     data.add_argument("--no-augment", action="store_true",
-                      help="for --dataset packed (not ported)")
+                      help="disable the same augmentation where it is on "
+                           "by default (--dataset packed)")
     data.add_argument("--synthetic", action="store_true",
                       help="generate a small synthetic dataset (offline)")
     data.add_argument("--synthetic-per-class", type=int, default=32,
@@ -113,8 +125,8 @@ def build_parser() -> argparse.ArgumentParser:
                       help="streaming windowed shuffle over N records "
                            "(0 = global permutation)")
     data.add_argument("--readahead", type=int, default=0,
-                      help="hint N upcoming blocks into the page cache "
-                           "(datasets with willneed_records; 0 = off)")
+                      help="hint N upcoming shard blocks into the page "
+                           "cache (packed datasets; 0 = off)")
     data.add_argument("--evict-behind", action="store_true",
                       help="with --readahead: drop consumed blocks from "
                            "the page cache")
@@ -233,7 +245,10 @@ def build_parser() -> argparse.ArgumentParser:
                           "resume continues mid-epoch, skipping the "
                           "interrupted epoch's already-trained batches")
     out.add_argument("--sync-checkpoints", action="store_true",
-                     help="the port's saves are always synchronous")
+                     help="synchronous (blocking) checkpoint saves; by "
+                          "default a save snapshots the state into pinned "
+                          "host buffers on a side stream and a writer "
+                          "thread commits it")
     out.add_argument("--checkpoint-every-epochs", type=int, default=1,
                      help="save cadence in epochs (the final epoch always "
                           "saves)")
@@ -243,26 +258,55 @@ def build_parser() -> argparse.ArgumentParser:
     out.add_argument("--plot", type=str, default=None,
                      help="save loss curves PNG here")
     out.add_argument("--profile-dir", type=str, default=None,
-                     help="(not ported)")
+                     help="capture a torch.profiler trace of epoch 1 "
+                          "(trace.json)")
     out.add_argument("--device", default="cuda",
                      help="torch device (default cuda; 'cpu' runs the "
                           "kernels' plain PyTorch versions)")
 
-    obs = p.add_argument_group("observability (not ported)")
-    obs.add_argument("--telemetry-jsonl", type=str, default=None)
-    obs.add_argument("--telemetry-every", type=int, default=32)
-    obs.add_argument("--watchdog-s", type=float, default=0.0)
-    obs.add_argument("--postmortem", type=str, default=None)
+    obs = p.add_argument_group("observability (telemetry/)")
+    obs.add_argument("--telemetry-jsonl", type=str, default=None,
+                     help="per-step span telemetry stream (sampled 'step' "
+                          "rows + per-epoch goodput summaries: data-wait "
+                          "vs device seconds, step p50/p95/p99, goodput "
+                          "%%, live img/s + analytic MFU against the "
+                          "card's bf16 peak)")
+    obs.add_argument("--telemetry-every", type=int, default=32,
+                     help="telemetry sampling cadence: one JSONL step row "
+                          "and one wait on the card per N steps")
+    obs.add_argument("--watchdog-s", type=float, default=0.0,
+                     help="stall watchdog deadline: if no train step/span "
+                          "completes for this many seconds, dump "
+                          "all-thread stacks + memory + the last "
+                          "telemetry events to the postmortem file; the "
+                          "same dump fires on SIGTERM. 0 = off")
+    obs.add_argument("--postmortem", type=str, default=None,
+                     help="watchdog postmortem path (default: "
+                          "postmortem.txt next to --checkpoint-dir or "
+                          "--telemetry-jsonl, else ./postmortem.txt)")
     obs.add_argument("--profile-steps", type=str, default=None,
-                     metavar="A:B")
-    obs.add_argument("--profile-auto", action="store_true")
-    obs.add_argument("--profile-auto-pct", type=float, default=25.0)
-    obs.add_argument("--profile-trace-dir", type=str, default=None)
-    obs.add_argument("--metrics-port", type=int, default=None)
+                     metavar="A:B",
+                     help="capture a torch.profiler trace of global steps "
+                          "A..B (inclusive); SIGUSR2 arms a window over "
+                          "the next steps of a running trainer")
+    obs.add_argument("--profile-auto", action="store_true",
+                     help="auto-capture when the rolling p50 of "
+                          "barrier-amortized step walls regresses more "
+                          "than --profile-auto-pct over the baseline")
+    obs.add_argument("--profile-auto-pct", type=float, default=25.0,
+                     help="anomaly threshold for --profile-auto (percent "
+                          "p50 regression)")
+    obs.add_argument("--profile-trace-dir", type=str, default=None,
+                     help="capture destination (default: profiles/ next "
+                          "to --checkpoint-dir or --telemetry-jsonl)")
+    obs.add_argument("--metrics-port", type=int, default=None,
+                     help="(not ported)")
     obs.add_argument("--ship-to", type=str, default=None,
-                     metavar="HOST:PORT")
-    obs.add_argument("--ship-interval-s", type=float, default=2.0)
-    obs.add_argument("--worker-id", type=str, default=None)
+                     metavar="HOST:PORT", help="(not ported)")
+    obs.add_argument("--ship-interval-s", type=float, default=2.0,
+                     help="(not ported)")
+    obs.add_argument("--worker-id", type=str, default=None,
+                     help="(not ported)")
     p.add_argument("--compile-cache-dir", default=None, metavar="DIR",
                    help="(not ported)")
     return p
@@ -287,6 +331,99 @@ def refuse_unported(parser: argparse.ArgumentParser,
                          "(ROADMAP Queue 1 item 7)")
 
 
+def folder_loaders(args, loader_kwargs: dict, transform_spec: dict):
+    """(train, test, classes) of ``--dataset imagefolder``."""
+    if args.synthetic:
+        tmp = Path(tempfile.mkdtemp(prefix="vit_synth_"))
+        train_dir, test_dir = make_synthetic_image_folder(
+            tmp, train_per_class=args.synthetic_per_class,
+            test_per_class=max(1, args.synthetic_per_class // 4),
+            image_size=args.image_size, noise_sigma=args.synthetic_noise)
+    else:
+        if not args.train_dir or not args.test_dir:
+            raise SystemExit(
+                "--train-dir/--test-dir required (or pass --synthetic)")
+        train_dir, test_dir = args.train_dir, args.test_dir
+    transform = make_transform(**transform_spec)
+    if args.augment:
+        # Augment the train split only; eval (and predict, via
+        # transform.json) keeps the deterministic pipeline. Seeded from
+        # --seed: bit-reproducible with one decode worker.
+        from .data.transforms import ThreadLocalRng, augment_transform
+        train_transform = augment_transform(
+            args.image_size, normalize=transform_spec["normalize"],
+            rng=ThreadLocalRng(args.seed))
+    else:
+        train_transform = transform
+    return create_dataloaders(
+        train_dir, test_dir, train_transform, eval_transform=transform,
+        drop_last_train=True, cache=args.cache_dataset, **loader_kwargs)
+
+
+def cifar_loaders(args, loader_kwargs: dict, transform_spec: dict):
+    """(train, test, classes) of ``--dataset cifar10``: the archive at
+    ``--data-root`` (``--synthetic``: a seeded fake one), resized per item
+    to ``--image-size``. transform.json records that plain square resize."""
+    from .data import (DataLoader, ResizedArrayDataset, load_cifar10,
+                       make_fake_cifar10)
+    transform_spec["pretrained"] = False
+    if args.synthetic:
+        root = make_fake_cifar10(Path(tempfile.mkdtemp(prefix="cifar_fake_")))
+    elif args.data_root:
+        root = args.data_root
+    else:
+        raise SystemExit("--data-root required for --dataset cifar10 (or "
+                         "pass --synthetic)")
+    train_ds, test_ds = load_cifar10(root)
+    train_ds = ResizedArrayDataset(train_ds, args.image_size,
+                                   normalize=transform_spec["normalize"])
+    test_ds = ResizedArrayDataset(test_ds, args.image_size,
+                                  normalize=transform_spec["normalize"])
+    if args.cache_dataset:
+        # Real CIFAR-10 resized to 224 px is ~45 GB of float32.
+        print("[warn] --cache-dataset has no effect with --dataset cifar10 "
+              "(resized CIFAR would not fit host RAM)")
+    train_dl = DataLoader(train_ds, shuffle=True, drop_last=True,
+                          **loader_kwargs)
+    test_dl = DataLoader(test_ds, shuffle=False, pad_shards=True,
+                         **loader_kwargs)
+    return train_dl, test_dl, list(train_ds.classes)
+
+
+def packed_loaders(args, loader_kwargs: dict, transform_spec: dict):
+    """(train, test, classes) of ``--dataset packed``: memory-mapped
+    shards, the fused array-space augmentation unless ``--no-augment``.
+    transform.json records resize-shorter to the pack size + center crop,
+    what eval sees of the original image."""
+    from .data import create_packed_dataloaders
+    if not args.train_dir or not args.test_dir:
+        raise SystemExit(
+            "--train-dir/--test-dir (pack_image_folder outputs) required "
+            "for --dataset packed; build them with python -m "
+            "pytorch_vit_paper_replication_tpu_torch.data.pack")
+    train_dl, test_dl, class_names = create_packed_dataloaders(
+        args.train_dir, args.test_dir, image_size=args.image_size,
+        normalize=transform_spec["normalize"], augment=not args.no_augment,
+        **loader_kwargs)
+    pack_size = train_dl.dataset.pack_size
+    if args.image_size > pack_size:
+        # Training would upscale pack_size crops while predict (via
+        # transform.json) resizes the original: different pixels.
+        raise SystemExit(
+            f"--image-size {args.image_size} exceeds the shards' pack size "
+            f"{pack_size}: packed records have no more resolution to "
+            f"offer, and eval/predict geometry would diverge. Re-pack with "
+            f"pack_size >= {args.image_size} (python -m "
+            f"pytorch_vit_paper_replication_tpu_torch.data.pack "
+            f"--pack-size {args.image_size} ...)")
+    transform_spec["pretrained"] = True
+    transform_spec["resize_size"] = pack_size
+    if args.cache_dataset:
+        print("[warn] --cache-dataset has no effect with --dataset packed "
+              "(shards are already decode-free via memmap)")
+    return train_dl, test_dl, class_names
+
+
 def initial_params(cfg: ViTConfig, seed: int) -> Dict[str, torch.Tensor]:
     """The run's initial weights, made from the config and ``seed`` (the
     JAX CLI's ``model.init(key(seed), ...)``, whose Flax RNG the port does
@@ -298,6 +435,13 @@ def main(argv=None) -> dict:
     parser = build_parser()
     args = parser.parse_args(argv)
     refuse_unported(parser, args)
+    # A typo'd window must fail before the data and model set-up.
+    profile_window = None
+    if args.profile_steps:
+        try:
+            profile_window = parse_profile_steps(args.profile_steps)
+        except ValueError as e:
+            raise SystemExit(str(e))
     dev = resolve_device(args.device)
 
     cfg_kwargs = dict(image_size=args.image_size, dtype=args.dtype,
@@ -337,31 +481,21 @@ def main(argv=None) -> dict:
     # ONE transform decision, shared with predict via transform.json.
     transform_spec = dict(image_size=args.image_size, pretrained=False,
                           normalize=False)
-    if args.synthetic:
-        tmp = Path(tempfile.mkdtemp(prefix="vit_synth_"))
-        train_dir, test_dir = make_synthetic_image_folder(
-            tmp, train_per_class=args.synthetic_per_class,
-            test_per_class=max(1, args.synthetic_per_class // 4),
-            image_size=args.image_size, noise_sigma=args.synthetic_noise)
+    if args.augment and args.dataset == "cifar10":
+        raise SystemExit(
+            "--augment (RandomResizedCrop) is for --dataset imagefolder; "
+            "the cifar10 path has no augmentation support")
+    if args.augment and args.dataset == "packed":
+        print("[info] --augment is already the default for --dataset packed")
+    if args.dataset == "cifar10":
+        train_dl, test_dl, class_names = cifar_loaders(args, loader_kwargs,
+                                                       transform_spec)
+    elif args.dataset == "packed":
+        train_dl, test_dl, class_names = packed_loaders(args, loader_kwargs,
+                                                        transform_spec)
     else:
-        if not args.train_dir or not args.test_dir:
-            raise SystemExit(
-                "--train-dir/--test-dir required (or pass --synthetic)")
-        train_dir, test_dir = args.train_dir, args.test_dir
-    transform = make_transform(**transform_spec)
-    if args.augment:
-        # Augment the train split only; eval (and predict, via
-        # transform.json) keeps the deterministic pipeline. Seeded from
-        # --seed: bit-reproducible with one decode worker.
-        from .data.transforms import ThreadLocalRng, augment_transform
-        train_transform = augment_transform(
-            args.image_size, normalize=transform_spec["normalize"],
-            rng=ThreadLocalRng(args.seed))
-    else:
-        train_transform = transform
-    train_dl, test_dl, class_names = create_dataloaders(
-        train_dir, test_dir, train_transform, eval_transform=transform,
-        drop_last_train=True, cache=args.cache_dataset, **loader_kwargs)
+        train_dl, test_dl, class_names = folder_loaders(args, loader_kwargs,
+                                                        transform_spec)
     print(f"classes: {class_names} | train batches/epoch: {len(train_dl)}")
 
     # Model + state ---------------------------------------------------------
@@ -400,7 +534,8 @@ def main(argv=None) -> dict:
                                         nan_guard=args.nan_guard)
 
     checkpointer = (Checkpointer(args.checkpoint_dir,
-                                 max_to_keep=args.keep_checkpoints)
+                                 max_to_keep=args.keep_checkpoints,
+                                 async_save=not args.sync_checkpoints)
                     if args.checkpoint_dir else None)
     epochs_to_run = args.epochs
     done_epochs = 0
@@ -442,18 +577,24 @@ def main(argv=None) -> dict:
                                   device=dev)
 
     with contextlib.ExitStack() as stack:
+        if checkpointer is not None:
+            # Every exit path waits for the save in flight (and raises its
+            # error); the writer thread is not a daemon either.
+            stack.callback(checkpointer.wait)
         logger = (stack.enter_context(MetricsLogger(args.metrics_jsonl))
                   if args.metrics_jsonl else None)
+        telemetry = make_telemetry(args, cfg, dev, profile_window, stack)
         if args.eval_only:
-            return eval_only(args, state, checkpointer, eval_batches, logger)
+            return eval_only(args, state, checkpointer, eval_batches, logger,
+                             telemetry)
         lr_sched = make_lr_schedule(train_cfg, max(1, total_steps // accum))
         state, results = engine.train(
             state, train_batches, eval_batches, epochs=epochs_to_run,
             train_step=train_step, logger=logger, checkpointer=checkpointer,
-            start_epoch=done_epochs,
+            profile_dir=args.profile_dir, start_epoch=done_epochs,
             checkpoint_every_steps=args.checkpoint_every_steps,
             checkpoint_every_epochs=args.checkpoint_every_epochs,
-            lr_schedule=lambda s: lr_sched(s // accum))
+            lr_schedule=lambda s: lr_sched(s // accum), telemetry=telemetry)
 
     if args.checkpoint_dir:
         # The params-only export the port's predict and serve CLIs load,
@@ -506,7 +647,57 @@ def check_resume(meta: dict, args, steps_per_epoch: int, total_steps: int,
             "with the original value")
 
 
-def eval_only(args, state, checkpointer, eval_batches, logger) -> dict:
+def make_telemetry(args, cfg: ViTConfig, dev: torch.device, profile_window,
+                   stack: contextlib.ExitStack):
+    """The run's :class:`..telemetry.StepTelemetry` (None when no
+    telemetry, watchdog or profiling flag is given), with its watchdog and
+    profile controller; each is closed by ``stack``. ``tel_mfu`` takes the
+    card's bf16 peak from :mod:`..telemetry.flops`; a card the table lacks
+    (or the CPU) gets one printed line and no MFU gauge."""
+    if not (args.telemetry_jsonl or args.watchdog_s > 0
+            or args.profile_steps or args.profile_auto):
+        return None
+    from .telemetry import (ProfileController, StepTelemetry, Watchdog,
+                            bf16_peak_tflops, train_step_flops_per_image)
+    run_dir = (Path(args.checkpoint_dir) if args.checkpoint_dir
+               else Path(args.telemetry_jsonl).parent
+               if args.telemetry_jsonl else Path("."))
+    watchdog = None
+    if args.watchdog_s > 0:
+        pm = args.postmortem or str(run_dir / "postmortem.txt")
+        watchdog = Watchdog(args.watchdog_s, postmortem_path=pm)
+        watchdog.install_sigterm()
+        stack.callback(watchdog.stop)
+        watchdog.start()
+        print(f"watchdog: deadline {args.watchdog_s:g}s, postmortem -> {pm}")
+    # The capture controller exists whenever telemetry does: SIGUSR2 can
+    # arm a window on a live run even with no profiling flag.
+    trace_dir = args.profile_trace_dir or str(run_dir / "profiles")
+    profiler = ProfileController(trace_dir, steps=profile_window,
+                                 auto=args.profile_auto,
+                                 auto_pct=args.profile_auto_pct)
+    profiler.install_sigusr2()
+    stack.callback(profiler.close)
+    if args.profile_steps or args.profile_auto:
+        print(f"profiler: captures -> {trace_dir}"
+              + (f", steps {args.profile_steps}" if args.profile_steps
+                 else "")
+              + (f", auto-arm on p50 +{args.profile_auto_pct:g}%"
+                 if args.profile_auto else ""))
+    card = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else str(dev))
+    peak = bf16_peak_tflops(card)
+    if peak is None:
+        print(f"[telemetry] no peak rate for {card!r} in telemetry/flops.py: "
+              "tel_mfu left out")
+    return stack.enter_context(StepTelemetry(
+        args.telemetry_jsonl, sample_every=args.telemetry_every,
+        flops_per_image=train_step_flops_per_image(cfg), peak_tflops=peak,
+        watchdog=watchdog, profiler=profiler))
+
+
+def eval_only(args, state, checkpointer, eval_batches, logger,
+              telemetry=None) -> dict:
     """Score a saved model: the latest checkpoint, else the final/
     export; one eval pass, printed and logged."""
     if checkpointer is not None and checkpointer.latest_step() is not None:
@@ -520,7 +711,9 @@ def eval_only(args, state, checkpointer, eval_batches, logger) -> dict:
         state.model.load_state_dict(
             load_model(final, state.model.state_dict()))
         src = "final/ params export"
-    m = engine.evaluate(state, eval_batches)
+    m = engine.evaluate(
+        state, eval_batches,
+        on_batch=telemetry.heartbeat if telemetry is not None else None)
     print(f"eval ({src}) | test_loss: {m['loss']:.4f} | "
           f"test_acc: {m['acc']:.4f} | examples: {int(m['count'])}")
     if logger:

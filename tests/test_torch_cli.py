@@ -32,7 +32,7 @@ from pytorch_vit_paper_replication_tpu_torch.checkpoint import Checkpointer
 from pytorch_vit_paper_replication_tpu_torch.convert import (
     flatten_tree, load_params_npz, params_from_flax, params_to_flax)
 from pytorch_vit_paper_replication_tpu_torch.data import (
-    make_synthetic_image_folder)
+    make_fake_cifar10, make_synthetic_image_folder, pack_image_folder)
 from pytorch_vit_paper_replication_tpu_torch.predictions import (
     load_inference_checkpoint, predict_image)
 
@@ -42,6 +42,9 @@ PORT_OMITS = {
     "compile_cache_hits": "the port has no persistent compilation cache "
                           "(eager PyTorch; ROADMAP Queue 1 item 9)",
     "compile_cache_misses": "as compile_cache_hits",
+    "tel_mfu": "the port computes MFU against the card's own bf16 peak "
+               "(telemetry/flops.py) and has none for the CPU, where the "
+               "JAX CLI divides by a TPU peak",
 }
 MODEL = ["--preset", "ViT-Ti/16", "--image-size", "32", "--patch-size", "16",
          "--dtype", "float32", "--batch-size", "8", "--num-workers", "1"]
@@ -85,9 +88,9 @@ def _cpu(argv):
     return argv + ["--device", "cpu"]
 
 
-def _jax_init(seed: int, **overrides):
-    cfg = JPRESETS["ViT-Ti/16"](num_classes=3, image_size=32, patch_size=16,
-                                dtype="float32", **overrides)
+def _jax_init(seed: int, num_classes: int = 3, **overrides):
+    cfg = JPRESETS["ViT-Ti/16"](num_classes=num_classes, image_size=32,
+                                patch_size=16, dtype="float32", **overrides)
     params = JViT(cfg).init(jax.random.key(seed),
                             jnp.zeros((1, 32, 32, 3)))["params"]
     return jax.device_get(params)
@@ -214,14 +217,12 @@ def test_resume_schedule_horizon_guard(folder, tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--dataset", "packed"], 2), (["--dataset", "cifar10"], 2),
     (["--pretrained", "w.pth"], 8), (["--freeze-backbone"], 8),
     (["--model", "tinyvgg"], 8), (["--distill-from", "sink"], 9),
     (["--elastic", "2"], 7), (["--mesh-data", "2"], 7),
     (["--mesh-model", "2"], 7), (["--mesh-pipe", "2"], 7),
-    (["--multihost"], 7), (["--telemetry-jsonl", "t.jsonl"], 5),
-    (["--profile-steps", "2:3"], 5), (["--profile-dir", "p"], 5),
-    (["--ship-to", "127.0.0.1:9"], 5), (["--tensorboard-dir", "tb"], 5),
+    (["--multihost"], 7), (["--ship-to", "127.0.0.1:9"], 6),
+    (["--tensorboard-dir", "tb"], 6), (["--metrics-port", "0"], 6),
     (["--compile-cache-dir", "cc"], 9)])
 def test_unported_flags_exit_nonzero(folder, extra, item):
     with pytest.raises(SystemExit, match=f"not yet ported \\(ROADMAP Queue "
@@ -270,3 +271,136 @@ def test_predict_cli_prints_predict_image(folder, trained):
                                                     "sushi"], transform)
         assert line == f"{img}: {label} ({prob:.3f})"
     assert len(lines) == len(images)
+
+
+@pytest.fixture(scope="module")
+def packed(folder, tmp_path_factory):
+    """The synthetic folder packed at 40 px (train in a seeded record
+    order, 5 records a shard)."""
+    root = tmp_path_factory.mktemp("torch_cli_packs")
+    return (pack_image_folder(folder[0], root / "train", pack_size=40,
+                              images_per_shard=5, shuffle_seed=0),
+            pack_image_folder(folder[1], root / "test", pack_size=40))
+
+
+def _packed(packed, seed="7"):
+    return ["--dataset", "packed", "--train-dir", str(packed[0]),
+            "--test-dir", str(packed[1]), *MODEL, "--seed", seed]
+
+
+def _against_jax(argv, tmp_path, monkeypatch, telemetry=False,
+                 num_classes=3):
+    """The JAX CLI and the port's on ``argv`` (the port's init patched to
+    JAX's): losses within rtol 5e-4, accuracies equal, JSONL keys equal
+    (and with ``telemetry``, the telemetry rows' events and keys)."""
+    init = params_from_flax(_jax_init(7, num_classes))
+    monkeypatch.setattr(ttrain, "initial_params", lambda cfg, seed: init)
+    runs = {}
+    for name, fn, extra in (("jax", jax_train_main, []),
+                            ("port", ttrain.main, ["--device", "cpu"])):
+        obs = (["--telemetry-jsonl", str(tmp_path / f"{name}_tel.jsonl"),
+                "--telemetry-every", "1"] if telemetry else [])
+        runs[name] = fn(argv + extra + obs + [
+            "--checkpoint-dir", str(tmp_path / name),
+            "--metrics-jsonl", str(tmp_path / f"{name}.jsonl")])
+    jres, tres = runs["jax"], runs["port"]
+    for key in ("train_loss", "test_loss"):
+        np.testing.assert_allclose(tres[key], jres[key], rtol=5e-4,
+                                   err_msg=key)
+    for key in ("train_acc", "test_acc"):
+        assert tres[key] == jres[key], key
+    names = ["", "_tel"] if telemetry else [""]
+    for suffix in names:
+        jrows = _rows(tmp_path / f"jax{suffix}.jsonl")
+        trows = _rows(tmp_path / f"port{suffix}.jsonl")
+        assert [set(r) for r in trows] == [set(r) - set(PORT_OMITS)
+                                           for r in jrows], suffix
+        assert [r.get("event") for r in trows] == [r.get("event")
+                                                   for r in jrows]
+    for name in ("transform.json", "model_meta.json"):
+        assert json.loads((tmp_path / "port" / name).read_text()) == \
+            json.loads((tmp_path / "jax" / name).read_text()), name
+    return tres
+
+
+def test_packed_cli_matches_jax_cli(packed, tmp_path, monkeypatch):
+    """``--dataset packed`` with the default augmentation (one decode
+    thread: the same draws in both packages), the windowed shuffle and
+    readahead, telemetry rows every step."""
+    argv = _packed(packed) + ["--attention", "xla", "--mlp-impl", "xla",
+                              "--dropout", "0", "--epochs", "2",
+                              "--shuffle-window", "12", "--readahead", "2"]
+    _against_jax(argv, tmp_path, monkeypatch, telemetry=True)
+    spec = json.loads((tmp_path / "port" / "transform.json").read_text())
+    assert spec["pretrained"] is True and spec["resize_size"] == 40
+
+
+def test_cifar10_cli_matches_jax_cli(tmp_path, monkeypatch):
+    root = make_fake_cifar10(tmp_path / "cifar", per_batch=8)
+    argv = ["--dataset", "cifar10", "--data-root", str(root), *MODEL,
+            "--seed", "7", "--attention", "xla", "--mlp-impl", "xla",
+            "--dropout", "0", "--epochs", "1"]
+    res = _against_jax(argv, tmp_path, monkeypatch, num_classes=10)
+    assert len(res["train_loss"]) == 1
+
+
+def test_packed_and_cifar_refusals(packed, tmp_path):
+    with pytest.raises(SystemExit, match="exceeds the shards' pack size 40"):
+        ttrain.main(_cpu(_packed(packed)) + ["--image-size", "48"])
+    with pytest.raises(SystemExit, match="--augment \\(RandomResizedCrop"):
+        ttrain.main(_cpu(["--dataset", "cifar10", "--synthetic", *MODEL,
+                          "--augment"]))
+    with pytest.raises(SystemExit, match="--data-root required"):
+        ttrain.main(_cpu(["--dataset", "cifar10", *MODEL]))
+    with pytest.raises(SystemExit, match="pack_image_folder outputs"):
+        ttrain.main(_cpu(["--dataset", "packed", *MODEL]))
+    with pytest.raises(SystemExit, match="--profile-steps expects"):
+        ttrain.main(_cpu(_packed(packed)) + ["--profile-steps", "3"])
+
+
+def test_packed_resume_from_an_async_save_matches_uninterrupted(
+        packed, tmp_path):
+    """Async saves every 2 steps (the default), everything after the
+    mid-epoch step-4 save and the final export deleted, the command rerun:
+    the final params equal the uninterrupted run's bit for bit
+    (``--no-augment``: a resumed epoch never makes the skipped batches'
+    augmentation draws)."""
+    ck = tmp_path / "ck"
+    argv = _cpu(_packed(packed)) + [
+        "--no-augment", "--epochs", "2", "--checkpoint-dir", str(ck),
+        "--checkpoint-every-steps", "2", "--keep-checkpoints", "20"]
+    ttrain.main(argv)
+    a = load_params_npz(ck / "final" / "params.npz")
+    for d in ck.iterdir():
+        if d.is_dir() and (d.name == "final"
+                           or (d.name.isdigit() and int(d.name) > 4)):
+            shutil.rmtree(d)
+    assert Checkpointer(ck).latest_step() == 4
+    ttrain.main(argv)
+    b = load_params_npz(ck / "final" / "params.npz")
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_telemetry_profile_and_watchdog_flags_run(packed, tmp_path):
+    """--telemetry-jsonl, --profile-steps, --profile-dir, --watchdog-s on
+    the CPU: step rows every step, a torch.profiler trace of the window (in
+    epoch 2) and of epoch 1, no postmortem, and the run's own results
+    unchanged."""
+    base = _cpu(_packed(packed)) + ["--epochs", "2", "--dropout", "0",
+                                    "--attention", "xla", "--mlp-impl",
+                                    "xla"]
+    plain = ttrain.main(base)
+    run = tmp_path / "run"
+    res = ttrain.main(base + [
+        "--checkpoint-dir", str(run), "--telemetry-jsonl",
+        str(run / "tel.jsonl"), "--telemetry-every", "1", "--watchdog-s",
+        "300", "--profile-steps", "4:5", "--profile-dir", str(run / "pd"),
+        "--sync-checkpoints"])
+    assert res == plain
+    rows = _rows(run / "tel.jsonl")
+    assert [r["event"] for r in rows] == 2 * (["step"] * 3 + [
+        "span", "span", "epoch_summary"])
+    assert (run / "pd" / "trace.json").is_file()
+    assert list((run / "profiles").glob("capture_000_step4_flag/trace.json"))
+    assert not (run / "postmortem.txt").exists()

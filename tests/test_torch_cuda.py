@@ -907,3 +907,107 @@ def test_train_cli_epoch_on_card_matches_cpu(dev, tmp_path):
               for k in cpu)
     den = sum(float(cpu[k].double().square().sum()) for k in cpu)
     assert (num / den) ** 0.5 < 2e-3
+
+
+def _small_state(dev, *, attention="xla", mlp="xla", dtype="float32",
+                 image_size=32):
+    from pytorch_vit_paper_replication_tpu_torch import engine, optim
+    from pytorch_vit_paper_replication_tpu_torch.configs import (
+        TrainConfig, ViTConfig)
+    from pytorch_vit_paper_replication_tpu_torch.convert import seeded_params
+    from pytorch_vit_paper_replication_tpu_torch.models import ViT
+    cfg = ViTConfig(image_size=image_size, patch_size=16, num_layers=1,
+                    num_heads=2, embedding_dim=128, mlp_size=256,
+                    num_classes=3, dtype=dtype, attention_impl=attention,
+                    mlp_impl=mlp)
+    model = ViT(cfg)
+    model.load_state_dict(seeded_params(cfg, 0))
+    model.to(dev)
+    return cfg, engine.TrainState.create(
+        model=model, seed=0, tx=optim.make_optimizer(TrainConfig(), 10))
+
+
+def test_async_save_snapshots_before_a_queued_update(dev, tmp_path):
+    """save() behind a queued spin kernel returns while the card is still
+    busy, and an in-place update queued after it reaches neither the params
+    nor the Adam moments of the saved step: the compute stream waits on
+    the snapshot copy's completion event."""
+    from pytorch_vit_paper_replication_tpu_torch.checkpoint import (
+        Checkpointer)
+    _, state = _small_state(dev)
+    _, fresh = _small_state(dev)
+    ck = Checkpointer(tmp_path / "ck")
+    state.step = 1
+    ck.save(state)          # allocates the pinned buffers
+    ck.wait()
+    params = dict(state.model.named_parameters())
+    for m in (state.opt_state.mu, state.opt_state.nu):
+        for v in m.values():
+            v.fill_(0.25)
+    want = {k: v.detach().clone() for k, v in params.items()}
+    torch.cuda.synchronize()
+    torch.cuda._sleep(300_000_000)
+    spun = torch.cuda.Event()
+    spun.record()
+    state.step = 2
+    assert ck.save(state)
+    assert not spun.query(), "save() waited for the card"
+    with torch.no_grad():
+        torch._foreach_add_(list(params.values()), 1.0)
+        torch._foreach_add_(list(state.opt_state.mu.values()), 1.0)
+    ck.wait()
+    ck.restore(fresh, 2)
+    got = dict(fresh.model.named_parameters())
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    for v in fresh.opt_state.mu.values():
+        assert bool((v == 0.25).all())
+    for k, v in params.items():
+        assert torch.equal(v, want[k] + 1.0), k
+
+
+def test_profile_window_names_the_kernels(dev, tmp_path):
+    """A ProfileController window over step 2 of a bf16 flash + fused-MLP
+    run at T = 197 writes a torch.profiler trace naming the hand-written
+    kernels of rows 1-5."""
+    import json
+
+    from pytorch_vit_paper_replication_tpu_torch import engine
+    from pytorch_vit_paper_replication_tpu_torch.telemetry import (
+        ProfileController, StepTelemetry, TelemetryRegistry)
+    _, state = _small_state(dev, attention="flash", mlp="fused",
+                            dtype="bfloat16", image_size=224)
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.standard_normal((8, 224, 224, 3)).astype(
+        np.float32), "label": rng.integers(0, 3, 8)}
+    reg = TelemetryRegistry()
+    ctrl = ProfileController(tmp_path / "prof", steps=(2, 2), registry=reg)
+    tel = StepTelemetry(registry=reg, sample_every=1, profiler=ctrl)
+    engine.train(state, lambda: iter([batch] * 3), lambda: iter([]),
+                 epochs=1, telemetry=tel, verbose=False)
+    ctrl.close()
+    traces = list((tmp_path / "prof").glob("capture_000_step2_*/trace.json"))
+    assert len(traces) == 1
+    names = {e.get("name", "") for e in json.loads(
+        traces[0].read_text())["traceEvents"] if e.get("cat") == "kernel"}
+    for key in ("ln_rows_pre", "gemm_bf16", "rows_post", "flash_fwd_wgmma",
+                "flash_bwd_dq_wg2", "flash_bwd_dkv_wg2"):
+        assert any(key in n for n in names), (key, sorted(names)[:20])
+    assert reg.snapshot()["counters"]["profiler_captures_total"] == 1
+
+
+def test_memory_gauges_read_the_allocator(dev):
+    from pytorch_vit_paper_replication_tpu_torch.telemetry import (
+        TelemetryRegistry, memory_report, sample_device_memory)
+    keep = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    reg = TelemetryRegistry()
+    seen = sample_device_memory(reg)
+    gauges = reg.snapshot()["gauges"]
+    assert seen["mem_dev0_bytes_in_use"] == torch.cuda.memory_allocated(0)
+    assert seen["mem_dev0_bytes_in_use"] >= keep.numel()
+    assert gauges["mem_dev0_bytes_peak"] == torch.cuda.max_memory_allocated(0)
+    assert gauges["mem_dev0_bytes_limit"] == torch.cuda.mem_get_info(0)[1]
+    assert gauges["mem_live_arrays"] > 0
+    assert gauges["mem_live_bytes"] == seen["mem_dev0_bytes_in_use"]
+    report = memory_report()["devices"]["cuda:0"]
+    assert report["bytes_in_use"] >= keep.numel()

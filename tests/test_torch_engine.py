@@ -254,7 +254,14 @@ def test_eval_and_train_loop_match_jax():
     assert ev["count"] == 12.0
 
 
-def test_train_stop_check_and_unported_hooks_raise():
+def test_train_stop_check_and_unported_hooks_raise(tmp_path):
+    """``stop_check`` stops at its step; the ``telemetry`` and
+    ``profile_dir`` hooks (ported: they no longer raise) run and leave the
+    trajectory as it was."""
+    import json
+
+    from pytorch_vit_paper_replication_tpu_torch.telemetry import (
+        StepTelemetry, TelemetryRegistry)
     cfg, params = _init()
     state = _port_state(cfg, params, RECIPE, 6)
     seen = []
@@ -262,9 +269,22 @@ def test_train_stop_check_and_unported_hooks_raise():
         state, lambda: iter(_batches(n=3)), lambda: iter([]), epochs=2,
         verbose=False, stop_check=lambda s: seen.append(s) or s == 2)
     assert seen == [1, 2] and state.step == 2 and res["train_loss"] == []
-    for kw in (dict(telemetry=object()), dict(profile_dir="x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            engine.train(state, list, list, epochs=1, **kw)
+    runs = {}
+    for name, kw in (("plain", {}), ("observed", dict(
+            telemetry=StepTelemetry(tmp_path / "tel.jsonl", sample_every=2,
+                                    registry=TelemetryRegistry()),
+            profile_dir=str(tmp_path / "prof")))):
+        st = _port_state(cfg, params, RECIPE, 6)
+        runs[name] = engine.train(st, lambda: iter(_batches(n=3)),
+                                  lambda: iter(_batches(n=1)), epochs=2,
+                                  verbose=False, **kw)[1]
+    assert runs["observed"] == runs["plain"]
+    rows = [json.loads(x) for x in
+            (tmp_path / "tel.jsonl").read_text().splitlines()]
+    assert [(r["event"], r.get("step")) for r in rows] == [
+        ("step", 1), ("step", 3), ("span", None), ("epoch_summary", 3),
+        ("step", 5), ("span", None), ("epoch_summary", 6)]
+    assert (tmp_path / "prof" / "trace.json").is_file()
 
 
 def test_train_logs_and_checkpoints(tmp_path):
