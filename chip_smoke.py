@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (ViT-B/16 serving and
-training paths, the Quickstart and the ImageNet-scale training CLIs).
+training paths, the Quickstart and the ImageNet-scale training CLIs, the
+transfer-learning path).
 
 Run from the repository root on a machine with one CUDA card::
 
@@ -139,6 +140,38 @@ final ``ok`` line is never printed:
              the host's blocked seconds per save, each profile window's
              idle share, tel_mfu and the packed loader's img/s alone at 1
              and all threads with its transform path.
+4d. transfer — the transfer-learning path: a seeded torchvision-layout
+             ViT-B/16 state dict for 224 px, 1000 classes, from stock
+             ``torch.nn`` layers (``_stock_vit``), written with
+             ``torch.save``; the converted port model (eval, bf16, the
+             flash and fused MLP kernels) against the stock module in f32
+             on the card at 224 px and at 384 px with the interpolated
+             position embedding (logits within TRANSFER_TOL of the largest
+             reference logit). ``train --pretrained ... --freeze-backbone``
+             at 224 px, batch 32, 2 epochs of 3 steps through
+             ``train.main``, the counters set to 0 right before and read
+             right after: rows 1-5 launched 12 times a step, the backbone
+             after training equal to the converted weights bit for bit,
+             the head moved, a run resumed from its step-4 save equal to
+             the uninterrupted one. The ``runs/transfer384_r5`` command cut
+             to one 10-step epoch (--image-size 384, T = 577): rows 1-5 12
+             launches a step, telemetry every 4 steps (tel_mfu against
+             332.9 GFLOP an image), steps 3-10 profiled (wall, device busy,
+             idle share), ``mem_dev0_bytes_peak``; ``predict`` of its
+             export against ``predict_image``. ``probe --pretrained`` (its
+             accuracies) and the probe's features on the card held to f32
+             features on the CPU (TRANSFER_TOL). The fixture packed at 384
+             px, ``tools.batch_infer`` with each head (rows 1 and 3
+             launched 12 times per forward, the others never): ``probs``
+             rows give ``predict_batch``'s labels and probabilities bit
+             for bit on the same rungs, ``softmax(logits)`` equals
+             ``probs``, a SIGKILLed and resumed job's sink equals the
+             unkilled one's (sha256), img/s. TinyVGG one epoch at 64 px, f32,
+             card against ``--device cpu`` (losses rtol TINYVGG_RTOL). Rows
+             1-5 at the 384 px shapes (the MLP rows at N = 18,464 against
+             their plain versions, timed beside their matmul products; the
+             flash rows from phase 2's T = 577 cases) go into the kernel
+             line as ``t577``.
 5. parallel — the data x tensor x pipeline path through the port's
              ``parallel.spawn``, four rank processes sharing the one card
              (gloo, every transfer through host memory; the phase prints
@@ -2337,8 +2370,9 @@ class StepProbe:
     """Wraps ``engine.make_train_step`` while installed: records each
     step's launch-count deltas and, over global steps ``window``
     (inclusive, counted from 1 in the run), the host wall (ending in a
-    synchronize) and the union of the card's kernel intervals from
-    ``torch.profiler``."""
+    synchronize), the union of the card's kernel intervals from
+    ``torch.profiler`` and the device ms of its 15 costliest kernel
+    names (``top_ms``)."""
 
     def __init__(self, window=None):
         self.window = window
@@ -2395,6 +2429,12 @@ class StepProbe:
                 end = e
         self.busy_s = busy / 1e6
         self.kernels = len(spans)
+        by_name = {}
+        for e in self._prof.key_averages():
+            if getattr(e, "device_type", None) == DeviceType.CUDA:
+                name = e.key.split("(")[0].replace("void ", "")[-70:]
+                by_name[name] = by_name.get(name, 0.0) + dev_us(e) / 1e3
+        self.top_ms = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
 
 
 def _cli_main(module: str, argv):
@@ -3003,6 +3043,548 @@ def phase_train_packed(dev, root: Path) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- phase 4d
+# The transfer-learning path: a seeded torchvision-layout ViT-B/16 state
+# dict written for 224 px with 1000 classes (stock torch.nn layers, about
+# 346 MB), fine-tuned with a frozen backbone at 224 and 384 px through the
+# train CLI, the linear probe, offline batch inference at 384 px, TinyVGG.
+TRANSFER_SEED = 10
+# max |port (bf16 kernels) - reference (f32)| / max |reference|: bf16
+# activations through 12 blocks (transfer_forwards on the CPU, the plain
+# versions in bf16: 1.25e-2 at 224 px, 1.24e-2 at 384 px).
+TRANSFER_TOL = 5e-2
+TRANSFER_WINDOW = (3, 10)
+TINYVGG_RTOL = 1e-3
+BI_LADDER = (1, 8, 32)
+
+
+def _stock_vit(cfg):
+    """A torchvision-layout ViT from stock ``torch.nn`` layers (its
+    ``state_dict`` keys follow ``torchvision.models.vit_b_16``: conv_proj,
+    class_token, encoder.pos_embedding, encoder.layers.encoder_layer_i,
+    encoder.ln, heads), LayerNorm epsilon ``cfg.ln_epsilon``; ``forward``
+    takes NCHW images."""
+    import torch
+    from torch import nn
+    d, eps = cfg.embedding_dim, cfg.ln_epsilon
+
+    class Layer(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.ln_1 = nn.LayerNorm(d, eps=eps)
+            self.self_attention = nn.MultiheadAttention(
+                d, cfg.num_heads, batch_first=True)
+            self.ln_2 = nn.LayerNorm(d, eps=eps)
+            self.mlp = nn.Sequential(
+                nn.Linear(d, cfg.mlp_size), nn.GELU(), nn.Dropout(0.0),
+                nn.Linear(cfg.mlp_size, d), nn.Dropout(0.0))
+
+        def forward(self, x):
+            y = self.ln_1(x)
+            a, _ = self.self_attention(y, y, y, need_weights=False)
+            x = x + a
+            return x + self.mlp(self.ln_2(x))
+
+    class Encoder(nn.Module):
+        pass
+
+    class StockViT(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv_proj = nn.Conv2d(3, d, cfg.patch_size, cfg.patch_size)
+            self.class_token = nn.Parameter(torch.randn(1, 1, d) * 0.02)
+            enc = Encoder()
+            enc.pos_embedding = nn.Parameter(
+                torch.randn(1, cfg.seq_len, d) * 0.02)
+            enc.layers = nn.ModuleDict({f"encoder_layer_{i}": Layer()
+                                        for i in range(cfg.num_layers)})
+            enc.ln = nn.LayerNorm(d, eps=eps)
+            self.encoder = enc
+            self.heads = nn.Linear(d, cfg.num_classes)
+
+        def forward(self, x):
+            p = self.conv_proj(x).flatten(2).transpose(1, 2)
+            tok = torch.cat([self.class_token.expand(x.shape[0], -1, -1), p],
+                            1) + self.encoder.pos_embedding
+            for i in range(len(self.encoder.layers)):
+                tok = self.encoder.layers[f"encoder_layer_{i}"](tok)
+            return self.heads(self.encoder.ln(tok)[:, 0])
+
+    return StockViT()
+
+
+def _rel_to_max(got, want) -> float:
+    """max |got - want| / max |want| in f32; raises on a nonfinite
+    ``got``."""
+    import torch
+    got, want = got.float().cpu(), want.float().cpu()
+    if not torch.isfinite(got).all():
+        raise AssertionError("output is not finite")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def transfer_forwards(dev, sd, rng) -> dict:
+    """The converted ViT-B/16 (eval, bf16, ``auto``: the flash and fused
+    MLP kernels) against the stock-torch module in f32 on the card, on 8
+    seeded images at 224 px and at 384 px (the stock module given the
+    interpolated position embedding the converter made): logits within
+    TRANSFER_TOL of the largest reference logit."""
+    import numpy as np
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.configs import PRESETS
+    from pytorch_vit_paper_replication_tpu_torch.convert import (
+        params_from_flax)
+    from pytorch_vit_paper_replication_tpu_torch.models import ViT
+    from pytorch_vit_paper_replication_tpu_torch.transfer import (
+        convert_torch_vit_state_dict)
+    out = {}
+    for px in (224, 384):
+        cfg = PRESETS[PRESET](num_classes=NUM_CLASSES, image_size=px)
+        tree = convert_torch_vit_state_dict(sd, cfg, include_head=True)
+        stock = _stock_vit(cfg)
+        stock.load_state_dict({**sd, "encoder.pos_embedding": torch.from_numpy(
+            tree["backbone"]["patch_embedding"]["pos_embedding"])})
+        stock.to(dev).eval()
+        model = ViT(cfg)
+        model.load_state_dict(params_from_flax(tree))
+        model.to(dev).eval()
+        x = rng.standard_normal((8, px, px, 3)).astype(np.float32)
+        with torch.inference_mode():
+            got = model(torch.from_numpy(x).to(dev))
+            want = stock(torch.from_numpy(x.transpose(0, 3, 1, 2)).to(dev))
+        err = _rel_to_max(got, want)
+        cos = float(torch.nn.functional.cosine_similarity(
+            got.float().flatten(), want.float().flatten(), dim=0))
+        if err > TRANSFER_TOL:
+            raise AssertionError(f"converted B/16 at {px} px: logits off the "
+                                 f"stock-torch forward by {err} of the max "
+                                 f"(tolerance {TRANSFER_TOL})")
+        out[px] = {"tokens": cfg.seq_len, "rel_err_to_max": err,
+                   "cosine": cos, "argmax_agree": int(
+                       (got.argmax(-1) == want.argmax(-1)).sum())}
+        del stock, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def t577_kernels(gen, card_peaks, dev, k_rows) -> dict:
+    """Rows 1-5 at the 384 px shapes of a batch-32 B/16 step: the MLP
+    kernels at N = 32 * 577 = 18,464 rows (bf16, dropout off; held to
+    their plain versions, timed beside their bf16 matmul products), the
+    flash kernels at [32, 577, 12, 64] from the kernels phase's rows."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.ops import fused_mlp
+    n, d, f = 32 * 577, 768, 3072
+    bf16_rate, _, hbm = card_peaks
+    p = _mlp_inputs(gen, n, d, f, torch.bfloat16, dev)
+    kw = dict(eps=1e-6, seed=20261018, threshold=0)
+    dout = torch.randn(n, d, generator=gen).to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        out, h = fused_mlp._launch(**p, **kw, save_h=True)
+        torch.cuda.synchronize()
+        fwd_err = close(out, fused_mlp.ln_mlp_residual_plain(**p, **kw),
+                        TOL["bfloat16"])
+        args = (p["x2"], h, p["gamma"], p["beta"], p["w1"], p["w2"], dout)
+        got = fused_mlp._launch_bwd(*args, **kw)
+        want = fused_mlp.ln_mlp_residual_bwd_plain(*args, **kw)
+        bwd_err = max(rel_err(a, c) for a, c in zip(got, want))
+        if bwd_err > 2e-2:
+            raise AssertionError(f"MLP backward at N = {n}: {bwd_err}")
+        rows = {}
+        for name, fn, plain, flops, nbytes, lib in (
+                ("fused_ln_mlp_residual",
+                 lambda: fused_mlp._launch(**p, **kw),
+                 lambda: fused_mlp.ln_mlp_residual_plain(**p, **kw),
+                 4.0 * n * d * f,
+                 2 * n * d * 2 + 2 * d * f * 2 + (f + d) * 2 + 2 * d * 4,
+                 fwd_gemms_library(gen, n, d, f, dev)),
+                ("fused_ln_mlp_residual_bwd",
+                 lambda: fused_mlp._launch_bwd(*args, **kw),
+                 lambda: fused_mlp.ln_mlp_residual_bwd_plain(*args, **kw),
+                 8.0 * n * d * f,
+                 (3 * n * d + n * f) * 2 + 4 * d * f * 2 + (2 * f + 4 * d)
+                 * 4, gemms_library(gen, n, d, f, dev))):
+            b_ms, b_by = bound(flops, nbytes, bf16_rate, hbm)
+            dev_ms = device_ms(fn)
+            rows[name] = {"shape": [n, d, f], "ms": time_ms(fn, 10),
+                          "device_ms": dev_ms, "plain_ms": time_ms(plain, 2),
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "device_bound_share": b_ms / dev_ms if dev_ms
+                          else None,
+                          "library": "bf16 torch.matmul products",
+                          "library_ms": lib["gemms_library_ms"],
+                          "library_device_ms": lib["gemms_library_device_ms"]}
+    del p, h, dout, args, got, want
+    fl = next(r for r in k_rows if r.get("kernel") == "flash_attention"
+              and r["dtype"] == "bfloat16" and r["threshold"] == 0
+              and r["shape"] == [32, 577, 12, 64])
+    fb = next(r for r in k_rows if r.get("kernel") == "flash_attention_bwd"
+              and r["dtype"] == "bfloat16" and r["threshold"] == 0
+              and r["shape"] == [32, 577, 12, 64])
+    rows["flash_attention"] = {
+        "shape": fl["shape"], "ms": fl["kernel_ms"],
+        "device_ms": fl["kernel_device_ms"], "plain_ms": fl["plain_ms"],
+        "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
+        "device_bound_share": fl["device_bound_share"], "library": "SDPA",
+        "library_ms": fl["library_ms"],
+        "library_device_ms": fl["library_device_ms"]}
+    for name, key in (("flash_attention_bwd_dq", "dq"),
+                      ("flash_attention_bwd_dkv", "dkv")):
+        rows[name] = {
+            "shape": fb["shape"], "ms": fb[f"{key}_ms"],
+            "device_ms": fb[f"{key}_device_ms"],
+            "plain_ms": fb["plain_ms"], "bound_ms": fb[f"{key}_bound_ms"],
+            "bound_by": fb[f"{key}_bound_by"],
+            "device_bound_share": fb[f"{key}_device_bound_share"],
+            "library": "SDPA backward (dq + dk + dv)",
+            "library_ms": fb["library_ms"],
+            "library_device_ms": fb["library_device_ms"]}
+    return {"rows": rows, "mlp_fwd_max_abs_err": fwd_err,
+            "mlp_bwd_max_rel_err": bwd_err}
+
+
+def _check_forward_launches(tag: str, counts, forwards: int) -> None:
+    """Rows 1 and 3 launched once per block in each of ``forwards``
+    inference forwards; the backward and tensor-parallel rows never."""
+    want = {**{k: 0 for k in counts}, "fused_ln_mlp_residual": 12 * forwards,
+            "flash_attention": 12 * forwards}
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts}, want {want}")
+
+
+# ``tools.batch_infer.main`` on ``argv[2:]`` with every chunk's dispatch
+# delayed ``argv[1]`` seconds, so a kill lands mid-sweep.
+PACED_BATCH_INFER = f"""
+import sys, time
+from {PKG}.serve.offline import OfflineEngine
+from {PKG}.tools import batch_infer
+pause, dispatch = float(sys.argv[1]), OfflineEngine.dispatch
+def paced(self, x):
+    time.sleep(pause)
+    return dispatch(self, x)
+OfflineEngine.dispatch = paced
+batch_infer.main(sys.argv[2:])
+"""
+
+
+def _kill_resume(argv, out: Path, clean: Path) -> dict:
+    """``tools.batch_infer`` on ``argv`` + ``--out out``, its dispatch
+    paced by ``PACED_BATCH_INFER``, SIGKILLed once its manifest records a
+    checkpoint past record 0, then the same command resumed in this
+    process: its sink and predictions mirror must equal ``clean``'s."""
+    import signal
+    from pytorch_vit_paper_replication_tpu_torch.serve.offline import (
+        PROGRESS_MANIFEST, sink_sha256)
+    victim = subprocess.Popen(
+        [sys.executable, "-c", PACED_BATCH_INFER, "3", *argv, "--out",
+         str(out)], cwd=REPO,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    killed_at = None
+    deadline = time.monotonic() + 300
+    try:
+        while killed_at is None and time.monotonic() < deadline:
+            if victim.poll() is not None:
+                raise AssertionError(
+                    f"batch_infer victim exited {victim.returncode} before "
+                    f"the kill: {victim.stderr.read()[-2000:]}")
+            try:
+                done = json.loads((out / PROGRESS_MANIFEST).read_text())[
+                    "records_done"]
+            except (OSError, ValueError, KeyError):
+                done = 0
+            if done > 0:
+                killed_at = done
+            else:
+                time.sleep(0.05)
+        if killed_at is None:
+            raise AssertionError("batch_infer victim made no progress")
+        victim.send_signal(signal.SIGKILL)
+        victim.wait(timeout=60)
+    finally:
+        if victim.poll() is None:
+            victim.kill()
+            victim.wait(timeout=60)
+        victim.stderr.close()
+    resumed, _ = _cli_main("tools.batch_infer", [*argv, "--out", str(out)])
+    sha = sink_sha256(out / "outputs.npy")
+    if resumed["resumed_from"] < killed_at or \
+            sha != sink_sha256(clean / "outputs.npy") or \
+            (out / "preds.jsonl").read_bytes() != \
+            (clean / "preds.jsonl").read_bytes():
+        raise AssertionError(f"killed at {killed_at}, resumed from "
+                             f"{resumed['resumed_from']}: the sink differs "
+                             "from the unkilled run's")
+    return {"killed_at_records": killed_at,
+            "resumed_from": resumed["resumed_from"], "sink_sha256": sha,
+            "identical": True}
+
+
+def phase_transfer(dev, root: Path, gen, card_peaks, k_rows) -> dict:
+    """The transfer path on the card (see the module docstring, 4d).
+    Returns the launch counts of the frozen 224 px CLI run (its main
+    path) and the rows 1-5 readings at T = 577."""
+    import argparse
+    import numpy as np
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch import probe
+    from pytorch_vit_paper_replication_tpu_torch.configs import PRESETS
+    from pytorch_vit_paper_replication_tpu_torch.convert import (
+        load_params_npz)
+    from pytorch_vit_paper_replication_tpu_torch.data import (
+        create_dataloaders, make_synthetic_image_folder, pack_image_folder)
+    from pytorch_vit_paper_replication_tpu_torch.data.imagenet import (
+        PackedShardDataset, eval_center_transform)
+    from pytorch_vit_paper_replication_tpu_torch.data.transforms import (
+        make_transform)
+    from pytorch_vit_paper_replication_tpu_torch.models import (
+        ViTFeatureExtractor)
+    from pytorch_vit_paper_replication_tpu_torch.predictions import (
+        load_inference_checkpoint, predict_batch, predict_image)
+    from pytorch_vit_paper_replication_tpu_torch.telemetry import (
+        bf16_peak_tflops, get_registry, train_step_flops_per_image)
+    from pytorch_vit_paper_replication_tpu_torch.transfer import (
+        init_from_pretrained)
+
+    t_phase = time.perf_counter()
+    clock = {}
+    rng = np.random.default_rng(TRANSFER_SEED)
+    classes = ["pizza", "steak", "sushi"]
+    # ---- the pretrained weights and the two forwards.
+    torch.manual_seed(TRANSFER_SEED)
+    sd = _stock_vit(PRESETS[PRESET](num_classes=NUM_CLASSES)).state_dict()
+    pth = root / "vit_b_16_224.pth"
+    torch.save(sd, pth)
+    forwards = transfer_forwards(dev, sd, rng)
+    del sd
+    clock["weights_and_forwards_s"] = time.perf_counter() - t_phase
+
+    # ---- frozen fine-tune at 224 px: the main path, counts to 0, drive,
+    # read; then interrupted after step 4 and resumed.
+    t0 = time.perf_counter()
+    train_dir, test_dir = make_synthetic_image_folder(
+        root / "ds", train_per_class=CLI_PER_CLASS[0],
+        test_per_class=CLI_PER_CLASS[1], image_size=224)
+    ck = root / "F224"
+    run = ["--train-dir", str(train_dir), "--test-dir", str(test_dir),
+           "--preset", PRESET, "--image-size", "224", "--batch-size",
+           str(TRAIN_BATCH), "--epochs", str(CLI_EPOCHS), "--seed", "0",
+           "--pretrained", str(pth), "--freeze-backbone",
+           "--checkpoint-dir", str(ck), "--checkpoint-every-steps",
+           str(CLI_EVERY_STEPS), "--keep-checkpoints", "20"]
+    torch.cuda.synchronize()
+    reset_counts()
+    with StepProbe() as frozen:
+        _cli_main("train", run)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    _check_step_launches("frozen 224", frozen.deltas)
+    final = load_params_npz(ck / "final" / "params.npz")
+    start = init_from_pretrained(PRESETS[PRESET](num_classes=3), pth)
+    moved = [k for k in start if not torch.equal(final[k], start[k])]
+    if set(final) != set(start) or sorted(moved) != ["head.bias",
+                                                     "head.kernel"]:
+        raise AssertionError(f"frozen run: params that moved {moved[:5]}")
+    for d in ck.iterdir():
+        if d.is_dir() and (d.name == "final" or (
+                d.name.isdigit() and int(d.name) > CLI_RESUME_FROM)):
+            shutil.rmtree(d)
+    with StepProbe() as resumed:
+        _, resume_out = _cli_main("train", run)
+    _check_step_launches("frozen 224 resumed", resumed.deltas)
+    if f"resumed from step {CLI_RESUME_FROM}" not in resume_out:
+        raise AssertionError(f"frozen run did not resume: "
+                             f"{resume_out[-600:]}")
+    again = load_params_npz(ck / "final" / "params.npz")
+    differ = [k for k in final if not torch.equal(final[k], again[k])]
+    if differ:
+        raise AssertionError(f"resumed frozen run differs: {differ[:5]}")
+    clock["frozen_224_s"] = time.perf_counter() - t0
+
+    # ---- the runs/transfer384_r5 command, cut to one 10-step epoch.
+    t0 = time.perf_counter()
+    train_c, test_c = make_synthetic_image_folder(
+        root / "ds_c", train_per_class=CLI_C_PER_CLASS,
+        test_per_class=CLI_PER_CLASS[1], image_size=224, seed=1)
+    ck384 = root / "F384"
+    cfg384 = PRESETS[PRESET](num_classes=3, image_size=384)
+    flops = train_step_flops_per_image(cfg384)
+    peak = bf16_peak_tflops(torch.cuda.get_device_name(0))
+    get_registry().reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with StepProbe(window=TRANSFER_WINDOW) as w384:
+        _cli_main("train", [
+            "--train-dir", str(train_c), "--test-dir", str(test_c),
+            "--preset", PRESET, "--image-size", "384", "--batch-size",
+            str(TRAIN_BATCH), "--epochs", "1", "--seed", "0",
+            "--pretrained", str(pth), "--freeze-backbone",
+            "--checkpoint-dir", str(ck384), "--metrics-jsonl",
+            str(ck384 / "m.jsonl"), "--telemetry-jsonl",
+            str(ck384 / "tel.jsonl"), "--telemetry-every", "4"])
+    torch.cuda.synchronize()
+    launches384 = read_counts()
+    max_alloc = torch.cuda.max_memory_allocated()
+    gauges = get_registry().snapshot()["gauges"]
+    _check_step_launches("frozen 384", w384.deltas)
+    step_rows = _check_tel_rows("frozen 384", _jsonl(ck384 / "tel.jsonl"),
+                                flops, peak)
+    summary = [r for r in _jsonl(ck384 / "tel.jsonl")
+               if r["event"] == "epoch_summary"][0]
+    n_win = TRANSFER_WINDOW[1] - TRANSFER_WINDOW[0] + 1
+    m384 = _jsonl(ck384 / "m.jsonl")[0]
+    if not np.isfinite(m384["train_loss"]):
+        raise AssertionError(f"384 px run: {m384}")
+    step384 = {
+        "steps": len(w384.deltas), "tokens": cfg384.seq_len,
+        "flops_per_image": flops, "peak_tflops": peak,
+        "window_steps": list(TRANSFER_WINDOW),
+        "window_wall_ms_per_step": w384.wall_s * 1e3 / n_win,
+        "window_device_busy_ms_per_step": w384.busy_s * 1e3 / n_win,
+        "window_idle_share": 1 - w384.busy_s / w384.wall_s,
+        "window_device_events": w384.kernels,
+        "window_top_device_ms_per_step": [[k, v / n_win]
+                                          for k, v in w384.top_ms],
+        "tel_mfu_steps": [r["tel_mfu"] for r in step_rows],
+        "tel_step_s_steps": [r["tel_step_s"] for r in step_rows],
+        "epoch_tel_mfu": summary["tel_mfu"],
+        "epoch_tel_images_per_sec": summary["tel_images_per_sec"],
+        "mem_dev0_bytes_peak": gauges.get("mem_dev0_bytes_peak"),
+        "max_memory_allocated": max_alloc, "launches": launches384,
+        "train_loss": m384["train_loss"], "test_acc": m384["test_acc"]}
+
+    # predict on the 384 px export, as a user runs it.
+    img = sorted(Path(test_c).rglob("*.jpg"))[0]
+    _, printed = _cli_main("predict", [str(img), "--checkpoint", str(ck384),
+                                       "--classes", *classes, "--preset",
+                                       PRESET])
+    model384, transform384, spec384 = load_inference_checkpoint(
+        ck384, PRESET, len(classes), device=dev)
+    label, prob, _ = predict_image(model384, img, classes, transform384)
+    want = f"{img}: {label} ({prob:.3f})"
+    if printed.strip().splitlines() != [want] or spec384["image_size"] != 384:
+        raise AssertionError(f"predict at 384 px printed {printed!r}, "
+                             f"predict_image gives {want!r}")
+    clock["frozen_384_and_predict_s"] = time.perf_counter() - t0
+
+    # ---- the linear probe on the pretrained backbone, card vs CPU
+    # features on one batch of the test split.
+    t0 = time.perf_counter()
+    probe_res, _ = _cli_main("probe", [
+        "--train-dir", str(train_dir), "--test-dir", str(test_dir),
+        "--preset", PRESET, "--image-size", "224", "--pretrained", str(pth),
+        "--batch-size", str(TRAIN_BATCH)])
+    cfgp = PRESETS[PRESET](num_classes=1)
+    state = probe._backbone_state(argparse.Namespace(
+        checkpoint=None, pretrained=str(pth)), cfgp)
+    _, test_dl, _ = create_dataloaders(
+        train_dir, test_dir, make_transform(224, pretrained=True,
+                                            normalize=True), batch_size=8)
+    batch = next(iter(test_dl))
+    test_dl.close()
+    feats = {}
+    for name, d, dtype in (("card", dev, cfgp.dtype),
+                           ("cpu", torch.device("cpu"), "float32")):
+        m = ViTFeatureExtractor(cfgp.replace(dtype=dtype))
+        m.load_state_dict(state)
+        feats[name], _ = probe.extract_features(m.to(d), [batch])
+        del m
+    probe_err = _rel_to_max(feats["card"], feats["cpu"])
+    if probe_err > TRANSFER_TOL:
+        raise AssertionError(f"probe features card vs CPU: {probe_err}")
+    clock["probe_s"] = time.perf_counter() - t0
+
+    # ---- offline batch inference at 384 px over the fixture's train split.
+    t0 = time.perf_counter()
+    pack384 = pack_image_folder(train_dir, root / "pack384", pack_size=384,
+                                images_per_shard=32)
+    classes_file = root / "classes.txt"
+    classes_file.write_text("\n".join(classes) + "\n")
+    bi = [str(pack384), "--checkpoint", str(ck384), "--classes-file",
+          str(classes_file), "--preset", PRESET, "--batch-size",
+          str(TRAIN_BATCH), "--buckets", *map(str, BI_LADDER),
+          "--checkpoint-every-records", str(TRAIN_BATCH),
+          "--checkpoint-every-s", "0.01", "--preds-jsonl"]
+    sinks, bi_runs = {}, {}
+    for head in ("probs", "logits", "features"):
+        torch.cuda.synchronize()
+        reset_counts()
+        s, _ = _cli_main("tools.batch_infer",
+                         bi + ["--out", str(root / f"bi_{head}"), "--head",
+                               head])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        # One forward a chunk, plus the engine's one-image shape probe.
+        _check_forward_launches(f"batch_infer {head}", counts,
+                                -(-s["records"] // TRAIN_BATCH) + 1)
+        sinks[head] = np.load(root / f"bi_{head}" / "outputs.npy")
+        bi_runs[head] = {"launches": counts, **{k: s[k] for k in (
+            "records", "images_per_sec", "steady_images_per_sec", "wall_s",
+            "data_wait_s", "drain_s", "devices")}}
+    ds = PackedShardDataset(pack384, eval_center_transform(
+        384, normalize=spec384["normalize"]), startup_readahead=False)
+    rows = [ds[i][0] for i in range(len(ds))]
+    preds = predict_batch(model384, rows, classes, buckets=BI_LADDER)
+    for i, ((label, prob), row) in enumerate(zip(preds, sinks["probs"])):
+        if label != classes[int(row.argmax())] or prob != float(row.max()):
+            raise AssertionError(f"batch_infer probs row {i} != "
+                                 f"predict_batch {(label, prob)}")
+    soft = torch.softmax(torch.from_numpy(sinks["logits"]).to(dev), -1)
+    if not np.array_equal(soft.cpu().numpy(), sinks["probs"]) or \
+            sinks["features"].shape != (len(ds), cfg384.embedding_dim):
+        raise AssertionError("softmax(logits sink) != probs sink, or the "
+                             "features sink has the wrong shape")
+    del model384
+    torch.cuda.empty_cache()
+    kill = _kill_resume(bi + ["--head", "probs"], root / "bi_killed",
+                        root / "bi_probs")
+    clock["batch_infer_s"] = time.perf_counter() - t0
+
+    # ---- TinyVGG: one epoch at 64 px on the card against the CPU.
+    t0 = time.perf_counter()
+    tv_train, tv_test = make_synthetic_image_folder(
+        root / "ds64", train_per_class=CLI_PER_CLASS[0],
+        test_per_class=CLI_PER_CLASS[1], image_size=64)
+    tv = {}
+    for d in ("cuda", "cpu"):
+        tv[d], _ = _cli_main("train", [
+            "--train-dir", str(tv_train), "--test-dir", str(tv_test),
+            "--model", "tinyvgg", "--image-size", "64", "--dtype",
+            "float32", "--batch-size", str(TRAIN_BATCH), "--epochs", "1",
+            "--seed", "0", "--num-workers", "1", "--device", d])
+    for key in ("train_loss", "test_loss"):
+        if not np.allclose(tv["cuda"][key], tv["cpu"][key], rtol=TINYVGG_RTOL,
+                           atol=0):
+            raise AssertionError(f"TinyVGG {key}: card {tv['cuda'][key]} vs "
+                                 f"CPU {tv['cpu'][key]}")
+    clock["tinyvgg_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    t577 = t577_kernels(gen, card_peaks, dev, k_rows)
+    clock["t577_kernels_s"] = time.perf_counter() - t0
+    emit({"phase": "transfer", "ok": True, "model": PRESET,
+          "pretrained_pth_bytes": pth.stat().st_size,
+          "forwards_vs_stock_f32": forwards, "tolerance": TRANSFER_TOL,
+          "frozen_224": {"launches": launches,
+                         "launches_per_step": CLI_STEP_LAUNCHES,
+                         "steps": len(frozen.deltas),
+                         "backbone_bit_identical": True,
+                         "resumed_from_step": CLI_RESUME_FROM,
+                         "resumed_final_params_bit_identical": True},
+          "frozen_384": step384, "predict_384": want,
+          "probe": {**probe_res, "features_card_vs_cpu_rel_err": probe_err,
+                    "tolerance": TRANSFER_TOL},
+          "batch_infer_384": {"runs": bi_runs, "ladder": list(BI_LADDER),
+                              "probs_equal_predict_batch": True,
+                              "softmax_logits_equal_probs": True,
+                              "kill_resume": kill},
+          "tinyvgg_64": {"card": tv["cuda"], "cpu": tv["cpu"],
+                         "rtol": TINYVGG_RTOL},
+          "t577": t577, "clock_s": clock,
+          "seconds": round(time.perf_counter() - t_phase, 3)})
+    return {"launches": launches, "t577": t577["rows"]}
+
+
 # ------------------------------------------------------------- phase 6
 # How each kernel multiplies on the card, bf16 (f32 runs SIMT everywhere).
 KERNEL_DESIGN = {
@@ -3015,7 +3597,7 @@ KERNEL_DESIGN = {
 
 
 def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
-                cli_launches, packed_launches):
+                cli_launches, packed_launches, transfer):
     """The seven ported kernels with their main-path numbers: rows 1-5 at
     batch 32, bf16, dropout off, T = 197; rows 6 and 7 (the MLP core) at
     the parallel phase's per-microbatch shape (4 * 197 rows, F / tp =
@@ -3028,7 +3610,10 @@ def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
     ``ops_launches`` its launches on the ops phase's path and
     ``train_cli_launches`` on the train_cli phase's (run B through
     ``train.main``), ``train_packed_launches`` on the train_packed phase's
-    (P2 through ``train.main``). ``ms``, ``plain_ms`` and ``library_ms``
+    (P2 through ``train.main``), ``transfer_launches`` on the transfer
+    phase's (the frozen 224 px CLI run), and rows 1-5 carry ``t577``, their
+    readings at the 384 px step's shapes (T = 577, N = 18,464 MLP rows).
+    ``ms``, ``plain_ms`` and ``library_ms``
     are event times on every row, ``device_ms`` and ``library_device_ms``
     device times (calls queued behind a spin kernel). The two clocks part
     most for the flash backward's library call: its event time includes
@@ -3131,10 +3716,13 @@ def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
                  "ops_launches": ops["path"][name],
                  "train_cli_launches": cli_launches[name],
                  "train_packed_launches": packed_launches[name],
+                 "transfer_launches": transfer["launches"][name],
                  "checked": (flash_checked if name.startswith("flash")
                              else mlp_checked)}
         if gemms[0] is not None:
             entry["gemms_library_ms"], entry["gemms_library_device_ms"] = gemms
+        if name in transfer["t577"]:
+            entry["t577"] = transfer["t577"][name]
         out.append(entry)
     return {"kernels": out, "to_port": []}
 
@@ -3190,13 +3778,19 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_transfer_"))
+    try:
+        transfer = phase_transfer(dev, root, gen, card_peaks, k_rows)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
     par_launches = phase_parallel(dev)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             3)})
     print(card, flush=True)
     print(json.dumps(kernel_list(k_rows, launches, serve_launches,
                                  par_launches, ops, cli_launches,
-                                 packed_launches)),
+                                 packed_launches, transfer)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -317,6 +317,15 @@ class Checkpointer:
         model.load_state_dict(payload["params"])
         dev = next(model.parameters()).device
         o = payload["opt_state"]
+        if set(o["mu"]) != set(state.opt_state.mu):
+            # A frozen-backbone run keeps Adam state for the head only: the
+            # optimizer this state was built with must label the same
+            # params trainable as the one that saved.
+            raise ValueError(
+                f"checkpoint step {step} holds optimizer state for "
+                f"{len(o['mu'])} params, this run's optimizer trains "
+                f"{len(state.opt_state.mu)}; resume with the same "
+                "--freeze-backbone setting")
 
         def on_dev(d):
             return {k: v.to(dev) for k, v in d.items()}

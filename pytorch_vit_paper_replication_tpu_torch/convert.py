@@ -3,8 +3,9 @@
 The port's modules keep the Flax names and layouts (``models/vit.py``), so
 a Flax param tree ``{"backbone": {"encoder_block_0": {"msa": {"qkv":
 {"kernel": ...}}}}, "head": ...}`` maps to the port's ``state_dict`` by
-joining the path with dots. The port's on-disk export is ``params.npz``
-whose keys are the ``/``-joined Flax paths — the same names either way.
+joining the path with dots (TinyVGG's ``block{b}_conv{c}`` and
+``classifier`` too). The port's on-disk export is ``params.npz`` whose
+keys are the ``/``-joined Flax paths — the same names either way.
 
 Reading an Orbax checkpoint needs JAX and tensorstore; converting a JAX
 ``save_model`` export to ``params.npz`` is a later slice (ROADMAP).
@@ -14,6 +15,7 @@ one rank's slices on a parallel mesh.
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
 from typing import Any, Dict, Mapping
 
@@ -81,14 +83,21 @@ def load_params_npz(path: str | Path) -> Dict[str, torch.Tensor]:
 def seeded_params(cfg: ViTConfig, seed: int, *,
                   with_head: bool = True) -> Dict[str, torch.Tensor]:
     """Random weights for ``cfg`` made from ``seed`` with numpy, as a
-    ``state_dict``: LeCun-normal kernels (fan-in over the input axes),
-    zero biases, unit LayerNorm scales, zero CLS token and a 0.02-normal
-    position embedding — the JAX package's initializer families."""
+    ``state_dict`` (:func:`seeded_state` of the config's model)."""
     from .models import create_model
 
     with torch.device("meta"):
-        shapes = {k: tuple(v.shape) for k, v in
-                  create_model(cfg, with_head=with_head).state_dict().items()}
+        model = create_model(cfg, with_head=with_head)
+    return seeded_state(model, seed)
+
+
+def seeded_state(model: torch.nn.Module,
+                 seed: int) -> Dict[str, torch.Tensor]:
+    """Random weights for ``model``'s parameter names and shapes, made from
+    ``seed`` with numpy: LeCun-normal kernels (fan-in over the input axes),
+    zero biases, unit LayerNorm scales, zero CLS token and a 0.02-normal
+    position embedding — the JAX package's initializer families."""
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     rng = np.random.default_rng(seed)
     state = {}
     for name, shape in shapes.items():
@@ -110,10 +119,11 @@ def seeded_params(cfg: ViTConfig, seed: int, *,
 
 def _kernel_in_shape(name: str, shape):
     """The input axes of a kernel: two for the attention out projection
-    ``[H, Dh, D]``, three for the patch conv ``[P, P, C, D]``, else one."""
+    ``[H, Dh, D]``, three for a conv kernel ``[kh, kw, C, D]`` (the patch
+    conv, TinyVGG's ``block{b}_conv{c}``), else one."""
     if name.endswith("msa.out.kernel"):
         return shape[:2]
-    if name.endswith("patch_conv.kernel"):
+    if re.search(r"conv\d*\.kernel$", name):
         return shape[:3]
     return shape[:1]
 

@@ -46,8 +46,9 @@ DEFAULT_HIST_WINDOW = 4096
 DEFAULT_EVENT_RING = 256
 
 # The instruments this package publishes, name -> kind: the train-side
-# (tel_/watchdog_/profiler_/mem_) and serve-side (serve_/compile_cache_/
-# trace_) subsets of the JAX package's declared schema. Dynamic names ride
+# (tel_/watchdog_/profiler_/mem_), serve-side (serve_/compile_cache_/
+# trace_) and batch-inference (bi_) subsets of the JAX package's declared
+# schema. Dynamic names ride
 # their prefixes (mem_devN_*, serve_lat_*, serve_latency_*).
 INSTRUMENTS: Dict[str, str] = {
     'tel_step_s': 'histogram',
@@ -91,6 +92,14 @@ INSTRUMENTS: Dict[str, str] = {
     'serve_tier_interactive_p99_s': 'gauge',
     'serve_tier_batch_p99_s': 'gauge',
     'trace_spans_total': 'counter',
+    'bi_records_total': 'counter',
+    'bi_batches_total': 'counter',
+    'bi_checkpoints_total': 'counter',
+    'bi_images_per_sec': 'gauge',
+    'bi_progress_pct': 'gauge',
+    'bi_devices': 'gauge',
+    'bi_data_wait_s': 'histogram',
+    'bi_drain_s': 'histogram',
 }
 
 # Prometheus # HELP text for the declared instruments (the renderer
@@ -137,6 +146,14 @@ HELP_TEXT: Dict[str, str] = {
     'serve_tier_interactive_p99_s': 'Rolling p99 total latency, interactive tier',
     'serve_tier_batch_p99_s': 'Rolling p99 total latency, batch tier',
     'trace_spans_total': 'Request-trace spans recorded by this process',
+    'bi_records_total': 'Batch-inference records completed',
+    'bi_batches_total': 'Batch-inference loader batches consumed',
+    'bi_checkpoints_total': 'Batch-inference progress manifests written',
+    'bi_images_per_sec': 'Batch-inference live sweep throughput',
+    'bi_progress_pct': 'Batch-inference dataset progress, percent',
+    'bi_devices': 'Devices the batch-inference replicas run on',
+    'bi_data_wait_s': 'Seconds blocked on the batch-inference loader',
+    'bi_drain_s': 'Seconds blocked fetching batch-inference outputs',
 }
 
 class _RollingHistogram:

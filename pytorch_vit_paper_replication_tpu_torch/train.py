@@ -28,12 +28,21 @@ It runs on ``cuda`` unless ``--device cpu`` is given (then the kernels'
 plain PyTorch versions run); without a card it raises ``no CUDA device``.
 Checkpoint saves are asynchronous unless ``--sync-checkpoints``. The flags
 keep the JAX CLI's names, defaults and semantics. Those whose path is not
-ported yet (transfer, distillation, elastic and multi-card meshes, the
-metrics HTTP endpoint, the fleet shipper, TensorBoard, the compile cache)
-are parsed and refused with ``... not yet ported (ROADMAP Queue 1 item
-N)`` when given a value other than their default.
+ported yet (distillation, elastic and multi-card meshes, the metrics HTTP
+endpoint, the fleet shipper, TensorBoard, the compile cache) are parsed
+and refused with ``... not yet ported (ROADMAP Queue 1 item N)`` when
+given a value other than their default.
 
-A finished run leaves ``final/params.npz``, ``transform.json`` and
+Transfer learning: ``--pretrained PTH`` starts the backbone from a torch
+ViT state_dict (position embedding interpolated to ``--image-size``, head
+at zero, the pretrained transform), ``--freeze-backbone`` trains the head
+alone; ``--model tinyvgg`` trains the reference's baseline CNN::
+
+    python -m pytorch_vit_paper_replication_tpu_torch.train \\
+        --train-dir data/train --test-dir data/test --image-size 384 \\
+        --pretrained vit_b_16.pth --freeze-backbone --epochs 5
+
+A finished run leaves ``final/params.npz``, ``transform.json`` and (ViT)
 ``model_meta.json`` under ``--checkpoint-dir``: the layout the port's
 ``predict`` and ``serve`` CLIs load.
 """
@@ -45,22 +54,23 @@ import contextlib
 import json
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from . import engine
 from .checkpoint import Checkpointer, load_model, save_model
 from .configs import PRESETS, TrainConfig, ViTConfig
-from .convert import seeded_params
+from .convert import seeded_state
 from .data import create_dataloaders, make_synthetic_image_folder, pad_batch
 from .data.image_folder import prefetch_to_device
 from .data.transforms import make_transform
 from .metrics import MetricsLogger
-from .models import ViT
-from .optim import make_lr_schedule, make_optimizer
+from .models import TinyVGG, ViT
+from .optim import head_only_label_fn, make_lr_schedule, make_optimizer
 from .predictions import resolve_device, write_model_meta
 from .telemetry.profiling import parse_profile_steps
+from .transfer import init_from_pretrained
 from .utils.atomic import atomic_write_json
 from .utils.model_summary import count_params
 from .utils.plotting import plot_loss_curves
@@ -71,7 +81,6 @@ from .utils.seeding import set_seeds
 # other value exits non-zero (--mesh-data is checked on its own: -1 and 1
 # both mean the one card).
 NOT_PORTED: Dict[str, int] = {
-    "model": 8, "hidden_units": 8, "pretrained": 8, "freeze_backbone": 8,
     "distill_from": 9, "distill_t": 9, "distill_alpha": 9,
     "compile_cache_dir": 9,
     "elastic": 7, "elastic_backend": 7, "elastic_heartbeat_s": 7,
@@ -139,9 +148,10 @@ def build_parser() -> argparse.ArgumentParser:
 
     model = p.add_argument_group("model")
     model.add_argument("--model", choices=["vit", "tinyvgg"], default="vit",
-                       help="tinyvgg is not ported")
+                       help="vit (--preset) or the reference's TinyVGG "
+                            "baseline CNN")
     model.add_argument("--hidden-units", type=int, default=10,
-                       help="TinyVGG width (not ported)")
+                       help="TinyVGG conv width")
     model.add_argument("--preset", choices=sorted(PRESETS),
                        default="ViT-B/16")
     model.add_argument("--patch-size", type=int, default=None)
@@ -207,9 +217,19 @@ def build_parser() -> argparse.ArgumentParser:
                             "horizon (--epochs or steps/epoch); the LR "
                             "schedule is re-scaled to the new horizon")
 
-    transfer = p.add_argument_group("transfer learning (not ported)")
-    transfer.add_argument("--pretrained", type=str, default=None)
-    transfer.add_argument("--freeze-backbone", action="store_true")
+    transfer = p.add_argument_group("transfer learning")
+    transfer.add_argument("--pretrained", type=str, default=None,
+                          metavar="PTH",
+                          help="torch ViT state_dict (.pth/.pt; torchvision "
+                               "or the reference repo's layout) for the "
+                               "backbone, the head starts at zero; the "
+                               "position embedding is interpolated to "
+                               "--image-size; implies the pretrained "
+                               "transform (ImageNet normalization unless "
+                               "--no-normalize)")
+    transfer.add_argument("--freeze-backbone", action="store_true",
+                          help="train the classifier head only (the "
+                               "backbone gets no update and no Adam state)")
 
     elastic = p.add_argument_group("elastic (not ported)")
     elastic.add_argument("--elastic", type=int, default=0, metavar="N")
@@ -424,11 +444,12 @@ def packed_loaders(args, loader_kwargs: dict, transform_spec: dict):
     return train_dl, test_dl, class_names
 
 
-def initial_params(cfg: ViTConfig, seed: int) -> Dict[str, torch.Tensor]:
-    """The run's initial weights, made from the config and ``seed`` (the
-    JAX CLI's ``model.init(key(seed), ...)``, whose Flax RNG the port does
-    not reproduce)."""
-    return seeded_params(cfg, seed)
+def initial_params(model: torch.nn.Module,
+                   seed: int) -> Dict[str, torch.Tensor]:
+    """The run's initial weights, made from the model's parameter shapes
+    and ``seed`` (the JAX CLI's ``model.init(key(seed), ...)``, whose Flax
+    RNG the port does not reproduce)."""
+    return seeded_state(model, seed)
 
 
 def main(argv=None) -> dict:
@@ -479,8 +500,11 @@ def main(argv=None) -> dict:
     if args.num_workers is not None:
         loader_kwargs["num_workers"] = args.num_workers
     # ONE transform decision, shared with predict via transform.json.
-    transform_spec = dict(image_size=args.image_size, pretrained=False,
-                          normalize=False)
+    # Pretrained runs get the weights' own eval transform (resize-shorter +
+    # center-crop + ImageNet normalize, reference main nb cell 117).
+    transform_spec = dict(
+        image_size=args.image_size, pretrained=bool(args.pretrained),
+        normalize=False if args.no_normalize else bool(args.pretrained))
     if args.augment and args.dataset == "cifar10":
         raise SystemExit(
             "--augment (RandomResizedCrop) is for --dataset imagefolder; "
@@ -499,15 +523,32 @@ def main(argv=None) -> dict:
     print(f"classes: {class_names} | train batches/epoch: {len(train_dl)}")
 
     # Model + state ---------------------------------------------------------
-    cfg = PRESETS[args.preset](num_classes=len(class_names), **cfg_kwargs)
-    model = ViT(cfg)
-    model.load_state_dict(initial_params(cfg, args.seed))
+    if args.model == "tinyvgg":
+        # Reference script-entry parity (going_modular train.py:39-43).
+        if args.pretrained or args.freeze_backbone:
+            raise SystemExit(
+                "--pretrained/--freeze-backbone apply to ViT only")
+        cfg = None
+        model = TinyVGG(hidden_units=args.hidden_units,
+                        num_classes=len(class_names), dtype=args.dtype,
+                        image_size=args.image_size)
+        model_name = f"TinyVGG({args.hidden_units})"
+    else:
+        cfg = PRESETS[args.preset](num_classes=len(class_names), **cfg_kwargs)
+        model = ViT(cfg)
+        model_name = args.preset
+    if args.pretrained:
+        model.load_state_dict(init_from_pretrained(cfg, args.pretrained))
+        print(f"initialized backbone from {args.pretrained}")
+    else:
+        model.load_state_dict(initial_params(model, args.seed))
     model.to(dev)
     train_cfg = TrainConfig(
         batch_size=args.batch_size, epochs=args.epochs,
         learning_rate=args.lr, weight_decay=args.weight_decay,
         warmup_fraction=args.warmup_fraction, grad_clip_norm=args.grad_clip,
-        label_smoothing=args.label_smoothing, seed=args.seed)
+        label_smoothing=args.label_smoothing, seed=args.seed,
+        freeze_backbone=args.freeze_backbone)
     steps_per_epoch = len(train_dl)
     total_steps = steps_per_epoch * args.epochs
     accum = max(1, args.grad_accum)
@@ -522,12 +563,17 @@ def main(argv=None) -> dict:
         raise SystemExit(
             f"--grad-accum {accum} exceeds the run's {total_steps} total "
             "micro-steps: no optimizer update would ever be applied")
-    tx = make_optimizer(train_cfg, max(1, total_steps // accum),
-                        grad_accum_steps=accum)
+    # A frozen backbone keeps requires_grad: the step's grad_norm metric is
+    # the norm of every gradient, as JAX's engine takes it; the optimizer
+    # (and its clip) sees the head only.
+    tx = make_optimizer(
+        train_cfg, max(1, total_steps // accum),
+        trainable_label_fn=head_only_label_fn if train_cfg.freeze_backbone
+        else None, grad_accum_steps=accum)
     if accum > 1:
         print(f"gradient accumulation: {accum} micro-batches/update "
               f"(effective batch {args.batch_size * accum})")
-    print(f"model: {args.preset} | params: "
+    print(f"model: {model_name} | params: "
           f"{count_params(model.state_dict()):,} | device: {dev}")
     state = engine.TrainState.create(model=model, tx=tx, seed=args.seed)
     train_step = engine.make_train_step(label_smoothing=args.label_smoothing,
@@ -602,7 +648,8 @@ def main(argv=None) -> dict:
         ckpt = Path(args.checkpoint_dir)
         save_model(state.model.state_dict(), ckpt, "final")
         atomic_write_json(ckpt / "transform.json", transform_spec)
-        write_model_meta(ckpt, cfg, extra={"preset": args.preset})
+        if cfg is not None:
+            write_model_meta(ckpt, cfg, extra={"preset": args.preset})
     if args.plot:
         plot_loss_curves(results, save_path=args.plot)
     return results
@@ -647,13 +694,14 @@ def check_resume(meta: dict, args, steps_per_epoch: int, total_steps: int,
             "with the original value")
 
 
-def make_telemetry(args, cfg: ViTConfig, dev: torch.device, profile_window,
-                   stack: contextlib.ExitStack):
+def make_telemetry(args, cfg: Optional[ViTConfig], dev: torch.device,
+                   profile_window, stack: contextlib.ExitStack):
     """The run's :class:`..telemetry.StepTelemetry` (None when no
     telemetry, watchdog or profiling flag is given), with its watchdog and
     profile controller; each is closed by ``stack``. ``tel_mfu`` takes the
     card's bf16 peak from :mod:`..telemetry.flops`; a card the table lacks
-    (or the CPU) gets one printed line and no MFU gauge."""
+    (or the CPU) gets one printed line and no MFU gauge, and so does
+    TinyVGG (``cfg`` None: no FLOP count)."""
     if not (args.telemetry_jsonl or args.watchdog_s > 0
             or args.profile_steps or args.profile_auto):
         return None
@@ -692,7 +740,8 @@ def make_telemetry(args, cfg: ViTConfig, dev: torch.device, profile_window,
               "tel_mfu left out")
     return stack.enter_context(StepTelemetry(
         args.telemetry_jsonl, sample_every=args.telemetry_every,
-        flops_per_image=train_step_flops_per_image(cfg), peak_tflops=peak,
+        flops_per_image=(train_step_flops_per_image(cfg) if cfg is not None
+                         else None), peak_tflops=peak,
         watchdog=watchdog, profiler=profiler))
 
 

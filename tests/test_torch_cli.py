@@ -217,8 +217,7 @@ def test_resume_schedule_horizon_guard(folder, tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--pretrained", "w.pth"], 8), (["--freeze-backbone"], 8),
-    (["--model", "tinyvgg"], 8), (["--distill-from", "sink"], 9),
+    (["--distill-from", "sink"], 9),
     (["--elastic", "2"], 7), (["--mesh-data", "2"], 7),
     (["--mesh-model", "2"], 7), (["--mesh-pipe", "2"], 7),
     (["--multihost"], 7), (["--ship-to", "127.0.0.1:9"], 6),
@@ -289,11 +288,14 @@ def _packed(packed, seed="7"):
 
 
 def _against_jax(argv, tmp_path, monkeypatch, telemetry=False,
-                 num_classes=3):
+                 num_classes=3, init=None):
     """The JAX CLI and the port's on ``argv`` (the port's init patched to
-    JAX's): losses within rtol 5e-4, accuracies equal, JSONL keys equal
-    (and with ``telemetry``, the telemetry rows' events and keys)."""
-    init = params_from_flax(_jax_init(7, num_classes))
+    JAX's, ``init`` a Flax tree or the ViT-Ti/16 one): losses within rtol
+    5e-4, accuracies equal, JSONL keys equal (and with ``telemetry``, the
+    telemetry rows' events and keys), the same transform.json and (where
+    JAX writes one) model_meta.json."""
+    init = params_from_flax(init if init is not None
+                            else _jax_init(7, num_classes))
     monkeypatch.setattr(ttrain, "initial_params", lambda cfg, seed: init)
     runs = {}
     for name, fn, extra in (("jax", jax_train_main, []),
@@ -318,6 +320,9 @@ def _against_jax(argv, tmp_path, monkeypatch, telemetry=False,
         assert [r.get("event") for r in trows] == [r.get("event")
                                                    for r in jrows]
     for name in ("transform.json", "model_meta.json"):
+        if not (tmp_path / "jax" / name).is_file():
+            assert not (tmp_path / "port" / name).exists(), name
+            continue
         assert json.loads((tmp_path / "port" / name).read_text()) == \
             json.loads((tmp_path / "jax" / name).read_text()), name
     return tres
@@ -404,3 +409,95 @@ def test_telemetry_profile_and_watchdog_flags_run(packed, tmp_path):
     assert (run / "pd" / "trace.json").is_file()
     assert list((run / "profiles").glob("capture_000_step4_flag/trace.json"))
     assert not (run / "postmortem.txt").exists()
+
+
+# --- transfer learning and TinyVGG ------------------------------------------
+@pytest.fixture(scope="module")
+def pretrained_pth(tmp_path_factory):
+    """A seeded torchvision-layout ViT-Ti/16 state dict written for 32 px
+    (1000 classes, stock torch.nn layers), as a ``.pth``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_vit", REPO / "tools" / "make_torch_vit.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    torch.manual_seed(0)
+    sd = mod.TorchViT(JPRESETS["ViT-Ti/16"](num_classes=1000, image_size=32,
+                                            patch_size=16)).state_dict()
+    path = tmp_path_factory.mktemp("pretrained") / "vit_ti16_32.pth"
+    torch.save(sd, path)
+    return path
+
+
+def test_pretrained_freeze_backbone_cli_matches_jax_cli(
+        folder, pretrained_pth, tmp_path, monkeypatch):
+    """``--pretrained PTH --freeze-backbone`` at 48 px (the 2x2 position
+    grid interpolated to 3x3, the pretrained transform with ImageNet
+    normalization) against the JAX CLI: losses rtol 5e-4, the same JSONL
+    keys, transform.json and model_meta.json; the final backbone equals the
+    converted weights bit for bit and the head moved from zero."""
+    from pytorch_vit_paper_replication_tpu_torch.configs import PRESETS
+    from pytorch_vit_paper_replication_tpu_torch.transfer import (
+        init_from_pretrained)
+    argv = _common(folder) + ["--image-size", "48", "--attention", "xla",
+                              "--mlp-impl", "xla", "--dropout", "0",
+                              "--epochs", "2", "--lr", "1e-2",
+                              "--pretrained", str(pretrained_pth),
+                              "--freeze-backbone"]
+    _against_jax(argv, tmp_path, monkeypatch)
+    spec = json.loads((tmp_path / "port" / "transform.json").read_text())
+    assert spec == {"image_size": 48, "pretrained": True, "normalize": True}
+    final = load_params_npz(tmp_path / "port" / "final" / "params.npz")
+    cfg = PRESETS["ViT-Ti/16"](num_classes=3, image_size=48, patch_size=16,
+                               dtype="float32")
+    start = init_from_pretrained(cfg, pretrained_pth)
+    for k, v in start.items():
+        if k.startswith("backbone."):
+            assert torch.equal(final[k], v), k
+        else:
+            assert not torch.equal(final[k], v), k
+
+
+def test_frozen_run_resume_matches_uninterrupted(folder, pretrained_pth,
+                                                 tmp_path):
+    """A frozen-backbone run resumed from its mid-epoch step-4 save equals
+    the uninterrupted run bit for bit (the optimizer is built with the
+    head-only label function before the restore); resuming it without
+    --freeze-backbone is refused."""
+    ck = tmp_path / "ck"
+    argv = _cpu(_common(folder) + ["--epochs", "2"]) + [
+        "--pretrained", str(pretrained_pth), "--freeze-backbone",
+        "--checkpoint-dir", str(ck), "--checkpoint-every-steps", "2",
+        "--keep-checkpoints", "20"]
+    ttrain.main(argv)
+    a = load_params_npz(ck / "final" / "params.npz")
+    for d in ck.iterdir():
+        if d.is_dir() and (d.name == "final"
+                           or (d.name.isdigit() and int(d.name) > 4)):
+            shutil.rmtree(d)
+    with pytest.raises(ValueError, match="same --freeze-backbone"):
+        ttrain.main([x for x in argv if x != "--freeze-backbone"])
+    ttrain.main(argv)
+    b = load_params_npz(ck / "final" / "params.npz")
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_tinyvgg_cli_matches_jax_cli(folder, tmp_path, monkeypatch):
+    """``--model tinyvgg`` against the JAX CLI from JAX's init: losses
+    rtol 5e-4, the same JSONL keys and transform.json, no model_meta.json
+    in either."""
+    from pytorch_vit_paper_replication_tpu.models import TinyVGG as JTiny
+    init = jax.device_get(JTiny(hidden_units=8, num_classes=3).init(
+        jax.random.key(7), jnp.zeros((1, 32, 32, 3)))["params"])
+    argv = _common(folder) + ["--model", "tinyvgg", "--hidden-units", "8",
+                              "--epochs", "2", "--lr", "1e-2"]
+    _against_jax(argv, tmp_path, monkeypatch, init=init)
+    assert not (tmp_path / "port" / "model_meta.json").exists()
+
+
+@pytest.mark.parametrize("extra", [["--pretrained", "w.pth"],
+                                   ["--freeze-backbone"]])
+def test_tinyvgg_refuses_transfer_flags(folder, extra):
+    with pytest.raises(SystemExit, match="apply to ViT only"):
+        ttrain.main(_cpu(_common(folder)) + ["--model", "tinyvgg"] + extra)

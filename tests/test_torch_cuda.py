@@ -1011,3 +1011,100 @@ def test_memory_gauges_read_the_allocator(dev):
     assert gauges["mem_live_bytes"] == seen["mem_dev0_bytes_in_use"]
     report = memory_report()["devices"]["cuda:0"]
     assert report["bytes_in_use"] >= keep.numel()
+
+
+def test_frozen_backbone_step_on_card_matches_cpu(dev):
+    """Three ``--freeze-backbone`` steps (f32, flash + fused MLP kernels at
+    T = 17) on the card against the same steps on the CPU: loss and
+    grad_norm within 2e-3; the backbone unchanged bit for bit on the card
+    while the backward still runs through it (rows 2, 4 and 5 launch
+    once per block a step: grad_norm covers every gradient); Adam state
+    for the head only."""
+    from pytorch_vit_paper_replication_tpu_torch import engine, optim
+    from pytorch_vit_paper_replication_tpu_torch.configs import (
+        TrainConfig, ViTConfig)
+    from pytorch_vit_paper_replication_tpu_torch.convert import seeded_params
+    from pytorch_vit_paper_replication_tpu_torch.models import ViT
+    from pytorch_vit_paper_replication_tpu_torch.ops import (
+        flash_attention as fa, fused_mlp)
+    cfg = ViTConfig(image_size=64, patch_size=16, num_layers=2, num_heads=2,
+                    embedding_dim=128, mlp_size=256, num_classes=3,
+                    dtype="float32", attention_impl="flash",
+                    mlp_impl="fused", attn_dropout=0.0, mlp_dropout=0.0,
+                    embedding_dropout=0.0)
+    init = seeded_params(cfg, 1)
+    rng = np.random.default_rng(0)
+    batches = [{"image": rng.standard_normal((8, 64, 64, 3)).astype(
+                    np.float32), "label": rng.integers(0, 3, 8)}
+               for _ in range(3)]
+    tcfg = TrainConfig(learning_rate=1e-2, warmup_fraction=0.0,
+                       freeze_backbone=True)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        model = ViT(cfg)
+        model.load_state_dict(init)
+        model.to(d)
+        state = engine.TrainState.create(
+            model=model, seed=0, tx=optim.make_optimizer(
+                tcfg, 3, trainable_label_fn=optim.head_only_label_fn))
+        assert set(state.opt_state.mu) == {"head.kernel", "head.bias"}
+        step = engine.make_train_step()
+        before = (fused_mlp.bwd_launches, fa.dq_launches, fa.dkv_launches)
+        metrics = []
+        for b in batches:
+            state, m = step(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+        after = (fused_mlp.bwd_launches, fa.dq_launches, fa.dkv_launches)
+        if d.type == "cuda":
+            assert [a - b for a, b in zip(after, before)] == [6, 6, 6]
+        out[d.type] = (metrics, {k: v.detach().cpu() for k, v in
+                                 state.model.state_dict().items()})
+    for key in ("loss_sum", "grad_norm"):
+        np.testing.assert_allclose([m[key] for m in out["cuda"][0]],
+                                   [m[key] for m in out["cpu"][0]],
+                                   rtol=2e-3, err_msg=key)
+    for k, v in init.items():
+        if k.startswith("backbone."):
+            assert torch.equal(out["cuda"][1][k], v), k
+        else:
+            assert not torch.equal(out["cuda"][1][k], v), k
+
+
+def test_batch_infer_probs_equal_predict_batch_on_card(dev, tmp_path):
+    """``OfflineEngine`` on every visible card (bf16, flash at T = 197 and
+    the fused MLP): its ``probs`` sink rows give ``predict_batch``'s labels
+    and probabilities bit for bit on the same rungs, and
+    ``softmax(logits sink)`` on the card equals the ``probs`` sink."""
+    from pytorch_vit_paper_replication_tpu_torch.configs import ViTConfig
+    from pytorch_vit_paper_replication_tpu_torch.convert import seeded_params
+    from pytorch_vit_paper_replication_tpu_torch.data import ArrayDataset
+    from pytorch_vit_paper_replication_tpu_torch.models import ViT
+    from pytorch_vit_paper_replication_tpu_torch.ops import (
+        flash_attention as fa, fused_mlp)
+    from pytorch_vit_paper_replication_tpu_torch.predictions import (
+        predict_batch)
+    from pytorch_vit_paper_replication_tpu_torch.serve.offline import (
+        OfflineEngine)
+    cfg = ViTConfig(image_size=224, patch_size=16, num_layers=2, num_heads=4,
+                    embedding_dim=256, mlp_size=1024, num_classes=10,
+                    dtype="bfloat16")
+    model = ViT(cfg)
+    model.load_state_dict(seeded_params(cfg, 0))
+    model.to(dev).eval()
+    rng = np.random.default_rng(0)
+    images = rng.standard_normal((21, 224, 224, 3)).astype(np.float32)
+    ds = ArrayDataset(images, np.zeros(21, np.int64))
+    ladder = (1, 8)
+    sinks = {}
+    for head in ("probs", "logits"):
+        eng = OfflineEngine(model, head=head, image_size=224, buckets=ladder)
+        assert eng.devices[0].type == "cuda"
+        before = (fused_mlp.launches, fa.launches)
+        eng.run(ds, tmp_path / head, batch_size=8)
+        assert fused_mlp.launches > before[0] and fa.launches > before[1]
+        sinks[head] = np.load(tmp_path / head / "outputs.npy")
+    preds = predict_batch(model, list(images), buckets=ladder)
+    for (label, prob), row in zip(preds, sinks["probs"]):
+        assert label == int(row.argmax()) and prob == float(row.max())
+    soft = torch.softmax(torch.from_numpy(sinks["logits"]).to(dev), dim=-1)
+    assert np.array_equal(soft.cpu().numpy(), sinks["probs"])

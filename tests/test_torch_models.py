@@ -247,3 +247,69 @@ def test_training_mode_needs_rng_and_dropout_is_seeded():
     no_drop.load_state_dict(model.state_dict())
     with torch.no_grad():
         torch.testing.assert_close(no_drop.train()(x), e, rtol=0, atol=0)
+
+
+# --- TinyVGG: the port against JAX's models/tinyvgg.py --------------------
+@pytest.mark.parametrize("image_size,hidden", [(64, 10), (33, 4), (16, 3)])
+def test_tinyvgg_matches_jax_f32(image_size, hidden):
+    """Same seeded weights (JAX's init, biases perturbed) and NHWC images:
+    logits within 1e-5, the param names and shapes Flax's; the classifier
+    reads the NHWC-flattened map (an NCHW flatten fails the comparison)."""
+    from pytorch_vit_paper_replication_tpu.models import TinyVGG as JTiny
+    from pytorch_vit_paper_replication_tpu_torch.models import TinyVGG
+    jm = JTiny(hidden_units=hidden, num_classes=3)
+    x = np.random.default_rng(image_size).standard_normal(
+        (2, image_size, image_size, 3)).astype(np.float32)
+    params = jax.device_get(jm.init(jax.random.key(1), jnp.zeros(
+        (1, image_size, image_size, 3)))["params"])
+    rng = np.random.default_rng(5)
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, v: v + 0.1 * rng.standard_normal(v.shape).astype(v.dtype)
+        if p[-1].key == "bias" else v, params)
+    model = TinyVGG(hidden_units=hidden, num_classes=3,
+                    image_size=image_size)
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == \
+        {k.replace("/", "."): v.shape
+         for k, v in flatten_tree(params).items()}
+    model.load_state_dict(params_from_flax(params))
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    with torch.no_grad():
+        got = model(torch.from_numpy(x), None).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_tinyvgg_bf16_convs_and_f32_classifier():
+    """``dtype="bfloat16"`` runs the convs in bf16 and the classifier in
+    f32 (f32 logits), within bf16 rounding of JAX's bf16 model; too small
+    an image is refused."""
+    from pytorch_vit_paper_replication_tpu.models import TinyVGG as JTiny
+    from pytorch_vit_paper_replication_tpu_torch.models import TinyVGG
+    jm = JTiny(hidden_units=8, num_classes=3, dtype="bfloat16")
+    x = np.random.default_rng(0).standard_normal((2, 32, 32, 3)).astype(
+        np.float32)
+    params = jax.device_get(jm.init(jax.random.key(0), jnp.zeros(
+        (1, 32, 32, 3)))["params"])
+    model = TinyVGG(hidden_units=8, num_classes=3, dtype="bfloat16",
+                    image_size=32)
+    model.load_state_dict(params_from_flax(params))
+    with torch.no_grad():
+        got = model(torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=5e-2, atol=5e-2)
+    with pytest.raises(ValueError, match="needs >= 16"):
+        TinyVGG(image_size=15)
+
+
+def test_seeded_state_covers_tinyvgg():
+    """``convert.seeded_state`` gives every TinyVGG param LeCun-normal
+    kernels (fan-in 3 x 3 x C for the convs) and zero biases."""
+    from pytorch_vit_paper_replication_tpu_torch.convert import seeded_state
+    from pytorch_vit_paper_replication_tpu_torch.models import TinyVGG
+    state = seeded_state(TinyVGG(hidden_units=16, image_size=64), 0)
+    k = state["block1_conv0.kernel"]
+    assert abs(float(k.std()) - (9 * 16) ** -0.5) < 0.01
+    assert not state["classifier.bias"].any()
+    assert torch.equal(state["block0_conv0.kernel"],
+                       seeded_state(TinyVGG(hidden_units=16, image_size=64),
+                                    0)["block0_conv0.kernel"])
