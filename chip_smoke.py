@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (ViT-B/16 serving and
 training paths, the Quickstart and the ImageNet-scale training CLIs, the
-transfer-learning path).
+transfer-learning path, distillation and embedding search).
 
 Run from the repository root on a machine with one CUDA card::
 
@@ -172,6 +172,45 @@ final ``ok`` line is never printed:
              their plain versions, timed beside their matmul products; the
              flash rows from phase 2's T = 577 cases) go into the kernel
              line as ``t577``.
+4e. distill, search — the consumers of the batch job's sinks. A seeded
+             folder of 321 train / 24 test JPEGs at 224 px packed at 224
+             px; a seeded ViT-B/16 teacher (3 classes) exported, its
+             ``logits`` and ``features`` swept by ``tools.batch_infer``
+             (rows 1 and 3 launched 12 times per forward);
+             ``pseudo_label_pack`` relabels the pack with its argmax.
+             Distill: a ViT-Ti/16 student at full width (D = 192, 12
+             layers, 3 heads), 224 px, bf16, batch 32, through
+             ``train.main --distill-from ... --distill-t 2
+             --distill-alpha 0.7`` for two epochs, the counts set to 0
+             right before and read right after: rows 1-5 launched 12 times
+             in every step, rows 6, 7 never; steps 3-10 profiled (wall,
+             device busy, idle share); ``teacher_agree`` in every metrics
+             row and the ``distill_*`` gauges on the registry;
+             ``--distill-alpha 0`` equal to the ordinary run of the same
+             argv (losses, final ``params.npz`` sha256); the run in f32
+             (dropout 0, TF32 off) on the card against the CPU over its
+             first DISTILL_CPU_STEPS steps (STEP_TOL["loss"]); a truncated
+             sink, a features sink and another pack's sink refused. Search:
+             ``tools.build_index`` ``ip`` and ``cosine`` indexes over the
+             features sink, each scanned on the card against
+             ``reference_topk``; a lone ``::search 10`` and ``::req k=10``
+             through the serve CLI (``--search-index``) bit-equal to the
+             offline features head at batch 1 scanned at rung 1, then
+             SERVE_PROBES lone probes timed (p50, p99); the launches of one
+             ``engine.search`` (rows 1 and 3 12 times, the scores kernel
+             once). A seeded clustered corpus of SEARCH_ROWS x 768 f32
+             drawn on the card, written through ``NpySink`` and sealed,
+             indexed by ``tools.build_index``, placed on the card (H2D
+             seconds) and scanned: 1,024 queries at k = 10 and 100 (the
+             scores kernel's launches counted), the first 64 against
+             ``reference_topk`` (``check_topk``), a padded tail (rung 8
+             against rung 1) bit for bit, duplicated rows resolved to the
+             lowest id; per rung 1, 8, 64 the chunk's event ms, device ms
+             by kernel, the top-k's share and the bound; the scores kernel
+             against its plain version and ``q @ blockᵀ`` at 64 queries by
+             one row block. IVF over the first IVF_ROWS rows at
+             ``--ivf-lists`` IVF_LISTS, nprobe IVF_NPROBE: recall@10 >=
+             IVF_RECALL and the share of rows touched.
 5. parallel — the data x tensor x pipeline path through the port's
              ``parallel.spawn``, four rank processes sharing the one card
              (gloo, every transfer through host memory; the phase prints
@@ -3585,6 +3624,646 @@ def phase_transfer(dev, root: Path, gen, card_peaks, k_rows) -> dict:
     return {"launches": launches, "t577": t577["rows"]}
 
 
+# ------------------------------------------------------------ phase 4e
+# The consumers of the batch job's sinks: a student distilled from a
+# teacher's logits, and embedding search over its features.
+DISTILL_SEED = 12
+STUDENT = "ViT-Ti/16"
+# 321 train records (10 steps of 32 an epoch), 24 test.
+DISTILL_PER_CLASS = (107, 8)
+DISTILL_EPOCHS = 2
+DISTILL_KD = ["--distill-t", "2", "--distill-alpha", "0.7"]
+DISTILL_WINDOW = (3, 10)
+DISTILL_CPU_STEPS = 3
+
+
+class StepLosses:
+    """Wraps ``engine.make_train_step`` while installed: records each
+    step's loss (a host read every step)."""
+
+    def __enter__(self):
+        from pytorch_vit_paper_replication_tpu_torch import engine
+        self._engine, self._make = engine, engine.make_train_step
+        self.losses = []
+
+        def make(**kw):
+            step = self._make(**kw)
+
+            def logged(state, batch):
+                state, m = step(state, batch)
+                self.losses.append(float(m["loss_sum"] / m["count"]))
+                return state, m
+            return logged
+        engine.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self._engine.make_train_step = self._make
+
+
+def _train_stopped_at(argv, steps: int):
+    """``train.main(argv)`` stopped after ``steps`` train steps (engine.
+    train's ``stop_check``); returns the per-step losses."""
+    from pytorch_vit_paper_replication_tpu_torch import engine
+    train_fn = engine.train
+
+    def stopped(*a, **kw):
+        return train_fn(*a, stop_check=lambda s: s >= steps, **kw)
+    engine.train = stopped
+    try:
+        with StepLosses() as sl:
+            _cli_main("train", argv)
+    finally:
+        engine.train = train_fn
+    return sl.losses
+
+
+def _refused(argv) -> str:
+    """``train.main(argv)`` must exit non-zero before training; returns the
+    message it exits with."""
+    try:
+        _cli_main("train", argv)
+    except SystemExit as e:
+        if e.code in (None, 0):
+            raise AssertionError(f"train exited 0 on {argv[-2:]}")
+        return str(e.code)
+    raise AssertionError(f"train accepted {argv[-2:]}")
+
+
+def phase_distill(dev, root: Path) -> dict:
+    """Distillation on the card (see the module docstring, 4e). Returns
+    what the search phase reuses (the teacher's export, its features
+    sink, the fixture) and the student's launches a step."""
+    import hashlib
+    import numpy as np
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.configs import PRESETS
+    from pytorch_vit_paper_replication_tpu_torch.convert import seeded_state
+    from pytorch_vit_paper_replication_tpu_torch.data import (
+        make_synthetic_image_folder, pack_image_folder)
+    from pytorch_vit_paper_replication_tpu_torch.distill.recipe import (
+        pseudo_label_pack)
+    from pytorch_vit_paper_replication_tpu_torch.models import ViT
+    from pytorch_vit_paper_replication_tpu_torch.predictions import (
+        save_inference_export)
+    from pytorch_vit_paper_replication_tpu_torch.telemetry import (
+        get_registry)
+
+    t_phase = time.perf_counter()
+    clock = {}
+    classes = ["pizza", "steak", "sushi"]
+    train_dir, test_dir = make_synthetic_image_folder(
+        root / "ds", train_per_class=DISTILL_PER_CLASS[0],
+        test_per_class=DISTILL_PER_CLASS[1], image_size=224, seed=2)
+    pack = pack_image_folder(train_dir, root / "pack_train", pack_size=224,
+                             images_per_shard=64, shuffle_seed=0)
+    pack_test = pack_image_folder(test_dir, root / "pack_test",
+                                  pack_size=224)
+    classes_file = root / "classes.txt"
+    classes_file.write_text("\n".join(classes) + "\n")
+    clock["fixture_s"] = time.perf_counter() - t_phase
+
+    # ---- the teacher: a seeded B/16 for the fixture's classes, its
+    # logits and features swept by the batch job.
+    t0 = time.perf_counter()
+    teacher = ViT(PRESETS[PRESET](num_classes=len(classes)))
+    teacher.load_state_dict(seeded_state(teacher, DISTILL_SEED))
+    export = save_inference_export(root / "teacher", teacher,
+                                   transform_spec={"normalize": False})
+    del teacher
+    bi = ["--checkpoint", str(export), "--classes-file", str(classes_file),
+          "--preset", PRESET, "--batch-size", str(TRAIN_BATCH), "--buckets",
+          *map(str, BI_LADDER)]
+    sinks, bi_runs = {}, {}
+    for head in ("logits", "features"):
+        sinks[head] = root / f"teacher_{head}"
+        torch.cuda.synchronize()
+        reset_counts()
+        s, _ = _cli_main("tools.batch_infer", [str(pack), *bi, "--out",
+                                               str(sinks[head]), "--head",
+                                               head])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        _check_forward_launches(f"teacher {head}", counts,
+                                -(-s["records"] // TRAIN_BATCH) + 1)
+        bi_runs[head] = {"records": s["records"], "wall_s": s["wall_s"],
+                         "images_per_sec": s["images_per_sec"]}
+    other_pack = root / "teacher_test_logits"
+    _cli_main("tools.batch_infer", [str(pack_test), *bi, "--out",
+                                    str(other_pack), "--head", "logits"])
+    if not pseudo_label_pack(pack, sinks["logits"]):
+        raise AssertionError("pseudo_label_pack did not relabel the pack")
+    clock["teacher_s"] = time.perf_counter() - t0
+
+    # ---- the student: the main path, counts to 0, drive, read.
+    t0 = time.perf_counter()
+    run = ["--dataset", "packed", "--train-dir", str(pack), "--test-dir",
+           str(pack_test), "--preset", STUDENT, "--image-size", "224",
+           "--batch-size", str(TRAIN_BATCH), "--seed", "0",
+           "--num-workers", "1", "--distill-from", str(sinks["logits"]),
+           *DISTILL_KD]
+    ck = root / "student"
+    get_registry().reset()
+    torch.cuda.synchronize()
+    reset_counts()
+    with StepProbe(window=DISTILL_WINDOW) as probe:
+        _, printed = _cli_main("train", run + [
+            "--epochs", str(DISTILL_EPOCHS), "--checkpoint-dir", str(ck),
+            "--metrics-jsonl", str(ck / "m.jsonl")])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    _check_step_launches("student", probe.deltas)
+    gauges = get_registry().snapshot()["gauges"]
+    rows = _jsonl(ck / "m.jsonl")
+    if "distillation: teacher sink" not in printed or len(rows) != \
+            DISTILL_EPOCHS or not all(
+                np.isfinite(r["train_loss"]) and 0 <= r["teacher_agree"] <= 1
+                for r in rows):
+        raise AssertionError(f"student run: {rows}")
+    want = {"distill_alpha": 0.7, "distill_t": 2.0,
+            "distill_loss": round(rows[-1]["train_loss"], 6),
+            "distill_teacher_agree_frac": round(rows[-1]["teacher_agree"],
+                                                6)}
+    if {k: gauges.get(k) for k in want} != want:
+        raise AssertionError(f"distill gauges {gauges} != {want}")
+    n_win = DISTILL_WINDOW[1] - DISTILL_WINDOW[0] + 1
+    student = {
+        "steps": len(probe.deltas), "launches": launches,
+        "launches_per_step": probe.deltas[0],
+        "epochs": rows, "window_steps": list(DISTILL_WINDOW),
+        "window_wall_ms_per_step": probe.wall_s * 1e3 / n_win,
+        "window_device_busy_ms_per_step": probe.busy_s * 1e3 / n_win,
+        "window_idle_share": 1 - probe.busy_s / probe.wall_s,
+        "window_device_events": probe.kernels,
+        "window_top_device_ms_per_step": [[k, v / n_win]
+                                          for k, v in probe.top_ms[:8]],
+        "gauges": want}
+    clock["student_s"] = time.perf_counter() - t0
+
+    # ---- alpha = 0 against the ordinary run of the same argv (no
+    # augmentation: both see the same pixels), one epoch each.
+    t0 = time.perf_counter()
+    base = [a for a in run[:run.index("--distill-from")]] + [
+        "--epochs", "1", "--no-augment"]
+    plain, _ = _cli_main("train", base + ["--checkpoint-dir",
+                                          str(root / "plain")])
+    zero, _ = _cli_main("train", base + [
+        "--checkpoint-dir", str(root / "alpha0"), "--distill-from",
+        str(sinks["logits"]), "--distill-alpha", "0"])
+    shas = [hashlib.sha256((root / d / "final" / "params.npz").read_bytes()
+                           ).hexdigest() for d in ("plain", "alpha0")]
+    if plain != zero or shas[0] != shas[1]:
+        raise AssertionError(f"alpha 0 run {zero} / {shas[1]} != ordinary "
+                             f"run {plain} / {shas[0]}")
+    clock["alpha0_s"] = time.perf_counter() - t0
+
+    # ---- f32, TF32 off, dropout 0: the card's first steps against the
+    # CPU's through the same CLI.
+    t0 = time.perf_counter()
+    f32 = run + ["--epochs", "1", "--no-augment", "--dtype", "float32",
+                 "--dropout", "0"]
+    losses = {d: _train_stopped_at(f32 + ["--device", d,
+                                          "--checkpoint-dir",
+                                          str(root / f"f32_{d}")],
+                                   DISTILL_CPU_STEPS)
+              for d in ("cuda", "cpu")}
+    f32_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+    if len(losses["cuda"]) != DISTILL_CPU_STEPS or not \
+            f32_err <= STEP_TOL["loss"]:
+        raise AssertionError(f"f32 distill steps card vs CPU: {losses}")
+    clock["f32_vs_cpu_s"] = time.perf_counter() - t0
+
+    # ---- refusals: a truncated sink, a features sink, another pack's.
+    torn = root / "torn_logits"
+    shutil.copytree(sinks["logits"], torn)
+    with open(torn / "outputs.npy", "r+b") as f:
+        f.truncate((torn / "outputs.npy").stat().st_size - 64)
+    refusals = {}
+    for name, sink in (("truncated", torn), ("features", sinks["features"]),
+                       ("other_pack", other_pack)):
+        refusals[name] = _refused(run + ["--epochs", "1", "--checkpoint-dir",
+                                         str(root / "refused"),
+                                         "--distill-from", str(sink)])[:120]
+    emit({"phase": "distill", "ok": True, "teacher": PRESET,
+          "student": STUDENT, "records": bi_runs["logits"]["records"],
+          "teacher_batch_infer": bi_runs, "student_run": student,
+          "alpha0_equals_ordinary": {"losses": plain["train_loss"],
+                                     "params_sha256": shas[0]},
+          "f32_vs_cpu": {"card": losses["cuda"], "cpu": losses["cpu"],
+                         "max_rel_err": f32_err,
+                         "tolerance": STEP_TOL["loss"]},
+          "refusals": refusals,
+          "clock_s": clock,
+          "seconds": round(time.perf_counter() - t_phase, 3)})
+    return {"export": export, "classes_file": classes_file,
+            "features": sinks["features"], "test_dir": test_dir,
+            "launches_per_step": probe.deltas[0]}
+
+
+# Search: a clustered corpus of SEARCH_ROWS x SEARCH_DIM float32 (a
+# mixture of SEARCH_CLUSTERS Gaussians, the JAX bench's recipe), cut from
+# JAX's 10^7-row target only for this script's time limit.
+SEARCH_ROWS = 2_000_000
+SEARCH_DIM = 768
+SEARCH_CLUSTERS = 64
+SEARCH_QUERIES = 1024
+SEARCH_RUNGS = (1, 8, 64)
+SEARCH_CHECKED = 64
+SEARCH_RTOL = 1e-5
+SERVE_PROBES = 200
+IVF_ROWS = 200_000
+IVF_LISTS = 256
+IVF_NPROBE = 8
+IVF_QUERIES = 64
+IVF_RECALL = 0.95
+
+
+def write_corpus(out: Path, dev, rows: int, seed: int) -> None:
+    """A sealed batch-job directory holding the clustered corpus: drawn on
+    the card from ``seed`` in chunks, written through ``NpySink``, its
+    manifest sealed with the sink's sha256."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.serve.offline import (
+        NpySink, sink_sha256, write_progress)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    centers = torch.randn(SEARCH_CLUSTERS, SEARCH_DIM, generator=gen,
+                          device=dev) * 4.0
+    out.mkdir(parents=True)
+    sink = NpySink(out / "outputs.npy", rows=rows, dim=SEARCH_DIM)
+    for lo in range(0, rows, 1 << 17):
+        n = min(1 << 17, rows - lo)
+        pick = torch.randint(0, SEARCH_CLUSTERS, (n,), generator=gen,
+                             device=dev)
+        block = centers[pick] + torch.randn(n, SEARCH_DIM, generator=gen,
+                                            device=dev)
+        sink.write(lo, block.cpu().numpy())
+    sink.close()
+    write_progress(out, {
+        "fingerprint": f"clustered-{SEARCH_CLUSTERS}-seed{seed}",
+        "head": "features", "total_records": rows, "out_dim": SEARCH_DIM,
+        "batch_size": 1 << 17, "ladder": [1 << 17], "sink": "outputs.npy",
+        "records_done": rows, "rows_written": rows, "preds_bytes": None,
+        "sink_sha256": sink_sha256(out / "outputs.npy")})
+
+
+def _queries(db, n: int, seed: int):
+    """Near-duplicate queries (the JAX bench's): corpus rows + 0.1 noise."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    picks = np.sort(rng.choice(db.shape[0], n, replace=False))
+    return (np.asarray(db[picks], np.float32) + 0.1 * rng.standard_normal(
+        (n, db.shape[1])).astype(np.float32))
+
+
+def _reference(db, q, k: int) -> tuple:
+    """NumPy ``reference_topk`` of every query row, 8 rows a call over a
+    thread pool (NumPy releases the interpreter lock in its products and
+    sorts)."""
+    import concurrent.futures as cf
+    import numpy as np
+    from pytorch_vit_paper_replication_tpu_torch.search import (
+        reference_topk)
+    chunks = [q[i:i + 8] for i in range(0, len(q), 8)]
+    with cf.ThreadPoolExecutor(8) as pool:
+        parts = list(pool.map(lambda c: reference_topk(db, c, k), chunks))
+    return (np.concatenate([p[0] for p in parts]),
+            np.concatenate([p[1] for p in parts]))
+
+
+def check_topk(db, q, got, ref, k: int, norms=None) -> dict:
+    """The scan's top ``k`` against the reference's top ``k + 1``: the
+    score at every rank within SEARCH_RTOL of the reference's, every id's
+    score (recomputed in f64; over its norm for cosine) within SEARCH_RTOL
+    of its rank's reference score, and ids equal except in queries whose
+    reference has two adjacent scores among its first ``k + 1`` closer
+    than SEARCH_RTOL (near ties, counted)."""
+    import numpy as np
+    got_s, got_i = got[0][:len(q), :k], got[1][:len(q), :k]
+    ref_s, ref_i = ref[0][:, :k + 1], ref[1][:, :k + 1]
+    rel = np.abs(got_s - ref_s[:, :k]) / np.abs(ref_s[:, :k])
+    exact = np.stack([np.asarray(db[got_i[i]], np.float64)
+                      @ q[i].astype(np.float64) for i in range(len(q))])
+    if norms is not None:
+        exact = exact / np.asarray(norms, np.float64)[got_i]
+    rel_ids = np.abs(exact - ref_s[:, :k]) / np.abs(ref_s[:, :k])
+    gaps = np.abs(np.diff(ref_s, axis=1)) / np.abs(ref_s[:, 1:])
+    near = (gaps < SEARCH_RTOL).any(axis=1)
+    differ = (got_i != ref_i[:, :k]).any(axis=1)
+    if rel.max() > SEARCH_RTOL or rel_ids.max() > SEARCH_RTOL or \
+            (differ & ~near).any():
+        raise AssertionError(
+            f"top-{k}: score rel err {rel.max()}, id score rel err "
+            f"{rel_ids.max()}, ids differ in queries "
+            f"{np.flatnonzero(differ & ~near)[:5]} with no near tie")
+    return {"k": k, "queries": len(q), "max_rel_err": float(rel.max()),
+            "max_id_score_rel_err": float(rel_ids.max()),
+            "near_tie_queries": int(near.sum()),
+            "ids_differ_in_near_tie_queries": int(differ.sum()),
+            "tolerance": SEARCH_RTOL}
+
+
+def scan_rung(scanner, q, r: int, k: int, card_peaks) -> dict:
+    """One chunk of rung ``r``: event ms a chunk (the scan waits for its
+    fetch), device ms by kernel from the profiler, the scores kernel's
+    share, queries/s and the bound of the scan's function (each row read
+    once, the queries read and the k results written once; 2 r N K FLOP at
+    the f32 non-tensor rate)."""
+    chunk = q[:r]
+    ms = time_ms(lambda: scanner.scan(chunk, k), reps=10)
+    by_kernel = kernel_breakdown(lambda: scanner.scan(chunk, k), reps=3)
+    device = sum(by_kernel.values())
+    scores = sum(v for n, v in by_kernel.items() if "scan_scores" in n)
+    n, d = scanner.rows, scanner.dim
+    b_ms, b_by = bound(2.0 * r * n * d, 4.0 * (n * d + r * d) + 12.0 * r * k,
+                       card_peaks[1], card_peaks[2])
+    return {"rung": r, "k": k, "ms": ms, "device_ms": device,
+            "scores_kernel_device_ms": scores,
+            "topk_and_rest_share": 1 - scores / device,
+            "queries_per_s": r / ms * 1e3, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_share": b_ms / ms,
+            "top_device_ms": sorted(by_kernel.items(),
+                                    key=lambda kv: -kv[1])[:6]}
+
+
+def scan_kernel_row(scanner, q, card_peaks) -> dict:
+    """The scores kernel against its plain version and one library call
+    (``q @ blockᵀ``, TF32 off) at the main path's shape: 64 queries by one
+    row block of the 2M-row shard."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.ops import scan_scores as ss
+    qd = torch.from_numpy(q[:SEARCH_RUNGS[-1]]).to(scanner.devices[0])
+    blk = scanner._shards[0].db[:scanner._block]
+    out = ss._launch(qd, blk)
+    plain = ss.scan_scores_plain(qd, blk)
+    err = (out - plain).abs().max().item()
+    rel = err / plain.abs().max().item()
+    if not rel < SEARCH_RTOL:
+        raise AssertionError(f"scan_scores vs plain: rel err {rel}")
+    m, n, d = qd.shape[0], blk.shape[0], blk.shape[1]
+    b_ms, b_by = bound(2.0 * m * n * d, 4.0 * (m * d + n * d + m * n),
+                       card_peaks[1], card_peaks[2])
+    ms = time_ms(lambda: ss._launch(qd, blk), reps=10)
+    dev_ms = device_ms(lambda: ss._launch(qd, blk), reps=10)
+    lib = time_ms(lambda: qd @ blk.T, reps=10)
+    return {"shape": [m, n, d], "max_abs_err": err, "max_rel_err": rel,
+            "ms": ms, "device_ms": dev_ms,
+            "plain_ms": time_ms(lambda: ss.scan_scores_plain(qd, blk),
+                                reps=5),
+            "library_ms": lib,
+            "library_device_ms": device_ms(lambda: qd @ blk.T, reps=10),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
+
+
+def phase_search(dev, root: Path, d: dict, card_peaks) -> dict:
+    """Embedding search on the card (see the module docstring, 4e).
+    Returns the scores kernel's row and the launches of one ``::search``
+    embed."""
+    import numpy as np
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.ops import scan_scores as ss
+    from pytorch_vit_paper_replication_tpu_torch.predictions import (
+        image_row, load_class_names, load_inference_checkpoint)
+    from pytorch_vit_paper_replication_tpu_torch.search import (
+        EmbeddingIndex, ShardedScanner, ivf_search, recall_at_k,
+        reference_topk)
+    from pytorch_vit_paper_replication_tpu_torch.serve.bucketing import (
+        plan_buckets)
+    from pytorch_vit_paper_replication_tpu_torch.serve.engine import (
+        InferenceEngine)
+    from pytorch_vit_paper_replication_tpu_torch.serve.offline import (
+        NpySink, OfflineEngine, sink_sha256, write_progress)
+
+    t_phase = time.perf_counter()
+    clock = {}
+    # ---- indexes over the teacher's features sink; the cosine one
+    # against the reference.
+    idx = {m: root / f"idx_{m}" for m in ("ip", "cosine")}
+    for metric, path in idx.items():
+        _cli_main("tools.build_index", [str(d["features"]), "--out",
+                                        str(path), "--metric", metric])
+    small = {}
+    for metric, path in idx.items():
+        index = EmbeddingIndex(path)
+        q = np.asarray(index.embeddings[:16]) + 0.5
+        got = ShardedScanner(index.embeddings, k_max=10, metric=metric,
+                             norms=index.norms, devices=[dev]).scan(q, 10)
+        ref = reference_topk(index.embeddings, q, 11, metric=metric,
+                             norms=index.norms)
+        small[metric] = check_topk(
+            index.embeddings, q, got, ref, 10,
+            norms=index.norms if metric == "cosine" else None)
+    clock["fixture_indexes_s"] = time.perf_counter() - t_phase
+
+    # ---- online equals offline: the probe's features at batch 1, scanned
+    # at rung 1, against the serve CLI's lone ::search and ::req k=.
+    t0 = time.perf_counter()
+    classes = load_class_names(d["classes_file"])
+    probes = sorted(Path(d["test_dir"]).rglob("*.jpg"))
+    model, transform, spec = load_inference_checkpoint(
+        d["export"], PRESET, len(classes), device=dev)
+    lone = OfflineEngine(model, head="features", image_size=spec[
+        "image_size"], buckets=(1,), devices=[dev])
+    emb = lone.dispatch(image_row(probes[0], transform)[None])[0].cpu(
+        ).numpy()
+    ip = EmbeddingIndex(idx["ip"])
+    want = ShardedScanner(ip.embeddings, k_max=10, devices=[dev]).scan(
+        emb, 10)
+    del lone, model
+    eng = InferenceEngine.from_checkpoint(
+        d["export"], preset=PRESET, class_names=classes, device=dev,
+        buckets=BUCKETS, use_manifest=False, search_index=idx["ip"],
+        search_k_max=10)
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        ss.launches = 0
+        ids, scores = eng.search(str(probes[0]), 10)
+        torch.cuda.synchronize()
+        search_launches = {**read_counts(), "scan_scores": ss.launches}
+    finally:
+        eng.close()
+    _check_forward_launches("::search embed", {
+        k: v for k, v in search_launches.items() if k != "scan_scores"}, 1)
+    if ids != want[1][0].tolist() or \
+            not np.array_equal(np.float32(scores), want[0][0]) or \
+            search_launches["scan_scores"] != 1:
+        raise AssertionError(f"engine.search {ids} {scores} != offline "
+                             f"{want}; launches {search_launches}")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"{PKG}.serve", "--checkpoint",
+         str(d["export"]), "--preset", PRESET, "--classes-file",
+         str(d["classes_file"]), "--buckets", ",".join(map(str, BUCKETS)),
+         "--sync-warmup", "--no-manifest", "--search-index", str(idx["ip"]),
+         "--search-k-max", "10"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=REPO)
+    try:
+        def ask(line):
+            proc.stdin.write(line + "\n")
+            proc.stdin.flush()
+            return proc.stdout.readline().rstrip("\n")
+        reply = ask(f"::search 10 {probes[0]}")
+        relay = ask(f"::req k=10 {probes[0]}")
+        path, tag, payload = reply.split("\t", 2)
+        got = json.loads(payload)
+        if (path, tag) != (str(probes[0]), "search") or relay != reply or \
+                got["ids"] != want[1][0].tolist() or not np.array_equal(
+                    np.float32(got["scores"]), want[0][0]):
+            raise AssertionError(f"serve ::search {reply!r} / {relay!r} != "
+                                 f"offline {want}")
+        lat = []
+        for i in range(SERVE_PROBES):
+            t1 = time.perf_counter()
+            r = ask(f"::search 10 {probes[i % len(probes)]}")
+            lat.append(time.perf_counter() - t1)
+            if "\tsearch\t" not in r:
+                raise AssertionError(f"serve ::search: {r!r}")
+    finally:
+        proc.stdin.close()
+        rc = proc.wait(timeout=120)
+        stderr = proc.stderr.read()
+        proc.stderr.close()
+        proc.stdout.close()
+    if rc != 0:
+        raise AssertionError(f"serve exited {rc}: {stderr[-2000:]}")
+    lat_ms = np.sort(np.asarray(lat)) * 1e3
+    serve = {"probes": SERVE_PROBES, "index_rows": ip.rows,
+             "p50_ms": float(np.percentile(lat_ms, 50)),
+             "p99_ms": float(np.percentile(lat_ms, 99)),
+             "mean_ms": float(lat_ms.mean()),
+             "online_equals_offline": True, "launches_per_search":
+             search_launches}
+    clock["serve_s"] = time.perf_counter() - t0
+
+    # ---- the clustered corpus, indexed, on the card.
+    t0 = time.perf_counter()
+    need = 1.3 * SEARCH_ROWS * SEARCH_DIM * 4
+    free = shutil.disk_usage(root).free
+    if free < need:
+        raise AssertionError(f"{root}: {free} bytes free, the corpus needs "
+                             f"{need:.0f}")
+    write_corpus(root / "corpus", dev, SEARCH_ROWS, seed=13)
+    clock["corpus_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    built, _ = _cli_main("tools.build_index", [str(root / "corpus"),
+                                               "--out", str(root / "cidx")])
+    clock["build_index_s"] = time.perf_counter() - t0
+    index = EmbeddingIndex(root / "cidx")
+    q = _queries(index.embeddings, SEARCH_QUERIES, seed=14)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scanner = ShardedScanner(index.embeddings, k_max=100, devices=[dev],
+                             query_buckets=SEARCH_RUNGS)
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_counts()
+    ss.launches = 0
+    t0 = time.perf_counter()
+    top10 = scanner.scan(q, 10)
+    scan10_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    top100 = scanner.scan(q, 100)
+    scan100_s = time.perf_counter() - t0
+    scan_launches = {**read_counts(), "scan_scores": ss.launches}
+    blocks = -(-SEARCH_ROWS // scanner._block)
+    chunks = len(plan_buckets(SEARCH_QUERIES, SEARCH_RUNGS))
+    if scan_launches != {**{k: 0 for k in read_counts()},
+                         "scan_scores": 2 * chunks * blocks}:
+        raise AssertionError(f"scan launches {scan_launches}")
+    t0 = time.perf_counter()
+    qc = q[:SEARCH_CHECKED]
+    ref = _reference(index.embeddings, qc, 101)
+    checks = [check_topk(index.embeddings, qc, top10, ref, 10),
+              check_topk(index.embeddings, qc, top100, ref, 100)]
+    clock["reference_s"] = time.perf_counter() - t0
+    # The padded tail on the real index: 5 queries ride rung 8, each alone
+    # rung 1; bit for bit.
+    tail = scanner.scan(q[:5], 10)
+    for j in range(5):
+        one = scanner.scan(q[j], 10)
+        if not (np.array_equal(one[0][0], tail[0][j])
+                and np.array_equal(one[1][0], tail[1][j])):
+            raise AssertionError(f"padded tail: query {j} alone differs")
+    # Ties: 1,600 duplicated rows; each query's own row and its copy tie
+    # exactly at the top and resolve to the lower id.
+    base = np.random.default_rng(15).standard_normal(
+        (4000, SEARCH_DIM)).astype(np.float32)
+    dup = np.concatenate([base, base[:1600]])
+    tie = ShardedScanner(dup, k_max=8, devices=[dev]).scan(base[:5], 8)
+    tie_ref = reference_topk(dup, base[:5], 8)
+    if not np.array_equal(tie[1], tie_ref[1]) or \
+            not (tie[1][:, :2] == np.arange(5)[:, None] + [0, 4000]).all():
+        raise AssertionError(f"ties: {tie[1]} != {tie_ref[1]}")
+    rungs = [scan_rung(scanner, q, r, 10, card_peaks) for r in SEARCH_RUNGS]
+    kernel = scan_kernel_row(scanner, q, card_peaks)
+    kernel["launches"] = scan_launches["scan_scores"]
+    block_rows = scanner._block
+    del scanner
+    torch.cuda.empty_cache()
+
+    # ---- IVF over the first IVF_ROWS rows, as their own sealed sink.
+    t0 = time.perf_counter()
+    sl = root / "slice"
+    sl.mkdir()
+    sink = NpySink(sl / "outputs.npy", rows=IVF_ROWS, dim=SEARCH_DIM)
+    sink.write(0, np.asarray(index.embeddings[:IVF_ROWS]))
+    sink.close()
+    write_progress(sl, {
+        "fingerprint": "clustered-slice", "head": "features",
+        "total_records": IVF_ROWS, "out_dim": SEARCH_DIM,
+        "batch_size": IVF_ROWS, "ladder": [IVF_ROWS],
+        "sink": "outputs.npy", "records_done": IVF_ROWS,
+        "rows_written": IVF_ROWS, "preds_bytes": None,
+        "sink_sha256": sink_sha256(sl / "outputs.npy")})
+    t1 = time.perf_counter()
+    _cli_main("tools.build_index", [str(sl), "--out", str(root / "ivf"),
+                                    "--ivf-lists", str(IVF_LISTS)])
+    ivf_build_s = time.perf_counter() - t1
+    ivf = EmbeddingIndex(root / "ivf")
+    qi = _queries(ivf.embeddings, IVF_QUERIES, seed=16)
+    exact = _reference(ivf.embeddings, qi, 10)
+    t1 = time.perf_counter()
+    _, approx = ivf_search(ivf, qi, 10, nprobe=IVF_NPROBE)
+    ivf_s = time.perf_counter() - t1
+    recall = recall_at_k(approx, exact[1])
+    order, starts = ivf.invlists()
+    sizes = np.diff(starts)
+    cd2 = ((qi * qi).sum(1)[:, None] - 2.0 * (qi @ ivf.centroids.T)
+           + (ivf.centroids * ivf.centroids).sum(1)[None, :])
+    probed = np.argsort(cd2, axis=1, kind="stable")[:, :IVF_NPROBE]
+    touched = float(sizes[probed].sum(1).mean() / IVF_ROWS)
+    if recall < IVF_RECALL:
+        raise AssertionError(f"IVF recall@10 {recall} < {IVF_RECALL}")
+    clock["ivf_s"] = time.perf_counter() - t0
+    emit({"phase": "search", "ok": True, "card": card_line(),
+          "fixture_indexes": small, "serve_cli": serve,
+          "corpus": {"rows": SEARCH_ROWS, "dim": SEARCH_DIM,
+                     "clusters": SEARCH_CLUSTERS,
+                     "bytes": index.nbytes(),
+                     "build_index_s": clock["build_index_s"],
+                     "build_summary": built, "h2d_s": h2d_s,
+                     "score_block_rows": block_rows,
+                     "score_blocks": blocks},
+          "scan": {"queries": SEARCH_QUERIES, "rungs": list(SEARCH_RUNGS),
+                   "k10_s": scan10_s, "k100_s": scan100_s,
+                   "k10_queries_per_s": SEARCH_QUERIES / scan10_s,
+                   "k100_queries_per_s": SEARCH_QUERIES / scan100_s,
+                   "launches": scan_launches, "vs_reference": checks,
+                   "padded_tail_bit_identical": True,
+                   "ties_lowest_id": True, "per_rung": rungs},
+          "scores_kernel": kernel,
+          "ivf": {"rows": IVF_ROWS, "nlist": IVF_LISTS,
+                  "nprobe": IVF_NPROBE, "queries": IVF_QUERIES,
+                  "recall_at_10": recall, "gate": IVF_RECALL,
+                  "rows_touched_share": touched, "build_s": ivf_build_s,
+                  "search_s": ivf_s},
+          "clock_s": clock,
+          "seconds": round(time.perf_counter() - t_phase, 3)})
+    return {"kernel": kernel, "search_launches": search_launches}
+
+
 # ------------------------------------------------------------- phase 6
 # How each kernel multiplies on the card, bf16 (f32 runs SIMT everywhere).
 KERNEL_DESIGN = {
@@ -3597,7 +4276,8 @@ KERNEL_DESIGN = {
 
 
 def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
-                cli_launches, packed_launches, transfer):
+                cli_launches, packed_launches, transfer, distill_step,
+                search):
     """The seven ported kernels with their main-path numbers: rows 1-5 at
     batch 32, bf16, dropout off, T = 197; rows 6 and 7 (the MLP core) at
     the parallel phase's per-microbatch shape (4 * 197 rows, F / tp =
@@ -3611,8 +4291,15 @@ def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
     ``train_cli_launches`` on the train_cli phase's (run B through
     ``train.main``), ``train_packed_launches`` on the train_packed phase's
     (P2 through ``train.main``), ``transfer_launches`` on the transfer
-    phase's (the frozen 224 px CLI run), and rows 1-5 carry ``t577``, their
-    readings at the 384 px step's shapes (T = 577, N = 18,464 MLP rows).
+    phase's (the frozen 224 px CLI run), ``distill_launches`` in one step
+    of the distilled ViT-Ti/16 student and ``search_launches`` in one
+    ``::search`` (its features embed and the scan), and rows 1-5 carry
+    ``t577``, their readings at the 384 px step's shapes (T = 577, N =
+    18,464 MLP rows). The eighth entry, ``scan_scores``, is the exact
+    scan's scores kernel (no Pallas kernel in the JAX package: XLA's dot
+    there), at its main path's shape (64 queries by one row block of the
+    2M-row index); its ``launches`` are the search phase's 1,024-query
+    scans at k = 10 and 100.
     ``ms``, ``plain_ms`` and ``library_ms``
     are event times on every row, ``device_ms`` and ``library_device_ms``
     device times (calls queued behind a spin kernel). The two clocks part
@@ -3723,7 +4410,24 @@ def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
             entry["gemms_library_ms"], entry["gemms_library_device_ms"] = gemms
         if name in transfer["t577"]:
             entry["t577"] = transfer["t577"][name]
+        entry["distill_launches"] = distill_step[name]
+        entry["search_launches"] = search["search_launches"][name]
         out.append(entry)
+    sk = search["kernel"]
+    out.append({
+        "name": "scan_scores", "route": "cuda",
+        "source": f"{base}/scan_scores.cu",
+        "replaces": "pytorch_vit_paper_replication_tpu/search/scan.py:178",
+        "status": "new: the exact scan's scores, row bits independent of "
+                  "the query count", "design": "SIMT fmaf, k in order",
+        "launches": sk["launches"], "serve_launches": 0,
+        "max_abs_err": sk["max_abs_err"], "ms": sk["ms"],
+        "plain_ms": sk["plain_ms"], "bound_ms": sk["bound_ms"],
+        "bound_by": sk["bound_by"], "bound_share": sk["bound_share"],
+        "library_ms": sk["library_ms"], "device_ms": sk["device_ms"],
+        "library_device_ms": sk["library_device_ms"], "shape": sk["shape"],
+        "distill_launches": 0,
+        "search_launches": search["search_launches"]["scan_scores"]})
     return {"kernels": out, "to_port": []}
 
 
@@ -3784,13 +4488,22 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_distill_"))
+    try:
+        distill = phase_distill(dev, root)
+        torch.cuda.empty_cache()
+        search = phase_search(dev, root, distill, card_peaks)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
     par_launches = phase_parallel(dev)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             3)})
     print(card, flush=True)
     print(json.dumps(kernel_list(k_rows, launches, serve_launches,
                                  par_launches, ops, cli_launches,
-                                 packed_launches, transfer)),
+                                 packed_launches, transfer,
+                                 distill["launches_per_step"], search)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -259,7 +259,9 @@ def train(state: TrainState, train_batches: Callable[[], Iterable[Batch]],
     ``train_acc``, ``test_loss``, ``test_acc``, ``images_per_sec``, plus
     ``grad_norm``, ``skipped_steps`` (when the nan-guard skipped any),
     ``lr`` (with ``lr_schedule``, a ``micro_step -> lr`` callable: the
-    end-of-epoch learning rate) and ``time_to_first_step`` on the first
+    end-of-epoch learning rate), ``teacher_agree`` (distillation: the
+    share of train examples whose argmax is the teacher's; the JAX loop
+    prints it but logs no such key) and ``time_to_first_step`` on the first
     epoch (process start to the first step applied, with a one-off
     device barrier). ``checkpointer`` (a :class:`..checkpoint.
     Checkpointer`) saves every ``checkpoint_every_steps`` micro-steps (0 =
@@ -354,15 +356,27 @@ def train(state: TrainState, train_batches: Callable[[], Iterable[Batch]],
         results["test_loss"].append(eval_m["loss"])
         results["test_acc"].append(eval_m["acc"])
         img_per_sec = train_m["count"] / max(train_time, 1e-9)
+        if "teacher_agree" in train_m:
+            # Distillation: the blended loss and the student's agreement
+            # with the teacher's argmax, on the process registry.
+            from .telemetry import get_registry
+            reg = get_registry()
+            reg.gauge("distill_loss", round(train_m["loss"], 6))
+            reg.gauge("distill_teacher_agree_frac",
+                      round(train_m["teacher_agree"], 6))
         if verbose:
+            agree = (f" | teacher_agree: {train_m['teacher_agree']:.4f}"
+                     if "teacher_agree" in train_m else "")
             print(f"Epoch: {epoch_no} | "
                   f"train_loss: {train_m['loss']:.4f} | "
                   f"train_acc: {train_m['acc']:.4f} | "
                   f"test_loss: {eval_m['loss']:.4f} | "
                   f"test_acc: {eval_m['acc']:.4f} | "
-                  f"img/s: {img_per_sec:.1f}")
+                  f"img/s: {img_per_sec:.1f}{agree}")
         if logger is not None:
             extra = {}
+            if "teacher_agree" in train_m:
+                extra["teacher_agree"] = train_m["teacher_agree"]
             if "grad_norm" in train_m:
                 extra["grad_norm"] = train_m["grad_norm"]
             if train_m["skipped"]:

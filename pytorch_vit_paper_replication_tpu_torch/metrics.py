@@ -10,7 +10,7 @@
   honest step timing (CUDA launches return before the card finishes).
 
 TensorBoard scalars (the JAX logger's ``tb_dir``) are not ported yet
-(ROADMAP Queue 1 item 5).
+(ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations

@@ -35,6 +35,7 @@ SOURCES: Dict[str, str] = {
     "fused_mlp_core": "fused_mlp_core.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "scan_scores": "scan_scores.cu",
 }
 _HEADERS = ("vit_common.cuh", "hopper.cuh", "mlp_common.cuh", "mlp_fwd.cuh",
             "mlp_bwd.cuh")

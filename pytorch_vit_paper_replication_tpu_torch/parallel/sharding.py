@@ -164,4 +164,4 @@ def validate_mesh_for_config(config, mesh) -> None:
     if mesh.shape.get("seq", 1) > 1:
         raise NotImplementedError(
             "sequence parallelism (mesh seq > 1) is not ported yet (ROADMAP "
-            "Queue 1 item 8: ring attention, Ulysses)")
+            "Queue 1 item 7: ring attention, Ulysses)")

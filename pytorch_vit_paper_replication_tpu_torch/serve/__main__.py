@@ -21,11 +21,14 @@ Lines (both modes):
 * ``::head probs|features|tokens`` / ``::tier interactive|batch`` — this
   connection's defaults;
 * ``::req [head=H] [tier=T] <path>`` — one-shot inline head/tier;
+* ``::search K <path>`` (and its relay form ``::req k=K <path>``), with
+  ``--search-index DIR`` — the K nearest rows of a ``tools.build_index``
+  index: ``path<TAB>search<TAB>{"k", "ids", "scores"}`` (full-precision
+  float32 scores, best first);
 * ``::drain [timeout_s]`` — quiesce the micro-batcher.
 
-``::search``, ``::req k=K`` and ``::metrics`` belong to subsystems not
-ported yet (embedding search, the Prometheus exporter); they answer an
-explicit ``ERROR ... not yet ported`` line.
+``::metrics`` belongs to a subsystem not ported yet (the Prometheus
+exporter); it answers an explicit ``ERROR ... not yet ported`` line.
 """
 
 from __future__ import annotations
@@ -34,12 +37,12 @@ import argparse
 import json
 import sys
 
-from .batching import (DEFAULT_HEAD, DEFAULT_TIER, TIERS, parse_req_line)
+from .batching import (DEFAULT_HEAD, DEFAULT_TIER, TIERS, parse_req_line,
+                       parse_search_line)
 from .bucketing import DEFAULT_BUCKETS
 from .engine import InferenceEngine
 
 _NOT_PORTED = {
-    "::search": "embedding search (ROADMAP Queue 1, subsystems)",
     "::metrics": "the Prometheus ::metrics exporter (ROADMAP Queue 1, "
                  "telemetry)",
 }
@@ -129,16 +132,24 @@ def _answer(line: str, engine: InferenceEngine, timeout: float | None,
             return json.dumps({"error": f"{type(e).__name__}: {e}"})
         return json.dumps({"label": r.label, "prob": r.prob,
                            "probs": [float(p) for p in r.probs]})
+    if line.startswith("::search"):
+        try:
+            k, path = parse_search_line(line)
+        except ValueError as e:
+            return f"{line}\tERROR\tValueError: {e}"
+        return _search_reply(path, k, engine, timeout, state.tier)
     head, tier = state.head, state.tier
     if line.startswith("::req"):
+        # A k= pair marks a search request (the router's relay form of
+        # ::search); it answers with ::search's reply.
         try:
             req_head, req_tier, req_k, _model, path = parse_req_line(line)
         except ValueError as e:
             return f"{line}\tERROR\tValueError: {e}"
-        if req_k is not None:
-            return _not_ported("::search " + path)
         head = req_head if req_head is not None else head
         tier = req_tier if req_tier is not None else tier
+        if req_k is not None:
+            return _search_reply(path, req_k, engine, timeout, tier)
         line = path
     try:
         fut = engine.submit(line, timeout=timeout, head=head, tier=tier)
@@ -146,6 +157,21 @@ def _answer(line: str, engine: InferenceEngine, timeout: float | None,
         # THAT request; serving goes on.
         return f"{line}\tERROR\t{type(e).__name__}: {e}"
     return _finish(line, fut, head)
+
+
+def _search_reply(path: str, k: int, engine: InferenceEngine,
+                  timeout: float | None, tier: str) -> str:
+    """One ``::search`` request -> one reply line (both modes, and the
+    ``::req k=`` relay form): ``path\\tsearch\\t{json}`` with index row
+    ids and full-precision float32 scores, best first."""
+    try:
+        ids, scores = engine.search(path, k, tier=tier, timeout=timeout)
+    except Exception as e:  # noqa: BLE001 — a bad request (no index, k
+        # out of bounds, unreadable image, backpressure) answers THAT
+        # request; serving goes on.
+        return f"{path}\tERROR\t{type(e).__name__}: {e}"
+    return f"{path}\tsearch\t" + json.dumps(
+        {"k": k, "ids": ids, "scores": scores})
 
 
 def _serve_stdin(engine: InferenceEngine, timeout: float | None) -> None:
@@ -172,12 +198,15 @@ def _serve_stdin(engine: InferenceEngine, timeout: float | None) -> None:
             except ValueError as e:
                 print(f"{line}\tERROR\tValueError: {e}", flush=True)
                 continue
-            if req_k is not None:
-                drain(0)
-                print(_not_ported("::search " + path), flush=True)
-                continue
             head = req_head if req_head is not None else head
             tier = req_tier if req_tier is not None else tier
+            if req_k is not None:
+                # A search: the embed + scan is synchronous, so it answers
+                # in submission order like a control line.
+                drain(0)
+                print(_search_reply(path, req_k, engine, timeout, tier),
+                      flush=True)
+                continue
             line = path
         elif line.startswith("::"):
             # Control commands answer in submission order relative to the
@@ -274,6 +303,14 @@ def main(argv=None):
                    help="run the whole bucket ladder before accepting "
                         "traffic (default: warm in the background, "
                         "smallest rung first)")
+    p.add_argument("--search-index", default=None, metavar="DIR",
+                   help="a tools.build_index index directory; enables "
+                        "'::search K <path>' — embed through the features "
+                        "head, scan the memory-mapped index on the "
+                        "serving device, answer the K nearest rows")
+    p.add_argument("--search-k-max", type=int, default=100,
+                   help="largest K a ::search may ask for (the scan's "
+                        "candidate width)")
     add_engine_args(p)
     args = p.parse_args(argv)
 
@@ -285,6 +322,15 @@ def main(argv=None):
         print(f"[serve] warmup: bucket {bucket} ran in {seconds:.2f}s",
               file=sys.stderr)
 
+    search_index = None
+    if args.search_index:
+        # Opened (and shape-checked) before the checkpoint load: a bad
+        # --search-index fails in milliseconds, not after the warmup.
+        from ..search.index import EmbeddingIndex
+        search_index = EmbeddingIndex(args.search_index)
+        print(f"[serve] search index: "
+              f"{json.dumps(search_index.describe())}", file=sys.stderr)
+
     engine = InferenceEngine.from_checkpoint(
         args.checkpoint, preset=args.preset, class_names=class_names,
         image_size=args.image_size, buckets=parse_buckets(args.buckets),
@@ -294,6 +340,8 @@ def main(argv=None):
         warmup=(True if args.sync_warmup else "async"),
         use_manifest=not args.no_manifest,
         warmup_callback=log_rung,
+        search_index=search_index,
+        search_k_max=args.search_k_max,
         model_tier=args.model_tier,
         device=args.device)
     print(f"[serve] warming {len(engine._warmup_rungs)} bucket shapes "

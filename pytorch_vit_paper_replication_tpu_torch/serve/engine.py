@@ -31,6 +31,13 @@ on restart (a mismatched fingerprint or ladder is refused).
 + ``transform.json`` + ``model_meta.json``) through the same
 :func:`..predictions.load_inference_checkpoint` call prediction uses, so
 serving preprocessing cannot drift from offline prediction.
+
+**Embedding search**: with ``search_index`` (a ``tools.build_index``
+directory) the engine answers :meth:`InferenceEngine.search`: the query is
+embedded through the ``features`` head (coalescing with every other head's
+traffic), then a :class:`..search.scan.ShardedScanner` whose shard was
+placed on the engine's device once, at construction, finds its nearest
+index rows.
 """
 
 from __future__ import annotations
@@ -184,6 +191,8 @@ class InferenceEngine:
                  warmup_rungs: Optional[Sequence[int]] = None,
                  warmup_callback: Optional[Callable[[int, float],
                                                     None]] = None,
+                 search_index=None,
+                 search_k_max: int = 100,
                  model_tier: Optional[str] = None):
         from ..data.transforms import eval_transform
 
@@ -218,6 +227,10 @@ class InferenceEngine:
         # from_checkpoint; None for in-memory-constructed engines).
         self.checkpoint_fingerprint: Optional[str] = None
         self.checkpoint_path: Optional[str] = None
+        self._search_index = None
+        self._scanner = None
+        if search_index is not None:
+            self._attach_index(search_index, search_k_max)
         self._batcher = MicroBatcher(
             self._device_forward, buckets=self.buckets,
             max_wait_us=max_wait_us, batch_max_wait_us=batch_max_wait_us,
@@ -230,6 +243,42 @@ class InferenceEngine:
             self._warmup_thread.start()
         elif warmup:
             self.warmup()
+
+    def _attach_index(self, search_index, k_max: int) -> None:
+        """Open ``search_index`` (an :class:`..search.index.EmbeddingIndex`
+        or its directory) and place its rows on this engine's device.
+        Refuses a model without the features head and an index whose rows
+        are not this model's embedding width; warns when the index was
+        embedded by another model universe (fingerprint), as the JAX engine
+        does: a numerically identical re-export may carry another one."""
+        from ..search.index import EmbeddingIndex
+        from ..search.scan import ShardedScanner
+
+        idx = (search_index if isinstance(search_index, EmbeddingIndex)
+               else EmbeddingIndex(search_index))
+        if "features" not in self.heads:
+            raise ValueError(
+                "search_index needs the features head; this model serves "
+                f"only {list(self.heads)}")
+        fp = model_fingerprint(self.model, self.image_size)
+        if idx.fingerprint is not None and idx.fingerprint != fp:
+            warnings.warn(
+                f"search index {idx.path} was built from fingerprint "
+                f"{idx.fingerprint}, this engine is {fp}: queries and index "
+                "rows may live in different embedding spaces", stacklevel=3)
+        if int(idx.dim) != self._feature_dim():
+            raise ValueError(
+                f"search index dim {idx.dim} != this model's pooled "
+                f"embedding dim {self._feature_dim()}")
+        self._search_index = idx
+        self._scanner = ShardedScanner(
+            idx.embeddings, k_max=int(k_max), metric=idx.metric,
+            norms=idx.norms, devices=[self.device],
+            registry=self.stats.registry)
+
+    def _feature_dim(self) -> int:
+        cfg = getattr(self.model, "config", None)
+        return int(getattr(cfg, "embedding_dim", -1))
 
     # ---------------------------------------------------------- device
     @staticmethod
@@ -368,6 +417,37 @@ class InferenceEngine:
         futures = [self.submit(img, timeout=timeout) for img in images]
         return [f.result() for f in futures]
 
+    @property
+    def search_index(self):
+        """The attached :class:`..search.index.EmbeddingIndex`, or None
+        when this engine serves no ``::search`` traffic."""
+        return self._search_index
+
+    def search(self, image, k: int, *, tier: str = DEFAULT_TIER,
+               timeout: Optional[float] = None
+               ) -> Tuple[List[int], List[float]]:
+        """Embed ``image`` through the features head (coalescing with
+        every other head's traffic in the micro-batcher) and scan the
+        attached index; returns ``(row_ids, scores)`` of the K nearest
+        index rows, best first. Equal bit for bit to embedding the same
+        image offline at the same batch shape and scanning the same index
+        (a lone request rides bucket 1; the scan's rows do not depend on
+        the chunk)."""
+        if self._scanner is None:
+            raise ValueError(
+                "no search index attached (serve --search-index DIR after "
+                "building one with tools.build_index)")
+        if not 1 <= int(k) <= self._scanner.k_max:
+            raise ValueError(
+                f"k={k} outside [1, {self._scanner.k_max}] (bound at "
+                "engine construction by search_k_max and the index size)")
+        emb = self._batcher.submit(
+            image_row(image, self.transform), timeout=timeout,
+            head="features", tier=tier).result()
+        scores, ids = self._scanner.scan(
+            np.asarray(emb, np.float32)[None, :], int(k))
+        return [int(i) for i in ids[0]], [float(s) for s in scores[0]]
+
     def snapshot(self) -> dict:
         """Serving stats + engine config, JSON-serializable."""
         snap = self.stats.snapshot()
@@ -376,6 +456,8 @@ class InferenceEngine:
         snap["effective_bucket_cap"] = self._batcher.effective_bucket_cap
         snap["queue_depth"] = self._batcher.queue_depth()
         snap["warm_rungs"] = sorted(self._warm)
+        snap["search_index"] = (self._search_index.describe()
+                                if self._search_index is not None else None)
         snap["device"] = str(self.device)
         snap["checkpoint_fingerprint"] = self.checkpoint_fingerprint
         snap["checkpoint_path"] = self.checkpoint_path

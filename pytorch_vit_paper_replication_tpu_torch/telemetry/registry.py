@@ -47,8 +47,8 @@ DEFAULT_EVENT_RING = 256
 
 # The instruments this package publishes, name -> kind: the train-side
 # (tel_/watchdog_/profiler_/mem_), serve-side (serve_/compile_cache_/
-# trace_) and batch-inference (bi_) subsets of the JAX package's declared
-# schema. Dynamic names ride
+# trace_), batch-inference (bi_), search (search_) and distillation
+# (distill_) subsets of the JAX package's declared schema. Dynamic names ride
 # their prefixes (mem_devN_*, serve_lat_*, serve_latency_*).
 INSTRUMENTS: Dict[str, str] = {
     'tel_step_s': 'histogram',
@@ -100,6 +100,17 @@ INSTRUMENTS: Dict[str, str] = {
     'bi_devices': 'gauge',
     'bi_data_wait_s': 'histogram',
     'bi_drain_s': 'histogram',
+    'search_queries_total': 'counter',
+    'search_scans_total': 'counter',
+    'search_qps': 'gauge',
+    'search_index_rows': 'gauge',
+    'search_devices': 'gauge',
+    'search_scan_s': 'histogram',
+    'search_merge_s': 'histogram',
+    'distill_alpha': 'gauge',
+    'distill_t': 'gauge',
+    'distill_loss': 'gauge',
+    'distill_teacher_agree_frac': 'gauge',
 }
 
 # Prometheus # HELP text for the declared instruments (the renderer
@@ -154,6 +165,21 @@ HELP_TEXT: Dict[str, str] = {
     'bi_devices': 'Devices the batch-inference replicas run on',
     'bi_data_wait_s': 'Seconds blocked on the batch-inference loader',
     'bi_drain_s': 'Seconds blocked fetching batch-inference outputs',
+    'search_queries_total': 'Query rows answered by the top-k scanner',
+    'search_scans_total': 'Query chunks dispatched across the scan '
+                          'devices',
+    'search_qps': 'Queries per second of the last scan call',
+    'search_index_rows': 'Rows of the attached embedding index',
+    'search_devices': 'Devices the index shards scan across',
+    'search_scan_s': "Seconds blocked fetching one query chunk's merged "
+                     'top-k',
+    'search_merge_s': "Host dispatch seconds of one chunk's scans and "
+                      'merge',
+    'distill_alpha': 'KD soft-target weight in force (0 = plain CE)',
+    'distill_t': 'KD softmax temperature in force',
+    'distill_loss': 'Latest KD train loss (blended hard+soft)',
+    'distill_teacher_agree_frac': 'Per-epoch student/teacher argmax '
+                                  'agreement over train batches',
 }
 
 class _RollingHistogram:

@@ -28,10 +28,24 @@ It runs on ``cuda`` unless ``--device cpu`` is given (then the kernels'
 plain PyTorch versions run); without a card it raises ``no CUDA device``.
 Checkpoint saves are asynchronous unless ``--sync-checkpoints``. The flags
 keep the JAX CLI's names, defaults and semantics. Those whose path is not
-ported yet (distillation, elastic and multi-card meshes, the metrics HTTP
-endpoint, the fleet shipper, TensorBoard, the compile cache) are parsed
-and refused with ``... not yet ported (ROADMAP Queue 1 item N)`` when
-given a value other than their default.
+ported yet (elastic and multi-card meshes, the metrics HTTP endpoint, the
+fleet shipper, TensorBoard, the compile cache) are parsed and refused
+with ``... not yet ported (ROADMAP Queue 1 item N)`` when given a value
+other than their default.
+
+Distillation: ``--distill-from SINK`` trains a student against a sealed
+``tools.batch_infer --head logits`` sink the teacher dumped over the same
+train split (rows paired with records by dataset ordinal; the objective is
+:func:`.engine.distill_loss`, ``--distill-alpha 0`` ordinary training bit
+for bit)::
+
+    python -m pytorch_vit_paper_replication_tpu_torch.tools.batch_infer \
+        packs/train --checkpoint runs/teacher --classes-file classes.txt \
+        --head logits --out runs/teacher_logits
+    python -m pytorch_vit_paper_replication_tpu_torch.train \
+        --dataset packed --train-dir packs/train --test-dir packs/val \
+        --preset ViT-Ti/16 --distill-from runs/teacher_logits \
+        --distill-t 2 --distill-alpha 0.7 --checkpoint-dir runs/student
 
 Transfer learning: ``--pretrained PTH`` starts the backbone from a torch
 ViT state_dict (position embedding interpolated to ``--image-size``, head
@@ -81,7 +95,6 @@ from .utils.seeding import set_seeds
 # other value exits non-zero (--mesh-data is checked on its own: -1 and 1
 # both mean the one card).
 NOT_PORTED: Dict[str, int] = {
-    "distill_from": 9, "distill_t": 9, "distill_alpha": 9,
     "compile_cache_dir": 9,
     "elastic": 7, "elastic_backend": 7, "elastic_heartbeat_s": 7,
     "elastic_timeout_s": 7, "elastic_rejoin_s": 7,
@@ -199,11 +212,23 @@ def build_parser() -> argparse.ArgumentParser:
                        help="skip any update whose loss or gradient norm "
                             "is nonfinite")
     train.add_argument("--distill-from", type=str, default=None,
-                       metavar="SINK_DIR", help="(not ported)")
+                       metavar="SINK_DIR",
+                       help="knowledge distillation: a completed "
+                            "tools.batch_infer --head logits output dir, "
+                            "dumped by the teacher over this exact train "
+                            "split; teacher rows are gathered per batch by "
+                            "record ordinal and the manifest's rows, "
+                            "classes and sha256 are verified before the "
+                            "first step; the objective becomes engine."
+                            "distill_loss")
     train.add_argument("--distill-t", type=float, default=2.0,
-                       help="(not ported)")
+                       help="distillation temperature T (the KL term "
+                            "compares softmax(logits/T) and is scaled by "
+                            "T^2)")
     train.add_argument("--distill-alpha", type=float, default=0.5,
-                       help="(not ported)")
+                       help="soft-target weight in the KD mix; 0.0 is "
+                            "ordinary training bit for bit, 1.0 pure "
+                            "teacher mimicry")
     train.add_argument("--eval-only", action="store_true",
                        help="score the latest checkpoint (or the final/ "
                             "export) in --checkpoint-dir on the test "
@@ -521,6 +546,7 @@ def main(argv=None) -> dict:
         train_dl, test_dl, class_names = folder_loaders(args, loader_kwargs,
                                                         transform_spec)
     print(f"classes: {class_names} | train batches/epoch: {len(train_dl)}")
+    distill_rows = load_teacher(args, train_dl, class_names)
 
     # Model + state ---------------------------------------------------------
     if args.model == "tinyvgg":
@@ -576,8 +602,10 @@ def main(argv=None) -> dict:
     print(f"model: {model_name} | params: "
           f"{count_params(model.state_dict()):,} | device: {dev}")
     state = engine.TrainState.create(model=model, tx=tx, seed=args.seed)
-    train_step = engine.make_train_step(label_smoothing=args.label_smoothing,
-                                        nan_guard=args.nan_guard)
+    train_step = engine.make_train_step(
+        label_smoothing=args.label_smoothing, nan_guard=args.nan_guard,
+        distill_alpha=(args.distill_alpha if args.distill_from else None),
+        distill_t=args.distill_t)
 
     checkpointer = (Checkpointer(args.checkpoint_dir,
                                  max_to_keep=args.keep_checkpoints,
@@ -609,14 +637,28 @@ def main(argv=None) -> dict:
               + f"; {epochs_to_run} to run)")
     if meta_path is not None and not args.eval_only:
         meta_path.parent.mkdir(parents=True, exist_ok=True)
-        atomic_write_json(meta_path, {
-            "steps_per_epoch": steps_per_epoch,
-            "global_batch_size": args.batch_size,
-            "grad_accum": accum,
-            "epochs": args.epochs})
+        meta = {"steps_per_epoch": steps_per_epoch,
+                "global_batch_size": args.batch_size,
+                "grad_accum": accum,
+                "epochs": args.epochs}
+        if args.distill_from:
+            # The objective's knobs beside the schedule: a distilled
+            # checkpoint says how it was trained.
+            meta.update(distill_alpha=args.distill_alpha,
+                        distill_t=args.distill_t)
+        atomic_write_json(meta_path, meta)
+
+    def with_teacher():
+        for b in train_dl:
+            # This batch's teacher rows by dataset ordinal: a [B, C]
+            # fancy-index copy out of the read-only sink memmap, sent to
+            # the card with the batch.
+            b["teacher_logits"] = distill_rows[b.pop("index")]
+            yield b
 
     def train_batches():
-        return prefetch_to_device(train_dl, device=dev)
+        return prefetch_to_device(
+            train_dl if distill_rows is None else with_teacher(), device=dev)
 
     def eval_batches():
         return prefetch_to_device((pad_batch(b, 1) for b in test_dl),
@@ -653,6 +695,30 @@ def main(argv=None) -> dict:
     if args.plot:
         plot_loss_curves(results, save_path=args.plot)
     return results
+
+
+def load_teacher(args, train_dl, class_names):
+    """``--distill-from``: the verified teacher sink's rows (None when not
+    distilling); turns on the loader's ``index`` key and publishes the
+    ``distill_alpha`` / ``distill_t`` gauges."""
+    if not args.distill_from:
+        return None
+    if args.eval_only:
+        raise SystemExit("--distill-from does nothing under --eval-only; "
+                         "drop one of the two")
+    from .distill import load_distill_sink
+    from .telemetry import get_registry
+    rows, manifest = load_distill_sink(
+        args.distill_from, n_records=len(train_dl.dataset),
+        n_classes=len(class_names))
+    train_dl.emit_indices = True
+    print(f"distillation: teacher sink {args.distill_from} "
+          f"({manifest['total_records']} records x {manifest['out_dim']} "
+          f"classes, teacher fingerprint {manifest['fingerprint']}) | "
+          f"t={args.distill_t:g} alpha={args.distill_alpha:g}")
+    get_registry().gauge("distill_alpha", args.distill_alpha)
+    get_registry().gauge("distill_t", args.distill_t)
+    return rows
 
 
 def check_resume(meta: dict, args, steps_per_epoch: int, total_steps: int,

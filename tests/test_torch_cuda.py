@@ -1108,3 +1108,89 @@ def test_batch_infer_probs_equal_predict_batch_on_card(dev, tmp_path):
         assert label == int(row.argmax()) and prob == float(row.max())
     soft = torch.softmax(torch.from_numpy(sinks["logits"]).to(dev), dim=-1)
     assert np.array_equal(soft.cpu().numpy(), sinks["probs"])
+
+
+# ------------------------------------------------------------ the scan
+# scan_scores: M on both query tiles (8 and 64) and their edges, a ragged
+# row tile, K off the 16-byte vector loads (7) and on them (24, 768).
+SCAN_M = [1, 5, 8, 9, 64, 70]
+SCAN_NK = [(1000, 768), (333, 7), (130, 24)]
+
+
+@pytest.mark.parametrize("n,k", SCAN_NK)
+@pytest.mark.parametrize("m", SCAN_M)
+def test_scan_scores_kernel_matches_plain(dev, m, n, k):
+    from pytorch_vit_paper_replication_tpu_torch.ops import scan_scores
+    g = torch.Generator().manual_seed(m * 1000 + n + k)
+    q = torch.randn(m, k, generator=g).to(dev)
+    db = torch.randn(n, k, generator=g).to(dev)
+    before = scan_scores.launches
+    out = scan_scores.scan_scores(q, db)
+    assert scan_scores.launches == before + 1
+    ref = scan_scores.scan_scores_plain(q, db)
+    # Both f32, summed in other orders: within 1e-5 of the largest score.
+    assert _rel(out, ref) < 1e-5
+
+
+def test_scan_scores_rows_do_not_depend_on_m_or_tf32(dev):
+    """A query's scores are the same bits alone, in a padded batch of 8
+    and in a batch of 70 (both query tiles), with TF32 on or off."""
+    from pytorch_vit_paper_replication_tpu_torch.ops.scan_scores import (
+        scan_scores)
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(70, 768, generator=g).to(dev)
+    db = (torch.randn(5000, 768, generator=g) + 2.0).to(dev)
+    full = scan_scores(q, db)
+    for m in (1, 5, 8, 9, 64):
+        assert torch.equal(scan_scores(q[:m].contiguous(), db), full[:m])
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        assert torch.equal(scan_scores(q, db), full)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _clustered_db(rows, dim, seed):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((64, dim)).astype(np.float32) * 4.0
+    return (centers[rng.integers(0, 64, rows)]
+            + rng.standard_normal((rows, dim)).astype(np.float32))
+
+
+@pytest.mark.parametrize("metric", ["ip", "cosine"])
+def test_sharded_scan_on_card_matches_cpu(dev, metric):
+    from pytorch_vit_paper_replication_tpu_torch.search import (
+        ShardedScanner)
+    db = _clustered_db(20000, 768, 0)
+    q = db[:13] + 0.1 * np.random.default_rng(1).standard_normal(
+        (13, 768)).astype(np.float32)
+    norms = np.linalg.norm(db, axis=1)
+    kw = dict(k_max=20, metric=metric, norms=norms)
+    card = ShardedScanner(db, devices=[dev], **kw).scan(q, 20)
+    cpu = ShardedScanner(db, devices=["cpu"], **kw).scan(q, 20)
+    np.testing.assert_array_equal(card[1], cpu[1])
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5)
+
+
+def test_scan_ties_and_padded_tail_on_card(dev):
+    """Duplicated rows tie exactly on the card too and resolve to the
+    lowest row id (the reference argsort's order); a padded batch equals
+    each query scanned alone, bit for bit (rungs 8 and 1)."""
+    from pytorch_vit_paper_replication_tpu_torch.search import (
+        ShardedScanner, reference_topk)
+    rng = np.random.default_rng(2)
+    base = rng.standard_normal((4000, 768)).astype(np.float32)
+    db = np.concatenate([base, base[:1600]])
+    q = base[:5]
+    scanner = ShardedScanner(db, k_max=8, devices=[dev],
+                             query_buckets=(1, 8))
+    scores, ids = scanner.scan(q, 8)
+    ref_s, ref_i = reference_topk(db, q, 8)
+    np.testing.assert_array_equal(ids, ref_i)
+    np.testing.assert_allclose(scores, ref_s, rtol=1e-5)
+    assert (ids[:, 0] == np.arange(5)).all()
+    assert (ids[:, 1] == 4000 + np.arange(5)).all()
+    for j in range(5):
+        s1, i1 = scanner.scan(q[j], 8)
+        np.testing.assert_array_equal(s1[0], scores[j])
+        np.testing.assert_array_equal(i1[0], ids[j])

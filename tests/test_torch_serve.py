@@ -120,10 +120,15 @@ def test_cli_control_lines(engine):
     assert _answer("::head features", engine, None) == \
         "::head\tok\tfeatures"
     assert "ERROR" in _answer("::head nope", engine, None)
-    for line in ("::search 3 /x.png", "::metrics", "::req k=2 /x.png"):
-        reply = _answer(line, engine, None)
-        assert "\tERROR\tNotImplementedError:" in reply
-        assert "not yet ported" in reply
+    reply = _answer("::metrics", engine, None)
+    assert "\tERROR\tNotImplementedError:" in reply
+    assert "not yet ported" in reply
+    # Search is ported: without --search-index it answers the request's
+    # error line.
+    for line in ("::search 3 /x.png", "::req k=2 /x.png"):
+        assert _answer(line, engine, None) == (
+            "/x.png\tERROR\tValueError: no search index attached (serve "
+            "--search-index DIR after building one with tools.build_index)")
 
 
 def test_pipe_mode_cli_replies_well_formed(export):
@@ -159,6 +164,10 @@ def test_import_whole_port_pulls_no_jax():
         "import pytorch_vit_paper_replication_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for name in ('distill', 'distill.sink', 'distill.recipe', 'search',"
+        " 'search.index', 'search.ivf', 'search.scan', 'ops.scan_scores',"
+        " 'tools.build_index'):\n"
+        "    assert pkg.__name__ + '.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'flax'"
         " or m.startswith('pytorch_vit_paper_replication_tpu.')"
