@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (ViT-B/16 serving and
 training paths, the Quickstart and the ImageNet-scale training CLIs, the
-transfer-learning path, distillation and embedding search).
+transfer-learning path, distillation, embedding search and the serving
+fleet with its telemetry sinks).
 
 Run from the repository root on a machine with one CUDA card::
 
@@ -102,6 +103,11 @@ final ``ok`` line is never printed:
              launched 12 times in every train step; then every step
              after 4 and final/ deleted and the command rerun: it resumes
              at step 4 and its final params equal run A's bit for bit.
+             Run A carries the telemetry sinks (``--metrics-port`` on a
+             free port, scraped while it runs and parsed as Prometheus
+             text with HELP lines; ``--ship-to`` a ``FrameSink``: frames
+             of role ``train``) and its losses equal run B's (no sinks)
+             bit for bit.
              ``--eval-only`` on A equals A's last JSONL row; ``python -m
              ...predict`` on a test image prints what ``predict_image``
              gives on the same export. Run C: two 10-step epochs, steps
@@ -211,6 +217,54 @@ final ``ok`` line is never printed:
              one row block. IVF over the first IVF_ROWS rows at
              ``--ivf-lists`` IVF_LISTS, nprobe IVF_NPROBE: recall@10 >=
              IVF_RECALL and the share of rows touched.
+4f. fleet — after search, in the same temporary root (the distill
+             phase's B/16 teacher export, its Ti/16 student, the 321
+             JPEGs, the search phase's ip index). ``python -m
+             ...serve.fleet --replicas 2 --devices 1 --buckets 1,4,8
+             --swap-probe IMG --ship-to`` a ``FrameSink``: two port
+             serve-CLI replicas of the B/16 export on the one card
+             (``partition_devices(1, 2)``: both on ordinal 0), booting
+             together into an empty kernel build directory
+             (``VIT_TORCH_BUILD_DIR``; cold boot s; each library built
+             once between them, read from ``builds.jsonl``). Beside it,
+             the same fleet built in this process by the CLI's own
+             ``parse_args`` / ``build_fleet`` (warm boot s), its replicas
+             with ``--search-index``, ``--ship-to`` and ``--trace-jsonl``
+             at ``--trace-sample 0.05``, its router traced here. On the
+             quiet fleets, routed ``::probs`` and ``::req head=features``
+             (the CLI's) and ``::search 5`` (the in-process one's) equal an
+             in-process engine on the card bit for bit (its launches
+             counted: rows 1 and 3 12 times a forward, the scores kernel
+             once). ``TraceClients`` replays ``profiles/burst4x.json`` as
+             committed against the CLI's router, one of its replicas
+             SIGKILLed at t = 15 s: every arrival answered exactly once, by
+             a reply or a backpressure line the router counted, and the
+             replica restarted and re-admitted warm (restart s = warm
+             boot). ``profiles/steady.json`` with ``::swap`` to a second
+             seeded B/16 export through the router (``::swap-status``
+             polled; each replica re-admitted on the ``--swap-probe`` row
+             the CLI's child process computes, bit for bit): no failed
+             request, routed ``::probs`` afterwards equal the new export's
+             in-process engine; ``::swap`` to a corrupt copy is refused
+             (its probe row cannot be computed) and the replies stay. The
+             CLI's ``::metrics`` parses as Prometheus text; it exits 0 on
+             SIGINT. The in-process fleet: a traced pass (TraceClients,
+             FLEET_TRACED_PROFILE), ``::metrics`` of a replica and of the
+             router, ``::swap`` to the corrupt copy (no probe) rolled back
+             and the replies unchanged. The cascade: three fleet CLIs with
+             ``--cascade`` (a Ti/16 student and a B/16 teacher replica
+             each, ``--ship-to``), at threshold 0 (the student's
+             in-process replies bit for bit), infinity (the teacher's) and
+             the median student margin (each reply from the tier its
+             margin picks; the escalations the margins at or below it),
+             CASCADE_PROBES ``::probs`` each, ``::stats``, ``::metrics``,
+             exit 0 on SIGINT. Last, the sinks: frames from the in-process
+             fleet's replicas (role ``serve``) and the four CLIs' routers
+             (role ``router``), and the trace JSONL merged by
+             ``merged_chrome_trace`` into a trace ``validate_chrome_trace``
+             passes, with ``serve.request`` spans under router spans of
+             the same trace id. Latency per segment is recorded, not
+             gated.
 5. parallel — the data x tensor x pipeline path through the port's
              ``parallel.spawn``, four rank processes sharing the one card
              (gloo, every transfer through host memory; the phase prints
@@ -2612,6 +2666,68 @@ def checkpoint_seconds(dev, root: Path) -> dict:
             "async": async_s}
 
 
+class TrainSinks:
+    """``--metrics-port`` (a free port, scraped by a thread until it
+    answers) and ``--ship-to`` (a ``FrameSink``) for one train CLI run;
+    :meth:`check` holds the run's losses to a run without them, bit for
+    bit."""
+
+    def __enter__(self):
+        import socket
+        import threading
+        import urllib.request
+        from pytorch_vit_paper_replication_tpu_torch.telemetry import (
+            FrameSink)
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            self.port = sk.getsockname()[1]
+        self.sink = FrameSink()
+        self.argv = ["--metrics-port", str(self.port), "--ship-to",
+                     f"127.0.0.1:{self.sink.port}", "--ship-interval-s", "1",
+                     "--worker-id", "train-cli-a"]
+        self.scraped, self._stop = [], threading.Event()
+
+        def scrape():
+            url = f"http://127.0.0.1:{self.port}/metrics"
+            while not self._stop.wait(0.25):
+                try:
+                    with urllib.request.urlopen(url, timeout=5) as r:
+                        body = r.read().decode()
+                except OSError:
+                    continue
+                if "vit_tel_steps_total" in body:
+                    self.scraped.append(body)
+                    return
+        self._thread = threading.Thread(target=scrape, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(10)
+        self.frames = list(self.sink.frames)
+        self.sink.stop()
+
+    def check(self, rows, res_b) -> None:
+        if not self.scraped:
+            raise AssertionError("--metrics-port never answered mid-run")
+        n = _prometheus_ok(self.scraped[0])
+        roles = {f["role"] for f in self.frames}
+        if roles != {"train"} or len(self.frames) < 2 or \
+                self.frames[-1]["snapshot"]["counters"].get(
+                    "tel_steps_total", 0) < 1:
+            raise AssertionError(f"train frames: {roles}, "
+                                 f"{len(self.frames)}")
+        losses = {k: [r[k] for r in rows] for k in ("train_loss",
+                                                    "test_loss")}
+        if losses != {k: res_b[k] for k in losses}:
+            raise AssertionError(f"run A with sinks {losses} != run B "
+                                 f"{ {k: res_b[k] for k in losses} }")
+        self.summary = {"metrics_samples_mid_run": n,
+                        "frames": len(self.frames),
+                        "losses_bit_identical_without_sinks": True}
+
+
 def phase_train_cli(dev, root: Path) -> dict:
     """Run A through ``python -m ...train`` (2 epochs, saves every 2
     steps, metrics JSONL); run B the same command in this process with
@@ -2647,9 +2763,12 @@ def phase_train_cli(dev, root: Path) -> dict:
     run_a = common + ["--checkpoint-dir", str(ck_a), "--metrics-jsonl",
                       str(ck_a / "m.jsonl"), "--checkpoint-every-steps",
                       str(CLI_EVERY_STEPS)]
-    t0 = time.perf_counter()
-    _cli_subprocess("train", run_a)
-    a_s = time.perf_counter() - t0
+    # Run A carries the telemetry sinks: /metrics scraped while it runs,
+    # frames to a stand-in aggregator; run B (no sinks) must equal it.
+    with TrainSinks() as sinks:
+        t0 = time.perf_counter()
+        _cli_subprocess("train", run_a + sinks.argv)
+        a_s = time.perf_counter() - t0
     rows = _jsonl(ck_a / "m.jsonl")
     if len(rows) != CLI_EPOCHS or any(
             not CLI_JSONL_KEYS <= set(r) or not math.isfinite(r["train_loss"])
@@ -2669,10 +2788,11 @@ def phase_train_cli(dev, root: Path) -> dict:
     reset_counts()
     t0 = time.perf_counter()
     with StepProbe() as probe:
-        _cli_main("train", run_b)
+        res_b, _ = _cli_main("train", run_b)
     torch.cuda.synchronize()
     b_s = time.perf_counter() - t0
     launches = read_counts()
+    sinks.check(rows, res_b)
     _check_step_launches("run B", probe.deltas)
     steps = len(probe.deltas)
     for d in ck_b.iterdir():
@@ -2735,6 +2855,7 @@ def phase_train_cli(dev, root: Path) -> dict:
     emit({"phase": "train_cli", "ok": True, "model": PRESET, "px": 224,
           "batch": TRAIN_BATCH, "steps_per_epoch": steps // CLI_EPOCHS,
           "run_a_subprocess_s": round(a_s, 3), "run_b_s": round(b_s, 3),
+          "run_a_sinks": sinks.summary,
           "launches": launches, "launches_per_step": CLI_STEP_LAUNCHES,
           "resumed_from_step": CLI_RESUME_FROM,
           "resumed_final_params_bit_identical": True,
@@ -3858,6 +3979,7 @@ def phase_distill(dev, root: Path) -> dict:
           "seconds": round(time.perf_counter() - t_phase, 3)})
     return {"export": export, "classes_file": classes_file,
             "features": sinks["features"], "test_dir": test_dir,
+            "train_dir": train_dir, "student": ck,
             "launches_per_step": probe.deltas[0]}
 
 
@@ -4261,7 +4383,665 @@ def phase_search(dev, root: Path, d: dict, card_peaks) -> dict:
                   "search_s": ivf_s},
           "clock_s": clock,
           "seconds": round(time.perf_counter() - t_phase, 3)})
-    return {"kernel": kernel, "search_launches": search_launches}
+    return {"kernel": kernel, "search_launches": search_launches,
+            "index": idx["ip"]}
+
+
+# ------------------------------------------------------------- phase 4f
+# The serving fleet: ``python -m ...serve.fleet`` over ViT-B/16 replicas
+# (the distill phase's teacher export) on the one card, the committed
+# load profiles replayed as they are, a SIGKILL, ``::swap``, a ViT-Ti/16 /
+# ViT-B/16 cascade, and every process's telemetry sinks.
+FLEET_BUCKETS = (1, 4, 8)
+FLEET_TRACE_SAMPLE = 0.05
+FLEET_TRACE_SEED = 5
+FLEET_KILL_AT_S = 15.0
+FLEET_SWAP_SEED = 13
+FLEET_SWAP_TIMEOUT_S = 300.0
+FLEET_BAD_WARM_TIMEOUT_S = 15
+# The traced pass: TraceClients mint the traces (the router and the
+# replicas adopt them), 4 s at 100 rps over rungs 1 and 8.
+FLEET_TRACED_PROFILE = {"seed": 5, "duration_s": 4.0, "baseline_rps": 100.0,
+                        "head_mix": {"probs": 1.0},
+                        "tier_mix": {"interactive": 1.0},
+                        "rung_mix": {"1": 0.5, "8": 0.5}}
+CASCADE_PROBES = 200
+
+
+def _ask_lines(address, lines, timeout=120.0) -> list:
+    """One connection, one reply line per request line; a ``::metrics``
+    block is read up to its blank line."""
+    import socket
+    with socket.create_connection(address, timeout=timeout) as sock:
+        sock.settimeout(timeout)
+        rfile = sock.makefile("r", encoding="utf-8")
+        out = []
+        for line in lines:
+            sock.sendall((line + "\n").encode())
+            if line == "::metrics":
+                block = []
+                for reply in rfile:
+                    if reply == "\n":
+                        break
+                    block.append(reply)
+                out.append("".join(block))
+            else:
+                out.append(rfile.readline().rstrip("\n"))
+        return out
+
+
+def _stats(address) -> dict:
+    return json.loads(_ask_lines(address, ["::stats"])[0])
+
+
+def _swap(address, checkpoint, timeout_s: float = FLEET_SWAP_TIMEOUT_S
+          ) -> dict:
+    """``::swap <checkpoint>`` to a fleet router, then ``::swap-status``
+    until it reports on that checkpoint; returns the report."""
+    started = json.loads(_ask_lines(address, [f"::swap {checkpoint}"])[0])
+    if started.get("swap") != "started":
+        raise AssertionError(f"::swap {checkpoint}: {started}")
+    return _swap_report(address, checkpoint, timeout_s)
+
+
+def _swap_report(address, checkpoint, timeout_s: float) -> dict:
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        status = json.loads(_ask_lines(address, ["::swap-status"])[0])
+        if status.get("checkpoint") == str(checkpoint):
+            return status
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"no swap report on {checkpoint} in "
+                                 f"{timeout_s} s: {status}")
+        time.sleep(0.2)
+
+
+def _warm(address, timeout_s: float = 300.0) -> None:
+    """Wait until every replica behind the router is up and warm for
+    FLEET_BUCKETS."""
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        reps = _stats(address)["replicas"]
+        if all(r["up"] and set(FLEET_BUCKETS) <= set(r["warm_rungs"])
+               for r in reps.values()):
+            return
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"replicas not warm: {reps}")
+        time.sleep(0.1)
+
+
+class _FleetCLI:
+    """``python -m ...serve.fleet ARGV`` as a user starts it: its router's
+    address from the ``router listening on`` line, stopped by SIGINT (the
+    CLI closes its replicas); replicas left alive after it are killed."""
+
+    def __init__(self, argv, env=None):
+        import subprocess as sp
+        import threading
+        self.t0 = time.perf_counter()
+        self.proc = sp.Popen([sys.executable, "-m", f"{PKG}.serve.fleet",
+                              *map(str, argv)], stderr=sp.PIPE, text=True,
+                             cwd=REPO, env=env)
+        self.err, self.address = [], None
+        self._ready = threading.Event()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stderr:
+            self.err.append(line)
+            if "router listening on" in line:
+                host, port = line.split("listening on ")[1].split()[0].split(
+                    ":")
+                self.address = (host, int(port))
+            if "replicas ready:" in line:
+                self._ready.set()
+        self._ready.set()
+
+    def wait_warm(self, timeout_s: float = 300.0) -> float:
+        """Seconds from the start to every replica up and warm."""
+        self._ready.wait(timeout_s)
+        if self.address is None or not any(
+                "replicas ready: True" in x for x in self.err):
+            raise AssertionError(f"fleet CLI did not come up: "
+                                 f"{''.join(self.err[-20:])}")
+        _warm(self.address, timeout_s)
+        return round(time.perf_counter() - self.t0, 3)
+
+    def replica_pids(self) -> list:
+        """The CLI's child processes (its replicas), oldest first."""
+        pids = []
+        for p in Path("/proc").iterdir():
+            if not p.name.isdigit():
+                continue
+            try:
+                fields = (p / "stat").read_text().rsplit(")", 1)[1].split()
+            except OSError:
+                continue
+            if int(fields[1]) == self.proc.pid:
+                pids.append(int(p.name))
+        return sorted(pids)
+
+    def stop(self) -> int:
+        import os
+        import signal
+        import subprocess as sp
+        children = self.replica_pids()
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+        try:
+            rc = self.proc.wait(timeout=120)
+        except sp.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait()
+        self._reader.join(10)
+        for pid in children:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        return rc
+
+
+def _prometheus_ok(text: str) -> int:
+    """Parse Prometheus text: every sample has a HELP and a TYPE line;
+    returns the sample count."""
+    helps, types, samples = set(), set(), 0
+    for line in text.splitlines():
+        if line.startswith("# HELP "):
+            helps.add(line.split()[2])
+        elif line.startswith("# TYPE "):
+            types.add(line.split()[2])
+        elif line.strip():
+            name = line.split("{")[0].split()[0]
+            base = name.rsplit("_count", 1)[0].rsplit("_sum", 1)[0] \
+                if name not in helps else name
+            float(line.rsplit(" ", 1)[1])
+            if base not in helps or base not in types:
+                raise AssertionError(f"sample {line!r} has no HELP/TYPE")
+            samples += 1
+    if not samples:
+        raise AssertionError("empty Prometheus block")
+    return samples
+
+
+def _in_process(export, preset, classes, dev, **kw):
+    from pytorch_vit_paper_replication_tpu_torch.serve import InferenceEngine
+    return InferenceEngine.from_checkpoint(
+        export, preset=preset, class_names=classes, device=dev,
+        buckets=FLEET_BUCKETS, use_manifest=False, **kw)
+
+
+def _lone(eng, lines) -> list:
+    """Each line answered alone (bucket 1) by an in-process engine, as
+    the serve CLI answers it."""
+    from pytorch_vit_paper_replication_tpu_torch.serve.__main__ import (
+        _answer)
+    return [_answer(line, eng, None) for line in lines]
+
+
+ROUTE_COUNTERS = ("fleet_route_requests_total", "fleet_route_retries_total",
+                  "fleet_route_rejected_total", "fleet_route_errors_total")
+
+
+def _replay(address, profile, lines, *, during=None):
+    """``TraceClients`` over ``profile`` (a committed profile's name, or a
+    dict) against the router at ``address``; ``during(t0)`` runs beside it
+    in a thread (``t0`` the replay's start on the ``perf_counter`` clock).
+    Returns the report with the router's counter deltas (its ``::stats``)
+    and what ``during`` returned."""
+    import threading
+    from pytorch_vit_paper_replication_tpu_torch.serve.loadgen import (
+        LoadProfile, TraceClients)
+    profile = (LoadProfile.from_dict(profile, name="traced")
+               if isinstance(profile, dict) else
+               LoadProfile.load(REPO / "profiles" / f"{profile}.json"))
+    c0 = _stats(address)["counters"]
+    clients = TraceClients(address, lines, profile, clients_per_rung=8,
+                           reply_timeout_s=120.0)
+    out = {}
+    side = None
+    clients.start()
+    t0 = time.perf_counter()
+    if during is not None:
+        side = threading.Thread(
+            target=lambda: out.update(during(t0) or {}), daemon=True)
+        side.start()
+    clients.join(profile.duration_s + 240.0)
+    if side is not None:
+        side.join(FLEET_SWAP_TIMEOUT_S * 2)
+    c1 = _stats(address)["counters"]
+    rep = clients.report()
+    rep["router"] = {k: c1.get(k, 0) - c0.get(k, 0) for k in ROUTE_COUNTERS}
+    rep["side"] = out
+    return rep
+
+
+def _check_exactly_once(tag: str, rep: dict, backpressure_ok: bool) -> int:
+    """Every arrival answered once: by a reply or, where allowed, by an
+    explicit backpressure line (counted by the router); no other error."""
+    req = rep["requests"]
+    refused = (rep["router"]["fleet_route_rejected_total"]
+               + rep["router"]["fleet_route_errors_total"])
+    if not (req["sent"] == req["answered"] == rep["scheduled"]
+            and req["dropped"] == req["double_answered"] == 0
+            and req["connect_failures"] == 0):
+        raise AssertionError(f"{tag}: not exactly once: {req}")
+    if req["errors"] != (refused if backpressure_ok else 0) or not all(
+            "retry after" in e for e in req["error_replies"]):
+        raise AssertionError(f"{tag}: error lines other than backpressure: "
+                             f"{req['errors']} errors, {refused} refused by "
+                             f"the router: {req['error_replies'][:5]}")
+    return refused
+
+
+def phase_fleet(dev, root: Path, d: dict, search: dict) -> dict:
+    """The serving fleet on the card (see the module docstring, 4f).
+    Returns the kernels' launches in the in-process engine the routed
+    replies were held to."""
+    import math
+    import os
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.configs import PRESETS
+    from pytorch_vit_paper_replication_tpu_torch.convert import seeded_state
+    from pytorch_vit_paper_replication_tpu_torch.models import ViT
+    from pytorch_vit_paper_replication_tpu_torch.ops import _build
+    from pytorch_vit_paper_replication_tpu_torch.ops import scan_scores as ss
+    from pytorch_vit_paper_replication_tpu_torch.predictions import (
+        load_class_names, save_inference_export)
+    from pytorch_vit_paper_replication_tpu_torch.serve.cascade import (
+        softmax_margin)
+    from pytorch_vit_paper_replication_tpu_torch.serve.fleet import (
+        __main__ as fleet_cli)
+    from pytorch_vit_paper_replication_tpu_torch.telemetry import (
+        FrameSink, merged_chrome_trace, tracing, validate_chrome_trace)
+
+    t_phase = time.perf_counter()
+    clock = {}
+    # The replicas this process spawns run ``python -m`` from the checkout.
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    classes = load_class_names(d["classes_file"])
+    images = sorted(Path(d["train_dir"]).rglob("*.jpg"))
+    probes = [str(p) for p in images[:CASCADE_PROBES]]
+    lines = [str(p) for p in images]
+    export, index = d["export"], search["index"]
+    # A second seeded B/16 export to swap to, and a corrupt copy of it.
+    new = ViT(PRESETS[PRESET](num_classes=len(classes)))
+    new.load_state_dict(seeded_state(new, FLEET_SWAP_SEED))
+    export2 = save_inference_export(root / "teacher2", new,
+                                    transform_spec={"normalize": False})
+    del new
+    bad = root / "teacher2_bad"
+    shutil.copytree(export2, bad)
+    with open(bad / "params.npz", "r+b") as f:
+        f.truncate(4096)
+    eng2 = _in_process(export2, PRESET, classes, dev)
+    try:
+        want2 = _lone(eng2, [f"::probs {p}" for p in probes[:8]])
+    finally:
+        eng2.close()
+    sink = FrameSink()
+    ship = ["--ship-to", f"127.0.0.1:{sink.port}", "--ship-interval-s", "1"]
+    fleet_argv = ["--checkpoint", str(export), "--classes-file",
+                  str(d["classes_file"]), "--preset", PRESET, "--replicas",
+                  "2", "--devices", "1", "--port", "0", "--buckets",
+                  ",".join(map(str, FLEET_BUCKETS))]
+    cold = root / "build_cold"
+    out = {"card": card_line(), "replicas": 2, "devices": 1,
+           "buckets": list(FLEET_BUCKETS)}
+
+    # ---- 1. the fleet CLI: two B/16 replicas on the one card, booting
+    # together into an empty kernel build directory; --swap-probe for the
+    # swap's bit-identity gate, the router shipping to the sink.
+    cli = _FleetCLI(fleet_argv + ["--swap-probe", probes[0], *ship,
+                                  "--worker-id", "router-cli"],
+                    env={**os.environ, "VIT_TORCH_BUILD_DIR": str(cold)})
+    traced, cascade_clis = None, {}
+    try:
+        try:
+            out["boot_cold_s"] = cli.wait_warm()
+            clock["boot_s"] = time.perf_counter() - t_phase
+
+            # The same fleet assembled in this process by the CLI's own
+            # parse_args / build_fleet (its defaults, --swap-warm-timeout-s
+            # short for the corrupt swap), its replicas with their own sinks
+            # and the search index, its router traced here: it boots while
+            # the CLI's fleet is checked.
+            t0 = time.perf_counter()
+            traced = fleet_cli.build_fleet(
+                fleet_cli.parse_args(fleet_argv + [
+                    "--swap-warm-timeout-s", str(FLEET_BAD_WARM_TIMEOUT_S)]),
+                replica_extra=ship + [
+                    "--search-index", str(index), "--search-k-max", "10",
+                    "--trace-sample", str(FLEET_TRACE_SAMPLE), "--trace-seed",
+                    str(FLEET_TRACE_SEED)])
+            for spec in traced.specs:
+                spec.extra_args += ["--trace-jsonl",
+                                    str(root / f"trace_{spec.rid}.jsonl"),
+                                    "--trace-role", f"replica-{spec.rid}"]
+            traced.manager.start()
+            traced.router.start()
+            t_addr = traced.router.address
+
+            # ---- 4 (first, on a quiet fleet). Routed ::probs, features and
+            # ::search against an in-process engine on the card, its launches
+            # counted: the CLI's fleet answers the first two, the traced
+            # fleet (the one with --search-index) all three.
+            ask = [f"::probs {probes[0]}", f"::req head=features {probes[1]}",
+                   f"::search 5 {probes[2]}", f"::probs {probes[3]}"]
+            cli_ask = _ask_lines(cli.address, [ask[0], ask[1], ask[3]])
+            eng = _in_process(export, PRESET, classes, dev, search_index=index,
+                              search_k_max=10)
+            try:
+                torch.cuda.synchronize()
+                reset_counts()
+                ss.launches = 0
+                want = _lone(eng, ask)
+                torch.cuda.synchronize()
+                launches = read_counts()
+                scans = ss.launches
+            finally:
+                eng.close()
+            _check_forward_launches("fleet in-process engine", launches,
+                                    len(ask))
+            if scans != 1:
+                raise AssertionError(f"one ::search, {scans} scores launches")
+            launches["scan_scores"] = scans
+            if cli_ask != [want[0], want[1], want[3]]:
+                raise AssertionError(f"the fleet CLI's replies differ from "
+                                     f"the in-process engine's: "
+                                     f"{cli_ask[:2]} vs {want[:2]}")
+            _warm(t_addr)
+            out["boot_warm_pair_s"] = round(time.perf_counter() - t0, 3)
+            routed = _ask_lines(t_addr, ask)
+            if routed != want:
+                raise AssertionError(f"routed replies (with ::search) differ "
+                                     f"from the in-process engine's: "
+                                     f"{routed[2]} vs {want[2]}")
+            out["direct_equality"] = {"lines": len(ask), "bit_identical": True,
+                                      "in_process_launches": launches}
+            clock["direct_s"] = time.perf_counter() - t0
+
+            # ---- 2. burst4x through the CLI's router, one replica SIGKILLed
+            # at t = 15 s.
+            t0 = time.perf_counter()
+
+            def kill(t_start):
+                while time.perf_counter() - t_start < FLEET_KILL_AT_S:
+                    time.sleep(0.01)
+                reps = _stats(cli.address)["replicas"]
+                before = {rid: r["restarts"] for rid, r in reps.items()}
+                victim = cli.replica_pids()[-1]
+                t_kill = time.perf_counter()
+                os.kill(victim, signal.SIGKILL)
+                while time.perf_counter() - t_kill < 240:
+                    reps = _stats(cli.address)["replicas"]
+                    back = [rid for rid, r in reps.items()
+                            if r["restarts"] > before[rid] and r["up"]
+                            and set(FLEET_BUCKETS) <= set(r["warm_rungs"])]
+                    if back:
+                        return {"killed_pid": victim, "restarted": back,
+                                "restart_s": round(
+                                    time.perf_counter() - t_kill, 3)}
+                    time.sleep(0.05)
+                return {"killed_pid": victim, "restart_s": None}
+
+            burst = _replay(cli.address, "burst4x", lines, during=kill)
+            refused = _check_exactly_once("burst4x", burst,
+                                          backpressure_ok=True)
+            if burst["side"].get("restart_s") is None or \
+                    burst["side"]["killed_pid"] in cli.replica_pids():
+                raise AssertionError(f"the killed replica was not restarted "
+                                     f"and re-admitted: {burst['side']}")
+            out["burst4x"] = {"scheduled": burst["scheduled"],
+                              "requests": {k: burst["requests"][k] for k in (
+                                  "sent", "answered", "errors", "dropped",
+                                  "double_answered")},
+                              "backpressure_replies": refused,
+                              "router": burst["router"],
+                              "phases": burst["phases"],
+                              "kill_at_s": FLEET_KILL_AT_S,
+                              "restarted": burst["side"]["restarted"],
+                              "restart_s": burst["side"]["restart_s"],
+                              "replica_restarts_total": _stats(cli.address)[
+                                  "counters"].get("replica_restarts_total", 0)}
+            out["boot_warm_s"] = burst["side"]["restart_s"]
+            clock["burst_s"] = time.perf_counter() - t0
+
+            # ---- 3. steady with ::swap to the second export through the
+            # router (re-admission gated on the CLI's --swap-probe row), then
+            # ::swap to the corrupt copy, whose probe row cannot be computed.
+            t0 = time.perf_counter()
+
+            def swap(t_start):
+                time.sleep(2.0)
+                return {"report": _swap(cli.address, export2)}
+
+            steady = _replay(cli.address, "steady", lines, during=swap)
+            _check_exactly_once("steady + swap", steady, backpressure_ok=False)
+            rep = steady["side"].get("report")
+            if not rep or not rep["ok"] or rep["swapped"] != ["r0", "r1"] or \
+                    not all(r["probe"]["matched"] for r in rep["replicas"]):
+                raise AssertionError(f"::swap failed: {rep}")
+            after = _ask_lines(cli.address,
+                               [f"::probs {p}" for p in probes[:8]])
+            if after != want2:
+                raise AssertionError("routed ::probs after the swap differ "
+                                     "from the new export's in-process "
+                                     "engine")
+            t1 = time.perf_counter()
+            bad_rep = _swap(cli.address, bad)
+            if bad_rep["ok"] or bad_rep.get("rolled_back") or not str(
+                    bad_rep.get("error")).startswith(
+                        "swap-probe reference failed"):
+                raise AssertionError(f"corrupt ::swap was not refused: "
+                                     f"{bad_rep}")
+            if _ask_lines(cli.address,
+                          [f"::probs {p}" for p in probes[:8]]) != want2:
+                raise AssertionError("replies changed after the refused "
+                                     "corrupt ::swap")
+            out["swap"] = {"requests": {k: steady["requests"][k] for k in (
+                               "sent", "answered", "errors", "dropped",
+                               "double_answered")},
+                           "phases": steady["phases"],
+                           "wall_s": rep["wall_s"],
+                           "per_replica_s": [r["seconds"]
+                                             for r in rep["replicas"]],
+                           "probe_bit_identical": True,
+                           "after_equals_new_export": True,
+                           "corrupt_refused": {
+                               "error": bad_rep["error"].strip()
+                               .splitlines()[-1][:200],
+                               "replies_unchanged": True,
+                               "seconds": round(time.perf_counter() - t1, 3)}}
+            clock["swap_s"] = time.perf_counter() - t0
+
+            # ---- 6a. the CLI router's ::metrics; the CLI stops on SIGINT.
+            cli_metrics = _ask_lines(cli.address, ["::metrics"])[0]
+            if "vit_fleet_route_requests_total" not in cli_metrics:
+                raise AssertionError("the fleet CLI's ::metrics lacks the "
+                                     "fleet instruments")
+            out["metrics_samples"] = {
+                "router_cli": _prometheus_ok(cli_metrics)}
+        finally:
+            rc = cli.stop()
+        if rc != 0:
+            raise AssertionError(f"fleet CLI exited {rc}: "
+                                 f"{''.join(cli.err[-20:])}")
+
+        # ---- the cold build directory: each library built once, whichever
+        # replica built it.
+        builds = [json.loads(x) for x in
+                  (cold / _build.BUILDS_JSONL).read_text().splitlines()]
+        per_lib = {}
+        for b in builds:
+            per_lib[b["name"]] = per_lib.get(b["name"], 0) + 1
+        if any(n != 1 for n in per_lib.values()) or not \
+                {"fused_mlp", "flash_attention"} <= set(per_lib):
+            raise AssertionError(f"cold build directory: {builds} (each "
+                                 "library once wanted)")
+        out["cold_builds"] = builds
+
+        # ---- 6b. the traced fleet: a traced pass over the pack
+        # (FLEET_TRACED_PROFILE), ::metrics
+        # of a replica and of the router, then ::swap to the corrupt export
+        # (no probe): it rolls back while the cascade runs.
+        t0 = time.perf_counter()
+        tracing.configure_tracer(str(root / "trace_router.jsonl"),
+                                 role="router",
+                                 sample_rate=FLEET_TRACE_SAMPLE,
+                                 seed=FLEET_TRACE_SEED)
+        try:
+            traced_pass = _replay(t_addr, FLEET_TRACED_PROFILE, lines)
+        finally:
+            tracing.get_tracer().close()
+            tracing.configure_tracer(None)
+        _check_exactly_once("traced pass", traced_pass,
+                            backpressure_ok=False)
+        out["traced_pass"] = {"scheduled": traced_pass["scheduled"],
+                              "phases": traced_pass["phases"]}
+        rep_metrics = _ask_lines(traced.manager.address_of("r0"),
+                                 ["::metrics"])[0]
+        rout_metrics = _ask_lines(t_addr, ["::metrics"])[0]
+        out["metrics_samples"].update(replica=_prometheus_ok(rep_metrics),
+                                      router=_prometheus_ok(rout_metrics))
+        if "vit_serve_queue_depth" not in rep_metrics:
+            raise AssertionError("a replica's ::metrics lacks the serve "
+                                 "instruments")
+        started = json.loads(_ask_lines(t_addr, [f"::swap {bad}"])[0])
+        if started.get("swap") != "started":
+            raise AssertionError(f"::swap {bad}: {started}")
+        t_bad = time.perf_counter()
+        clock["traced_s"] = time.perf_counter() - t0
+
+        # ---- 5. the cascade through the fleet CLI: a Ti/16 student and a
+        # B/16 teacher replica, at thresholds 0 and infinity (booting while
+        # the in-process engines answer the probes), then at the median
+        # student margin.
+        t0 = time.perf_counter()
+
+        def cascade_cli(name, threshold):
+            cfg = root / f"cascade_{name}.json"
+            cfg.write_text(json.dumps({"threshold": threshold}))
+            return _FleetCLI(
+                ["--checkpoint", d["student"], "--preset", STUDENT,
+                 "--classes-file", d["classes_file"], "--replicas", "1",
+                 "--devices", "1", "--port", "0", "--buckets",
+                 ",".join(map(str, FLEET_BUCKETS)), "--cascade", cfg,
+                 "--cascade-teacher", export, "--cascade-teacher-preset",
+                 PRESET, *ship, "--worker-id", f"router-cascade-{name}"])
+
+        cascade_clis["zero"] = cascade_cli("zero", 0.0)
+        cascade_clis["inf"] = cascade_cli("inf", math.inf)
+        s_eng = _in_process(d["student"], STUDENT, classes, dev)
+        t_eng = _in_process(export, PRESET, classes, dev)
+        try:
+            probs_lines = [f"::probs {p}" for p in probes]
+            s_want = _lone(s_eng, probs_lines)
+            t_want = _lone(t_eng, probs_lines)
+        finally:
+            s_eng.close()
+            t_eng.close()
+        margins = [softmax_margin(json.loads(r)["probs"]) for r in s_want]
+        thr = float(np.median(margins))
+        low = sum(m <= thr for m in margins)
+        cascade_clis["median"] = cascade_cli("median", thr)
+        expect = {"zero": (s_want, 0), "inf": (t_want, len(probes)),
+                  "median": ([t_want[i] if margins[i] <= thr else s_want[i]
+                              for i in range(len(probes))], low)}
+        boot = {name: c.wait_warm() for name, c in cascade_clis.items()}
+
+        def run(name):
+            c = cascade_clis[name]
+            got = _ask_lines(c.address, probs_lines)
+            return got, _stats(c.address)["cascade"]
+
+        with ThreadPoolExecutor(3) as pool:
+            got = dict(zip(expect, pool.map(run, expect)))
+        cascade = {}
+        for name, (want_rows, want_esc) in expect.items():
+            rows, stats = got[name]
+            if rows != want_rows or stats["escalated"] != want_esc:
+                raise AssertionError(
+                    f"cascade at {name}: {stats['escalated']} escalated, "
+                    f"{want_esc} wanted; replies equal to the tiers' "
+                    f"in-process engines: {rows == want_rows}")
+            cascade[name] = {"escalated": stats["escalated"],
+                             "served_student": stats["served_student"]}
+        _prometheus_ok(_ask_lines(cascade_clis["median"].address,
+                                  ["::metrics"])[0])
+        rcs = {name: c.stop() for name, c in cascade_clis.items()}
+        cascade_clis = {}
+        if any(rcs.values()):
+            raise AssertionError(f"cascade fleet CLIs exited {rcs}")
+        out["cascade"] = {"student": STUDENT, "teacher": PRESET,
+                          "probes": len(probes), "thresholds": cascade,
+                          "median_margin": thr, "boot_s": boot,
+                          "escalation_share_median": low / len(probes)}
+        clock["cascade_s"] = time.perf_counter() - t0
+
+        # ---- the corrupt swap on the traced fleet rolled back, and its
+        # replies are the old export's.
+        bad_rep = _swap_report(t_addr, bad, FLEET_SWAP_TIMEOUT_S)
+        if bad_rep["ok"] or not bad_rep["rolled_back"]:
+            raise AssertionError(f"corrupt ::swap did not roll back: "
+                                 f"{bad_rep}")
+        _warm(t_addr, 120.0)
+        if _ask_lines(t_addr, probs_lines[:8]) != t_want[:8]:
+            raise AssertionError("replies changed after the rolled-back "
+                                 "corrupt ::swap")
+        out["rollback"] = {"wall_s": bad_rep["wall_s"],
+                           "restores_healthy": [
+                               r["healthy"] for r in bad_rep["restores"]],
+                           "error": bad_rep["error"],
+                           "replies_unchanged": True,
+                           "seconds": round(time.perf_counter() - t_bad, 3)}
+    finally:
+        for c in cascade_clis.values():
+            c.stop()
+        if traced is not None:
+            traced.router.close()
+            traced.manager.close()
+
+    # ---- 6c. the sinks: frames from every process, the merged trace.
+    time.sleep(1.5)
+    frames = list(sink.frames)
+    sink.stop()
+    roles = {}
+    for f in frames:
+        roles.setdefault(f["role"], set()).add(f["worker_id"])
+    # The traced fleet's replicas (each restart is a new process) and the
+    # four fleet CLIs' routers.
+    routers = {"router-cli"} | {f"router-cascade-{n}"
+                                for n in ("zero", "inf", "median")}
+    if len(roles.get("serve", ())) < 2 or not routers <= roles.get(
+            "router", set()):
+        raise AssertionError(f"frames by role: {roles}")
+    spans = []
+    for path in root.glob("trace_*.jsonl"):
+        spans += tracing.read_trace_sink(str(path))
+    trace = merged_chrome_trace(spans)
+    n_events = validate_chrome_trace(trace)
+    by_id = {s["span_id"]: s for s in spans}
+    chained = sum(1 for s in spans if s["name"] == "serve.request"
+                  and s["parent_id"] in by_id
+                  and by_id[s["parent_id"]]["role"] == "router"
+                  and by_id[s["parent_id"]]["trace_id"] == s["trace_id"])
+    if not chained:
+        raise AssertionError("no serve.request span under a router span")
+    (root / "fleet_trace.json").write_text(json.dumps(trace))
+    out["sinks"] = {"frames": len(frames),
+                    "workers_by_role": {k: len(v) for k, v in roles.items()},
+                    "spans": len(spans), "trace_events": n_events,
+                    "serve_spans_under_router_spans": chained,
+                    "span_names": sorted({s["name"] for s in spans})}
+    emit({"phase": "fleet", "ok": True, **out, "clock_s": clock,
+          "seconds": round(time.perf_counter() - t_phase, 3)})
+    return out["direct_equality"]["in_process_launches"]
 
 
 # ------------------------------------------------------------- phase 6
@@ -4277,7 +5057,7 @@ KERNEL_DESIGN = {
 
 def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
                 cli_launches, packed_launches, transfer, distill_step,
-                search):
+                search, fleet):
     """The seven ported kernels with their main-path numbers: rows 1-5 at
     batch 32, bf16, dropout off, T = 197; rows 6 and 7 (the MLP core) at
     the parallel phase's per-microbatch shape (4 * 197 rows, F / tp =
@@ -4292,8 +5072,11 @@ def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
     ``train.main``), ``train_packed_launches`` on the train_packed phase's
     (P2 through ``train.main``), ``transfer_launches`` on the transfer
     phase's (the frozen 224 px CLI run), ``distill_launches`` in one step
-    of the distilled ViT-Ti/16 student and ``search_launches`` in one
-    ``::search`` (its features embed and the scan), and rows 1-5 carry
+    of the distilled ViT-Ti/16 student, ``search_launches`` in one
+    ``::search`` (its features embed and the scan), ``fleet_launches`` in
+    the fleet phase's in-process engine whose replies the routed ones
+    equal bit for bit (four lone requests: two ``::probs``, a features
+    row and a ``::search``), and rows 1-5 carry
     ``t577``, their readings at the 384 px step's shapes (T = 577, N =
     18,464 MLP rows). The eighth entry, ``scan_scores``, is the exact
     scan's scores kernel (no Pallas kernel in the JAX package: XLA's dot
@@ -4412,6 +5195,7 @@ def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
             entry["t577"] = transfer["t577"][name]
         entry["distill_launches"] = distill_step[name]
         entry["search_launches"] = search["search_launches"][name]
+        entry["fleet_launches"] = fleet[name]
         out.append(entry)
     sk = search["kernel"]
     out.append({
@@ -4427,7 +5211,8 @@ def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
         "library_ms": sk["library_ms"], "device_ms": sk["device_ms"],
         "library_device_ms": sk["library_device_ms"], "shape": sk["shape"],
         "distill_launches": 0,
-        "search_launches": search["search_launches"]["scan_scores"]})
+        "search_launches": search["search_launches"]["scan_scores"],
+        "fleet_launches": fleet["scan_scores"]})
     return {"kernels": out, "to_port": []}
 
 
@@ -4493,6 +5278,8 @@ def main() -> int:
         distill = phase_distill(dev, root)
         torch.cuda.empty_cache()
         search = phase_search(dev, root, distill, card_peaks)
+        torch.cuda.empty_cache()
+        fleet = phase_fleet(dev, root, distill, search)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -4503,7 +5290,8 @@ def main() -> int:
     print(json.dumps(kernel_list(k_rows, launches, serve_launches,
                                  par_launches, ops, cli_launches,
                                  packed_launches, transfer,
-                                 distill["launches_per_step"], search)),
+                                 distill["launches_per_step"], search,
+                                 fleet)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

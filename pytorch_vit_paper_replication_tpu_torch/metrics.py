@@ -10,7 +10,8 @@
   honest step timing (CUDA launches return before the card finishes).
 
 TensorBoard scalars (the JAX logger's ``tb_dir``) are not ported yet
-(ROADMAP Queue 1 item 6).
+(ROADMAP Queue 1 item 11): the JAX logger writes them with
+``tensorboardX``, which the port's machines do not have.
 """
 
 from __future__ import annotations

@@ -7,12 +7,27 @@ import: the CPU test suite imports every module on a host with no
 ``nvcc``. Libraries land in ``_build/`` inside the package (listed in
 ``.gitignore``), named by a digest of their sources and flags, so an
 edited source rebuilds and an unchanged one loads the existing library.
+
+``VIT_TORCH_BUILD_DIR`` names another build directory: for an install
+whose package directory is not writable, or for several checkouts that
+should share one set of libraries. A build directory named that way also
+gets ``builds.jsonl``, one line per compile (library, pid, seconds), so
+a deployment can see which process built what; the default ``_build/``
+keeps no such log.
+
+Processes that start together (the replicas of a serving fleet) build
+each library once between them: a build holds an exclusive ``flock`` per
+library, and a process that waited on the lock finds the library its
+peer wrote.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -25,7 +40,9 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+BUILD_DIR = Path(os.environ.get("VIT_TORCH_BUILD_DIR") or _PKG / "_build")
+BUILDS_JSONL = "builds.jsonl"
+_KEEP_BUILDS_LOG = bool(os.environ.get("VIT_TORCH_BUILD_DIR"))
 
 # library name -> its .cu source; every library also depends on the
 # shared headers.
@@ -80,36 +97,61 @@ def library_path(name: str) -> Path:
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile the libraries that are missing, one ``nvcc`` per source,
     all started together; returns ``{name: {"seconds", "log", "path"}}``.
+    Each library's lock is held from its check to its rename, so a
+    library another process is building is waited for, not built twice.
     Raises RuntimeError with the compiler output if any build fails."""
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
-    for name in names:
-        path = library_path(name)
-        if path.is_file():
-            BUILD_LOG.setdefault(name, {"seconds": 0.0, "log": "",
-                                        "path": str(path)})
-            continue
-        tmp = path.with_name(path.name + f".tmp.{os.getpid()}")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / SOURCES[name])]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True), tmp, path)
-    failures = []
-    for name, (proc, tmp, path) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"--- nvcc {SOURCES[name]} (exit "
-                            f"{proc.returncode}) ---\n{log}")
-            continue
-        os.replace(tmp, path)
-        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "log": log,
-                           "path": str(path)}
+    with contextlib.ExitStack() as locks:
+        # Sorted, so two processes take the locks in one order.
+        for name in sorted(set(names)):
+            path = library_path(name)
+            if not path.is_file():
+                locks.enter_context(_build_lock(name))
+            if path.is_file():
+                BUILD_LOG.setdefault(name, {"seconds": 0.0, "log": "",
+                                            "path": str(path)})
+                continue
+            tmp = path.with_name(path.name + f".tmp.{os.getpid()}")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
+                   str(tmp), str(CSRC / SOURCES[name])]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, path)
+        failures = []
+        for name, (proc, tmp, path) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"--- nvcc {SOURCES[name]} (exit "
+                                f"{proc.returncode}) ---\n{log}")
+                continue
+            os.replace(tmp, path)
+            seconds = time.perf_counter() - t0
+            BUILD_LOG[name] = {"seconds": seconds, "log": log,
+                               "path": str(path)}
+            if _KEEP_BUILDS_LOG:
+                with open(BUILD_DIR / BUILDS_JSONL, "a") as fh:
+                    fh.write(json.dumps({
+                        "name": name, "pid": os.getpid(), "path": path.name,
+                        "seconds": round(seconds, 3)}) + "\n")
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return {n: BUILD_LOG[n] for n in names}
+
+
+@contextlib.contextmanager
+def _build_lock(name: str):
+    """An exclusive ``flock`` on ``name``'s lock file in the build
+    directory, across processes (the file stays; the lock goes with the
+    descriptor)."""
+    fd = os.open(BUILD_DIR / f".{name}.lock", os.O_CREAT | os.O_RDWR, 0o644)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -25,10 +25,19 @@ Lines (both modes):
   ``--search-index DIR`` — the K nearest rows of a ``tools.build_index``
   index: ``path<TAB>search<TAB>{"k", "ids", "scores"}`` (full-precision
   float32 scores, best first);
-* ``::drain [timeout_s]`` — quiesce the micro-batcher.
+* ``::drain [timeout_s]`` — quiesce the micro-batcher;
+* ``::metrics`` — the process's telemetry registry (serve stats synced
+  in) as Prometheus text, terminated by one blank line (the frame marker
+  for pipelining clients).
 
-``::metrics`` belongs to a subsystem not ported yet (the Prometheus
-exporter); it answers an explicit ``ERROR ... not yet ported`` line.
+Telemetry sinks, as in the JAX CLI: ``--stats-jsonl`` appends a
+``ServeStats`` snapshot every ``--stats-interval-s``; ``--ship-to
+HOST:PORT`` pushes registry frames (role ``serve``) to a fleet
+aggregator every ``--ship-interval-s``, one last frame at shutdown;
+``--trace-jsonl`` records request-trace spans: an inbound ``trace=``
+token (the fleet router's relay) is honoured, a request line without one
+may mint a trace under ``--trace-sample``, and a ``serve.request`` span
+brackets each request line (never a control line).
 """
 
 from __future__ import annotations
@@ -36,16 +45,18 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import threading
+import time
 
+from ..telemetry import tracing as _tracing
 from .batching import (DEFAULT_HEAD, DEFAULT_TIER, TIERS, parse_req_line,
                        parse_search_line)
 from .bucketing import DEFAULT_BUCKETS
 from .engine import InferenceEngine
 
-_NOT_PORTED = {
-    "::metrics": "the Prometheus ::metrics exporter (ROADMAP Queue 1, "
-                 "telemetry)",
-}
+# Line shapes that are requests (an ingress may mint a trace for them);
+# every other ::command is control traffic and is never traced.
+_REQUEST_CMDS = ("::req", "::probs", "::search")
 
 
 def add_engine_args(p: argparse.ArgumentParser) -> None:
@@ -83,24 +94,38 @@ class ConnState:
         self.tier = tier
 
 
-def _not_ported(line: str):
-    for cmd, what in _NOT_PORTED.items():
-        if line == cmd or line.startswith(cmd + " "):
-            return (f"{line}\tERROR\tNotImplementedError: {cmd} is not yet "
-                    f"ported to the PyTorch/CUDA package ({what})")
-    return None
-
-
 def _answer(line: str, engine: InferenceEngine, timeout: float | None,
             state: ConnState | None = None) -> str:
-    """One request line -> one response (shared by both modes)."""
+    """One request line -> one response (shared by both modes).
+
+    Tracing: an inbound ``trace=`` token is stripped before any grammar
+    below sees it and its context adopted; a request line without one
+    makes this process the ingress and may mint a sampled trace. Either
+    way a ``serve.request`` span brackets the handling and the context
+    rides into the micro-batcher."""
     line = line.strip()
     state = state if state is not None else ConnState()
-    refused = _not_ported(line)
-    if refused is not None:
-        return refused
+    hdr, line = _tracing.extract_wire_context(line)
+    tracer = _tracing.get_tracer()
+    ctx = tracer.accept(hdr)
+    if ctx is None and hdr is None and (
+            not line.startswith("::") or line.startswith(_REQUEST_CMDS)):
+        ctx = tracer.ingress(line)
+    if ctx is None:
+        return _answer_line(line, engine, timeout, state, None)
+    t0 = time.monotonic()
+    reply = _answer_line(line, engine, timeout, state, ctx)
+    tracer.record(ctx, "serve.request", _tracing.wall_from_monotonic(t0),
+                  _tracing.wall_from_monotonic(time.monotonic()))
+    return reply
+
+
+def _answer_line(line: str, engine: InferenceEngine, timeout: float | None,
+                 state: ConnState, ctx) -> str:
     if line == "::stats":
         return json.dumps(engine.snapshot())
+    if line == "::metrics":
+        return engine.prometheus_metrics().rstrip("\n") + "\n"
     if line.startswith("::head"):
         parts = line.split()
         if len(parts) == 2 and parts[1] in engine.heads:
@@ -126,7 +151,7 @@ def _answer(line: str, engine: InferenceEngine, timeout: float | None,
     if line.startswith("::probs "):
         path = line[len("::probs "):].strip()
         try:
-            r = engine.submit(path, timeout=timeout).result()
+            r = engine.submit(path, timeout=timeout, ctx=ctx).result()
         except Exception as e:  # noqa: BLE001 — one bad probe answers
             # THAT probe; serving goes on.
             return json.dumps({"error": f"{type(e).__name__}: {e}"})
@@ -152,7 +177,8 @@ def _answer(line: str, engine: InferenceEngine, timeout: float | None,
             return _search_reply(path, req_k, engine, timeout, tier)
         line = path
     try:
-        fut = engine.submit(line, timeout=timeout, head=head, tier=tier)
+        fut = engine.submit(line, timeout=timeout, head=head, tier=tier,
+                            ctx=ctx)
     except Exception as e:  # noqa: BLE001 — admission errors answer
         # THAT request; serving goes on.
         return f"{line}\tERROR\t{type(e).__name__}: {e}"
@@ -180,15 +206,35 @@ def _serve_stdin(engine: InferenceEngine, timeout: float | None) -> None:
     window = max(1, engine._batcher.max_queue // 2)
     state = ConnState()
     pending = []
+    tracer = _tracing.get_tracer()
 
     def drain(n):
         while len(pending) > n:
-            p_line, fut, p_head = pending.pop(0)
+            p_line, fut, p_head, p_ctx, p_t0 = pending.pop(0)
             print(_finish(p_line, fut, p_head), flush=True)
+            if p_ctx is not None:
+                # The pipelined request's span closes when its reply is
+                # out, not at submit: queue time belongs to it.
+                tracer.record(p_ctx, "serve.request",
+                              _tracing.wall_from_monotonic(p_t0),
+                              _tracing.wall_from_monotonic(
+                                  time.monotonic()))
 
     for line in sys.stdin:
         line = line.strip()
         if not line:
+            continue
+        hdr, line = _tracing.extract_wire_context(line)
+        ctx = tracer.accept(hdr)
+        if ctx is None and hdr is None and (
+                not line.startswith("::") or line.startswith("::req")):
+            ctx = tracer.ingress(line)
+        if line.startswith("::") and not line.startswith("::req"):
+            # Control commands answer in submission order relative to the
+            # pipeline: flush the window first. ::req lines are requests
+            # and ride the pipeline below.
+            drain(0)
+            print(_answer(line, engine, timeout, state), flush=True)
             continue
         head, tier = state.head, state.tier
         if line.startswith("::req"):
@@ -204,19 +250,21 @@ def _serve_stdin(engine: InferenceEngine, timeout: float | None) -> None:
                 # A search: the embed + scan is synchronous, so it answers
                 # in submission order like a control line.
                 drain(0)
-                print(_search_reply(path, req_k, engine, timeout, tier),
-                      flush=True)
+                t0 = time.monotonic()
+                reply = _search_reply(path, req_k, engine, timeout, tier)
+                if ctx is not None:
+                    tracer.record(
+                        ctx, "serve.request",
+                        _tracing.wall_from_monotonic(t0),
+                        _tracing.wall_from_monotonic(time.monotonic()))
+                print(reply, flush=True)
                 continue
             line = path
-        elif line.startswith("::"):
-            # Control commands answer in submission order relative to the
-            # pipeline: flush the window first.
-            drain(0)
-            print(_answer(line, engine, timeout, state), flush=True)
-            continue
         try:
+            t0 = time.monotonic()
             pending.append((line, engine.submit(
-                line, timeout=timeout, head=head, tier=tier), head))
+                line, timeout=timeout, head=head, tier=tier, ctx=ctx),
+                head, ctx, t0))
         except Exception as e:  # noqa: BLE001
             print(f"{line}\tERROR\t{type(e).__name__}: {e}", flush=True)
         drain(window)
@@ -262,7 +310,8 @@ def _serve_socket(engine: InferenceEngine, host: str, port: int,
     with Server((host, port), Handler) as srv:
         print(f"[serve] listening on {host}:{srv.server_address[1]} "
               f"(line protocol: one image path per line; '::stats' for "
-              f"a JSON snapshot)", file=sys.stderr)
+              f"a JSON snapshot, '::metrics' for Prometheus text)",
+              file=sys.stderr)
         if on_ready is not None:
             on_ready(srv)  # tests: grab the bound port / call shutdown()
         try:
@@ -296,6 +345,32 @@ def main(argv=None):
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=None,
                    help="serve a TCP socket instead of stdin/stdout")
+    p.add_argument("--stats-jsonl", default=None,
+                   help="append periodic ServeStats snapshots here")
+    p.add_argument("--stats-interval-s", type=float, default=10.0)
+    p.add_argument("--ship-to", default=None, metavar="HOST:PORT",
+                   help="push telemetry frames (role serve) to a fleet "
+                        "aggregator; a dead aggregator drops frames, "
+                        "never stalls serving")
+    p.add_argument("--ship-interval-s", type=float, default=2.0,
+                   help="shipper cadence for --ship-to")
+    p.add_argument("--worker-id", default=None,
+                   help="identity in the fleet view (default "
+                        "serve-<host>-<pid>)")
+    p.add_argument("--trace-jsonl", default=None, metavar="PATH",
+                   help="append request-trace spans here; inbound trace= "
+                        "tokens are honoured whatever --trace-sample, "
+                        "which gates only traces minted at this ingress")
+    p.add_argument("--trace-sample", type=float, default=0.0,
+                   help="deterministic head-sampling rate in [0,1] for "
+                        "traces minted here (a seeded hash of the trace "
+                        "id)")
+    p.add_argument("--trace-role", default="replica",
+                   help="process-role label on recorded spans (the merged "
+                        "Perfetto lane name)")
+    p.add_argument("--trace-seed", type=int, default=0,
+                   help="sampling-hash seed (shift it to rotate which "
+                        "traces the rate selects)")
     p.add_argument("--no-manifest", action="store_true",
                    help="ignore any warmup.json next to the checkpoint "
                         "and don't write one")
@@ -313,6 +388,22 @@ def main(argv=None):
                         "candidate width)")
     add_engine_args(p)
     args = p.parse_args(argv)
+    if args.ship_to:
+        # A typo'd address fails before the checkpoint load and warmup.
+        from ..telemetry.shipper import parse_address
+        try:
+            parse_address(args.ship_to)
+        except ValueError as e:
+            raise SystemExit(f"--ship-to: {e}")
+    if args.trace_jsonl:
+        from ..telemetry.registry import get_registry
+        _tracing.configure_tracer(
+            args.trace_jsonl, role=args.trace_role,
+            sample_rate=args.trace_sample, seed=args.trace_seed,
+            registry=get_registry())
+        print(f"[serve] tracing: role={args.trace_role} "
+              f"sample={args.trace_sample:g} -> {args.trace_jsonl}",
+              file=sys.stderr)
 
     from ..predictions import load_class_names
     class_names = (load_class_names(args.classes_file)
@@ -350,12 +441,47 @@ def main(argv=None):
           + ("" if args.sync_warmup else " (background)")
           + f"; heads: {','.join(engine.heads)}",
           file=sys.stderr)
+
+    shipper = None
+    if args.ship_to:
+        from ..telemetry.shipper import TelemetryShipper
+        # pre_ship syncs the engine's live state into the registry right
+        # before each frame.
+        shipper = TelemetryShipper(
+            args.ship_to, worker_id=args.worker_id, role="serve",
+            interval_s=args.ship_interval_s,
+            pre_ship=engine.publish_telemetry)
+        shipper.start()
+        print(f"[serve] telemetry shipper: {shipper.worker_id} -> "
+              f"{args.ship_to} every {args.ship_interval_s:g}s",
+              file=sys.stderr)
+
+    emitter = None
+    if args.stats_jsonl:
+        from ..metrics import MetricsLogger
+        logger = MetricsLogger(jsonl_path=args.stats_jsonl)
+        stop = threading.Event()
+
+        def emit_loop():
+            while not stop.wait(args.stats_interval_s):
+                engine.stats.emit(logger)
+
+        emitter = (threading.Thread(target=emit_loop, daemon=True), stop,
+                   logger)
+        emitter[0].start()
+
     try:
         if args.port is not None:
             _serve_socket(engine, args.host, args.port, args.timeout_s)
         else:
             _serve_stdin(engine, args.timeout_s)
     finally:
+        if emitter is not None:
+            emitter[1].set()
+            engine.stats.emit(emitter[2])  # final snapshot
+            emitter[2].close()
+        if shipper is not None:
+            shipper.close()  # one final frame: the shutdown state
         print(json.dumps(engine.snapshot()), file=sys.stderr)
         engine.close()
 

@@ -448,6 +448,25 @@ class InferenceEngine:
             np.asarray(emb, np.float32)[None, :], int(k))
         return [int(i) for i in ids[0]], [float(s) for s in scores[0]]
 
+    def publish_telemetry(self, registry=None):
+        """Sync this engine's live state into the telemetry registry
+        (``serve_*`` names) and return it: the one publish path shared by
+        ``::metrics`` and the fleet shipper's per-frame ``pre_ship``, so a
+        scraped endpoint and a shipped frame agree on what "current"
+        means. Defaults to the stats' bound registry (where the
+        ``serve_lat_*_s`` histogram samples already stream)."""
+        reg = registry if registry is not None else self.stats.registry
+        self.stats.publish(reg)
+        reg.gauge("serve_queue_depth", self._batcher.queue_depth())
+        reg.gauge("serve_warm_rungs", len(self._warm))
+        return reg
+
+    def prometheus_metrics(self) -> str:
+        """The live registry as Prometheus text: serving stats synced in
+        (``serve_*``) plus whatever else this process published. The
+        serve CLI's ``::metrics`` answers exactly this."""
+        return self.publish_telemetry().to_prometheus()
+
     def snapshot(self) -> dict:
         """Serving stats + engine config, JSON-serializable."""
         snap = self.stats.snapshot()

@@ -1,0 +1,624 @@
+"""Replica supervision: N ``InferenceEngine`` worker subprocesses.
+
+Port of the JAX package's ``serve/fleet/replica.py``. A replica is one
+port serve CLI process (``python -m …serve --port 0``) on its own device
+partition. The :class:`ReplicaManager` owns the whole lifecycle:
+
+* **spawn** — the serve command comes from a ``command_factory`` (ONE
+  copy, :func:`build_serve_command`, shared by the fleet CLI and any
+  harness; tests substitute a lightweight fake). Readiness is
+  the serve CLI's own ``[serve] listening on host:port`` stderr line —
+  ``--port 0`` lets the OS pick, so N replicas can't collide, and the
+  parsed address is the router's dispatch target.
+* **device partitioning** — :func:`partition_devices` splits the
+  host's cards into near-even contiguous groups (wrapping when there
+  are more replicas than cards: two replicas on one card share it);
+  :func:`replica_env` exports one group per child as
+  ``CUDA_VISIBLE_DEVICES`` (a replica started with ``--device cpu``
+  ignores it). The router process itself never touches the card.
+* **health** — a single poller thread round-robins the fleet every
+  ``health_interval_s``: process liveness (``poll()``) plus a
+  ``::stats`` round trip whose snapshot carries the two fields routing
+  actually steers by — ``queue_depth`` (load) and ``warm_rungs``
+  (bucket affinity / rollout re-admission). A replica silent past
+  ``stale_after_s`` goes down; a dead process goes down immediately.
+* **supervised restart** — a dead supervised replica is respawned with
+  exponential backoff; deliberate stops (the rollout's quiesce path)
+  set ``supervise=False`` first so the supervisor can't race the swap.
+
+Publishes ``replica_up_<rid>`` gauges, ``fleet_replicas_up``, and
+``replica_restarts_total`` into the shared telemetry registry — the
+same substrate the router's ``::metrics`` and the ``--ship-to`` fleet
+frames render.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import re
+import socket
+import subprocess
+import sys
+import threading
+import time
+from collections import deque
+from typing import (Callable, Dict, List, Optional, Sequence, Tuple)
+
+from ...telemetry.registry import TelemetryRegistry, get_registry
+from .policy import ReplicaView
+
+# The serve CLI's socket-mode readiness line (serve/__main__.py prints
+# it right before serve_forever); fakes print the same shape.
+READY_RE = re.compile(r"listening on ([0-9.]+):([0-9]+)")
+
+
+def partition_devices(num_devices: int, num_replicas: int
+                      ) -> List[List[int]]:
+    """Near-even contiguous split of device ordinals across replicas.
+
+    Contiguous (not strided) because neighbouring cards share
+    interconnect; when there are fewer devices than replicas the
+    replicas wrap onto devices round-robin (one card serving several
+    replicas, or CPU hosts) — every replica always gets at least one
+    ordinal.
+    """
+    if num_replicas < 1:
+        raise ValueError(f"need >=1 replica, got {num_replicas}")
+    if num_devices < 1:
+        raise ValueError(f"need >=1 device, got {num_devices}")
+    if num_devices < num_replicas:
+        return [[i % num_devices] for i in range(num_replicas)]
+    base, extra = divmod(num_devices, num_replicas)
+    out: List[List[int]] = []
+    start = 0
+    for i in range(num_replicas):
+        n = base + (1 if i < extra else 0)
+        out.append(list(range(start, start + n)))
+        start += n
+    return out
+
+
+def replica_env(devices: Sequence[int],
+                base: Optional[dict] = None) -> dict:
+    """Child environment with the replica's device partition exported.
+
+    ``CUDA_VISIBLE_DEVICES`` takes the place of the JAX package's
+    ``TPU_VISIBLE_DEVICES`` / ``TPU_VISIBLE_CHIPS``: the child's
+    ``cuda`` device is the first card of its group. A replica started
+    with ``--device cpu`` ignores it. ``VIT_REPLICA_DEVICES`` rides
+    along for diagnostics — a replica's stderr tail names its partition.
+    """
+    env = dict(base if base is not None else os.environ)
+    csv = ",".join(str(int(d)) for d in devices)
+    env["CUDA_VISIBLE_DEVICES"] = csv
+    env["VIT_REPLICA_DEVICES"] = csv
+    return env
+
+
+def build_serve_command(spec: "ReplicaSpec", *, classes_file: str,
+                        preset: str = "ViT-B/16",
+                        image_size: Optional[int] = None,
+                        buckets: Optional[str] = None,
+                        max_wait_us: Optional[int] = None,
+                        max_queue: Optional[int] = None,
+                        device: Optional[str] = None,
+                        extra: Sequence[str] = ()) -> List[str]:
+    """The ONE serve-CLI replica command (the fleet CLI and every
+    harness call it — two drifting spellings of the same argv is how
+    only one of them gets the next flag). The replica serves on the
+    serve CLI's default ``--device cuda`` unless ``device`` (or a
+    ``--device`` in ``extra`` / the spec's ``extra_args``) names
+    another."""
+    cmd = [sys.executable, "-m",
+           "pytorch_vit_paper_replication_tpu_torch.serve",
+           "--checkpoint", str(spec.checkpoint),
+           "--classes-file", str(classes_file),
+           "--preset", preset,
+           "--host", "127.0.0.1", "--port", "0"]
+    if spec.model is not None:
+        # The spec's declared tier rides into the replica's own
+        # ::stats self-report — an operator reading a student
+        # replica's stats sees "student", not just an arch label.
+        cmd += ["--model-tier", str(spec.model)]
+    if image_size is not None:
+        cmd += ["--image-size", str(int(image_size))]
+    if buckets is not None:
+        cmd += ["--buckets", str(buckets)]
+    if max_wait_us is not None:
+        cmd += ["--max-wait-us", str(int(max_wait_us))]
+    if max_queue is not None:
+        cmd += ["--max-queue", str(int(max_queue))]
+    if device is not None:
+        cmd += ["--device", str(device)]
+    cmd += list(extra)
+    cmd += list(spec.extra_args)
+    return cmd
+
+
+@dataclasses.dataclass
+class ReplicaSpec:
+    """What it takes to (re)spawn one replica. ``checkpoint`` is
+    mutable on purpose: the rolling swap updates it, and every later
+    supervised restart then boots the NEW checkpoint."""
+
+    rid: str
+    checkpoint: str
+    devices: List[int] = dataclasses.field(default_factory=lambda: [0])
+    extra_args: List[str] = dataclasses.field(default_factory=list)
+    # Declared model tier (e.g. "student"/"teacher" in a cascade
+    # fleet). Deployment config, not discovered from the replica:
+    # the router's model= hard filter keys on it (see fleet policy).
+    model: Optional[str] = None
+
+
+class _Replica:
+    """Mutable supervision state for one replica. All fields are
+    guarded by the manager's lock (the stderr reader thread hands its
+    parsed address back through the manager, never writes directly)."""
+
+    def __init__(self, spec: ReplicaSpec):
+        self.spec = spec
+        self.proc: Optional[subprocess.Popen] = None
+        self.address: Optional[Tuple[str, int]] = None
+        self.up = False
+        self.draining = False
+        self.supervise = True
+        self.queue_depth = 0
+        self.warm_rungs: Tuple[int, ...] = ()
+        self.fingerprint: Optional[str] = None
+        self.last_ok_mono: Optional[float] = None
+        self.restarts = 0
+        self.next_restart_mono = 0.0
+        self.cur_backoff_s = 0.0
+        self.stderr_tail: deque = deque(maxlen=50)
+        self.generation = 0        # bumped per spawn; readiness lines
+        #                            from a dead generation are ignored
+        self.spawning = False      # a Popen is in flight: nobody else
+        #                            may spawn/stop until it lands
+
+
+class ReplicaManager:
+    """Supervise N serve replicas (see module docstring).
+
+    ``command_factory(spec) -> argv`` builds a replica's command
+    (:func:`build_serve_command` partially applied in production;
+    tests pass a fake). ``env_factory(spec) -> env`` defaults to
+    :func:`replica_env` over the spec's device partition.
+    """
+
+    def __init__(self, specs: Sequence[ReplicaSpec], *,
+                 command_factory: Callable[[ReplicaSpec], List[str]],
+                 env_factory: Optional[
+                     Callable[[ReplicaSpec], dict]] = None,
+                 health_interval_s: float = 0.5,
+                 stale_after_s: float = 3.0,
+                 restart_backoff_s: Tuple[float, float] = (0.5, 8.0),
+                 auto_restart: bool = True,
+                 expected_rungs: Optional[Sequence[int]] = None,
+                 conn_timeout_s: float = 5.0,
+                 registry: Optional[TelemetryRegistry] = None):
+        if not specs:
+            raise ValueError("need at least one ReplicaSpec")
+        rids = [s.rid for s in specs]
+        if len(set(rids)) != len(rids):
+            raise ValueError(f"duplicate replica ids: {rids}")
+        self._command_factory = command_factory
+        self._env_factory = env_factory or (
+            lambda spec: replica_env(spec.devices))
+        self.health_interval_s = float(health_interval_s)
+        self.stale_after_s = float(stale_after_s)
+        self.restart_backoff_s = (float(restart_backoff_s[0]),
+                                  float(restart_backoff_s[1]))
+        self.auto_restart = bool(auto_restart)
+        # The ladder a swapped-in replica must report warm before the
+        # rollout re-admits it (None = health alone re-admits).
+        self.expected_rungs = (tuple(sorted(int(b) for b in
+                                            expected_rungs))
+                               if expected_rungs is not None else None)
+        self.conn_timeout_s = float(conn_timeout_s)
+        self._registry = registry if registry is not None \
+            else get_registry()
+        self._lock = threading.Lock()
+        self._replicas: Dict[str, _Replica] = {
+            s.rid: _Replica(s) for s in specs}
+        self._closed = False
+        self._health_thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+
+    # ---------------------------------------------------------- lifecycle
+    def start(self) -> "ReplicaManager":
+        for rid in self.replica_ids():
+            self._spawn(rid)
+        if self._health_thread is None:
+            self._health_thread = threading.Thread(
+                target=self._health_loop, name="fleet-health",
+                daemon=True)
+            self._health_thread.start()
+        return self
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+        self._stop.set()
+        if self._health_thread is not None:
+            self._health_thread.join(self.health_interval_s + 5.0)
+            self._health_thread = None
+        for rid in self.replica_ids():
+            self.stop_replica(rid, grace_s=2.0)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # ------------------------------------------------------------ spawning
+    def replica_ids(self) -> List[str]:
+        with self._lock:
+            return sorted(self._replicas)
+
+    # --------------------------------------------------- elastic membership
+    # The autoscaler grows and shrinks the replica SET at
+    # runtime. Everything below (and the .get() discipline in the
+    # health/address paths) exists so membership churn mid-request is
+    # a retry, never a KeyError in a router handler thread.
+    def add_replica(self, spec: ReplicaSpec, *,
+                    draining: bool = False) -> str:
+        """Register and spawn a NEW replica. ``draining=True`` admits
+        it into membership but not into routing — the autoscaler's
+        warm gate readmits it once its ladder report covers
+        ``expected_rungs`` (a scaled-up replica must never take
+        traffic it would answer with a multi-second warmup)."""
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("manager is closed")
+            if spec.rid in self._replicas:
+                raise ValueError(f"duplicate replica id {spec.rid!r}")
+            rep = _Replica(spec)
+            rep.draining = bool(draining)
+            self._replicas[spec.rid] = rep
+        self._spawn(spec.rid)
+        return spec.rid
+
+    def remove_replica(self, rid: str) -> None:
+        """Drop a replica from membership (it must already be stopped
+        — :meth:`stop_replica` first; the autoscaler's decommission
+        path drains before that). Its ``replica_up_<rid>`` gauge is
+        zeroed so dashboards see a departure, not a flatline."""
+        with self._lock:
+            rep = self._replicas.get(rid)
+            if rep is None:
+                return
+            if rep.proc is not None and rep.proc.poll() is None:
+                raise RuntimeError(
+                    f"replica {rid} is still running — stop_replica() "
+                    "before remove_replica()")
+            del self._replicas[rid]
+        self._registry.gauge(f"replica_up_{rid}", 0)
+
+    def devices_of(self, rid: str) -> List[int]:
+        with self._lock:
+            return list(self._replicas[rid].spec.devices)
+
+    def extra_args_of(self, rid: str) -> List[str]:
+        with self._lock:
+            return list(self._replicas[rid].spec.extra_args)
+
+    def _spawn(self, rid: str, *, require_supervise: bool = False
+               ) -> None:
+        """Spawn one replica process, at most one at a time per
+        replica: the ``spawning`` flag makes the check-and-Popen
+        atomic, so the health loop's supervised restart can never race
+        a rollout's deliberate restart into two live processes (the
+        loser would leak, holding its port/device partition).
+        ``require_supervise``: the health loop's restarts re-check
+        ``supervise`` under the same lock — a rollout that just
+        un-supervised the replica (stop-for-swap) wins the race."""
+        with self._lock:
+            rep = self._replicas.get(rid)
+            if rep is None:
+                return   # removed concurrently (autoscaler shrink)
+            if rep.spawning:
+                return
+            if rep.proc is not None and rep.proc.poll() is None:
+                return   # already alive: never double-spawn
+            if require_supervise and not rep.supervise:
+                return   # deliberately stopped mid-decision
+            rep.spawning = True
+            spec = rep.spec
+            rep.generation += 1
+            gen = rep.generation
+            rep.address = None
+            rep.up = False
+            rep.queue_depth = 0
+            rep.warm_rungs = ()
+            rep.fingerprint = None
+            rep.supervise = True
+        try:
+            cmd = self._command_factory(spec)
+            env = self._env_factory(spec)
+            proc = subprocess.Popen(
+                cmd, env=env, stdout=subprocess.DEVNULL,
+                stderr=subprocess.PIPE, text=True)
+            with self._lock:
+                rep.proc = proc
+        finally:
+            with self._lock:
+                rep.spawning = False
+        reader = threading.Thread(
+            target=self._read_stderr, args=(rid, gen, proc),
+            name=f"fleet-stderr-{rid}", daemon=True)
+        reader.start()
+
+    def _read_stderr(self, rid: str, gen: int,
+                     proc: subprocess.Popen) -> None:
+        """Drain the child's stderr forever (an undrained PIPE
+        deadlocks a chatty child); parse the readiness line."""
+        assert proc.stderr is not None
+        for raw in proc.stderr:
+            line = raw.rstrip("\n")
+            with self._lock:
+                rep = self._replicas.get(rid)
+                if rep is None or rep.generation != gen:
+                    return   # a newer spawn owns this replica now
+                rep.stderr_tail.append(line)
+                if rep.address is None:
+                    m = READY_RE.search(line)
+                    if m:
+                        rep.address = (m.group(1), int(m.group(2)))
+
+    def start_replica(self, rid: str,
+                      checkpoint: Optional[str] = None) -> None:
+        """(Re)spawn one replica, optionally onto a new checkpoint —
+        the rollout's restart step. The spec keeps the new checkpoint,
+        so later supervised restarts boot it too."""
+        with self._lock:
+            rep = self._replicas[rid]
+            if checkpoint is not None:
+                rep.spec.checkpoint = str(checkpoint)
+            alive = rep.proc is not None and rep.proc.poll() is None
+        if alive:
+            self.stop_replica(rid)
+        self._spawn(rid)
+
+    def stop_replica(self, rid: str, grace_s: float = 5.0) -> None:
+        """Deliberate stop: un-supervise (the restart loop must not
+        resurrect it mid-swap), TERM, then KILL past the grace."""
+        # Wait out an in-flight spawn first, so the proc read below is
+        # THE process (killing around a concurrent Popen would orphan
+        # the child that lands a millisecond later).
+        deadline = time.monotonic() + 5.0
+        while True:
+            with self._lock:
+                rep = self._replicas.get(rid)
+                if rep is None or not rep.spawning:
+                    break
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
+        with self._lock:
+            rep = self._replicas.get(rid)
+            if rep is None:
+                return   # already removed: nothing to stop
+            rep.supervise = False
+            rep.up = False
+            rep.address = None
+            proc = rep.proc
+        if proc is None or proc.poll() is not None:
+            return
+        proc.terminate()
+        try:
+            proc.wait(timeout=grace_s)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            try:
+                proc.wait(timeout=5.0)
+            except subprocess.TimeoutExpired:
+                pass
+
+    # -------------------------------------------------------------- health
+    def _health_loop(self) -> None:
+        while not self._stop.wait(self.health_interval_s):
+            try:
+                self.poll_once()
+            except Exception:  # noqa: BLE001 — one sick poll round
+                pass           # must not kill supervision
+
+    def poll_once(self) -> None:
+        """One health round over the fleet (public: tests drive it
+        deterministically; the health thread loops it)."""
+        now = time.monotonic()
+        for rid in self.replica_ids():
+            with self._lock:
+                rep = self._replicas.get(rid)
+                if rep is None:
+                    continue   # removed since the id list was taken
+                if self._closed:
+                    return
+                proc, addr = rep.proc, rep.address
+                supervise = rep.supervise and not rep.spawning
+            dead = proc is None or proc.poll() is not None
+            if dead:
+                with self._lock:
+                    rep.up = False
+                if (supervise and self.auto_restart
+                        and now >= rep.next_restart_mono):
+                    with self._lock:
+                        rep.restarts += 1
+                        lo, hi = self.restart_backoff_s
+                        rep.cur_backoff_s = (
+                            lo if rep.cur_backoff_s == 0.0
+                            else min(rep.cur_backoff_s * 2.0, hi))
+                        rep.next_restart_mono = (
+                            now + rep.cur_backoff_s)
+                    self._registry.count("replica_restarts_total")
+                    self._spawn(rid, require_supervise=True)
+            elif addr is not None:
+                snap = self._poll_stats(addr)
+                with self._lock:
+                    if snap is not None:
+                        rep.last_ok_mono = time.monotonic()
+                        rep.up = True
+                        rep.cur_backoff_s = 0.0
+                        rep.queue_depth = int(
+                            snap.get("queue_depth") or 0)
+                        rep.warm_rungs = tuple(sorted(
+                            int(b) for b in
+                            (snap.get("warm_rungs") or [])))
+                        rep.fingerprint = snap.get(
+                            "checkpoint_fingerprint")
+                    elif (rep.last_ok_mono is None
+                          or time.monotonic() - rep.last_ok_mono
+                          > self.stale_after_s):
+                        rep.up = False
+        self.publish_telemetry()
+
+    def _poll_stats(self, addr: Tuple[str, int]) -> Optional[dict]:
+        """One ``::stats`` round trip; None on any failure (the health
+        verdict, not an exception — churn is routine)."""
+        try:
+            with socket.create_connection(
+                    addr, timeout=self.conn_timeout_s) as sock:
+                sock.settimeout(self.conn_timeout_s)
+                sock.sendall(b"::stats\n")
+                with sock.makefile("r", encoding="utf-8") as rfile:
+                    line = rfile.readline()
+            return json.loads(line) if line.strip() else None
+        except (OSError, ValueError):
+            return None
+
+    def publish_telemetry(self) -> TelemetryRegistry:
+        """Sync membership gauges into the registry (``replica_up_*``
+        per replica, ``fleet_replicas_up`` fleet-wide) — the router's
+        ``::metrics`` and the ``--ship-to`` frames render these."""
+        views = self.views()
+        reg = self._registry
+        for v in views:
+            reg.gauge(f"replica_up_{v.rid}", int(v.up))
+        reg.gauge("fleet_replicas_up",
+                  sum(1 for v in views if v.up))
+        return reg
+
+    # --------------------------------------------------------------- views
+    def views(self, inflight: Optional[Dict[str, int]] = None
+              ) -> List[ReplicaView]:
+        """Routing views; ``inflight`` (router-owned live counts)
+        overlays the health loop's lagged queue depths."""
+        inflight = inflight or {}
+        out = []
+        with self._lock:
+            for rid, rep in sorted(self._replicas.items()):
+                out.append(ReplicaView(
+                    rid=rid, address=rep.address, up=rep.up,
+                    draining=rep.draining,
+                    inflight=int(inflight.get(rid, 0)),
+                    queue_depth=rep.queue_depth,
+                    warm_rungs=rep.warm_rungs,
+                    restarts=rep.restarts,
+                    fingerprint=rep.fingerprint,
+                    model=rep.spec.model))
+        return out
+
+    def view(self, rid: str) -> ReplicaView:
+        for v in self.views():
+            if v.rid == rid:
+                return v
+        raise KeyError(rid)
+
+    def address_of(self, rid: str) -> Optional[Tuple[str, int]]:
+        """None for a not-yet-ready OR already-removed replica — the
+        router treats both as "not routable, retry a peer" (membership
+        churn mid-request must be a retry, never a KeyError)."""
+        with self._lock:
+            rep = self._replicas.get(rid)
+            return rep.address if rep is not None else None
+
+    def checkpoint_of(self, rid: str) -> str:
+        with self._lock:
+            return self._replicas[rid].spec.checkpoint
+
+    def stderr_tail(self, rid: str) -> List[str]:
+        with self._lock:
+            return list(self._replicas[rid].stderr_tail)
+
+    def pid_of(self, rid: str) -> Optional[int]:
+        """The replica's current process id (tests SIGKILL through it;
+        operators correlate it with the fleet view)."""
+        with self._lock:
+            proc = self._replicas[rid].proc
+            return proc.pid if proc is not None else None
+
+    # ------------------------------------------------------------- quiesce
+    def quiesce(self, rid: str) -> None:
+        """Stop the router selecting this replica (in-flight requests
+        finish; new ones go elsewhere)."""
+        with self._lock:
+            self._replicas[rid].draining = True
+
+    def readmit(self, rid: str) -> None:
+        with self._lock:
+            self._replicas[rid].draining = False
+
+    def request(self, rid: str, line: str,
+                timeout_s: Optional[float] = None) -> str:
+        """One out-of-band request line to a replica (the rollout's
+        ``::drain`` / ``::probs`` control path — NOT the routed data
+        path). Raises OSError/ValueError on a dead replica."""
+        addr = self.address_of(rid)
+        if addr is None:
+            raise OSError(f"replica {rid} has no address (not ready)")
+        budget = timeout_s if timeout_s is not None \
+            else self.conn_timeout_s
+        with socket.create_connection(addr, timeout=budget) as sock:
+            sock.settimeout(budget)
+            sock.sendall((line.strip() + "\n").encode())
+            with sock.makefile("r", encoding="utf-8") as rfile:
+                reply = rfile.readline()
+        if not reply:
+            raise OSError(f"replica {rid} closed without answering")
+        return reply.rstrip("\n")
+
+    def drain_replica(self, rid: str, timeout_s: float = 10.0) -> int:
+        """``::drain`` a replica's micro-batcher; returns the
+        unfinished count (-1 when the replica couldn't answer —
+        already dead is a fine drain outcome for the rollout)."""
+        try:
+            reply = self.request(rid, f"::drain {timeout_s:g}",
+                                 timeout_s=timeout_s + 5.0)
+            return int(json.loads(reply).get("unfinished", -1))
+        except (OSError, ValueError):
+            return -1
+
+    def wait_ready(self, timeout_s: float = 120.0,
+                   rids: Optional[Sequence[str]] = None) -> bool:
+        """Block until the given replicas (default: all) are up —
+        listening AND answering ``::stats``."""
+        want = list(rids) if rids is not None else self.replica_ids()
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            views = {v.rid: v for v in self.views()}
+            if all(views[r].up for r in want if r in views):
+                return True
+            time.sleep(min(self.health_interval_s, 0.1))
+        views = {v.rid: v for v in self.views()}
+        return all(views[r].up for r in want if r in views)
+
+    def wait_healthy(self, rid: str, timeout_s: float = 120.0, *,
+                     require_rungs: Optional[Sequence[int]] = None
+                     ) -> bool:
+        """Block until ``rid`` is up — and, when ``require_rungs`` is
+        given, until its warm-rung report covers that ladder (the
+        rollout's re-admission bar: a swapped-in replica must not take
+        traffic it would answer with multi-second warmups)."""
+        need = set(int(b) for b in require_rungs) \
+            if require_rungs is not None else None
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            v = self.view(rid)
+            if v.up and (need is None or need <= set(v.warm_rungs)):
+                return True
+            time.sleep(min(self.health_interval_s, 0.1))
+        v = self.view(rid)
+        return v.up and (need is None or need <= set(v.warm_rungs))

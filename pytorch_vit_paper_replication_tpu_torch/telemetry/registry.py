@@ -47,9 +47,11 @@ DEFAULT_EVENT_RING = 256
 
 # The instruments this package publishes, name -> kind: the train-side
 # (tel_/watchdog_/profiler_/mem_), serve-side (serve_/compile_cache_/
-# trace_), batch-inference (bi_), search (search_) and distillation
-# (distill_) subsets of the JAX package's declared schema. Dynamic names ride
-# their prefixes (mem_devN_*, serve_lat_*, serve_latency_*).
+# trace_), batch-inference (bi_), search (search_), distillation
+# (distill_), shipper (shipper_), fleet (fleet_/replica_/autoscale_) and
+# cascade (cascade_) subsets of the JAX package's declared schema. Dynamic
+# names ride their prefixes (mem_devN_*, serve_lat_*, serve_latency_*,
+# replica_up_<rid>).
 INSTRUMENTS: Dict[str, str] = {
     'tel_step_s': 'histogram',
     'tel_data_wait_s': 'histogram',
@@ -111,6 +113,51 @@ INSTRUMENTS: Dict[str, str] = {
     'distill_t': 'gauge',
     'distill_loss': 'gauge',
     'distill_teacher_agree_frac': 'gauge',
+    'shipper_frames_total': 'counter',
+    'shipper_dropped_total': 'counter',
+    'shipper_reconnects_total': 'counter',
+    'fleet_route_requests_total': 'counter',
+    'fleet_route_retries_total': 'counter',
+    'fleet_route_rejected_total': 'counter',
+    'fleet_route_errors_total': 'counter',
+    'fleet_route_inflight': 'gauge',
+    'fleet_route_lat_s': 'histogram',
+    'fleet_route_lat_ema_s': 'gauge',
+    'fleet_replicas_up': 'gauge',
+    'fleet_swaps_total': 'counter',
+    'fleet_swap_failures_total': 'counter',
+    'fleet_swap_rollbacks_total': 'counter',
+    'fleet_swap_active': 'gauge',
+    'fleet_swap_last_s': 'gauge',
+    'replica_restarts_total': 'counter',
+    'autoscale_decisions_total': 'counter',
+    'autoscale_up_total': 'counter',
+    'autoscale_down_total': 'counter',
+    'autoscale_aborts_total': 'counter',
+    'autoscale_replicas_target': 'gauge',
+    'autoscale_signal_load': 'gauge',
+    'autoscale_signal_lat_s': 'gauge',
+    'autoscale_warm_coverage': 'gauge',
+    'autoscale_spinup_s': 'histogram',
+    'autoscale_drain_s': 'histogram',
+    'cascade_requests_total': 'counter',
+    'cascade_escalated_total': 'counter',
+    'cascade_served_student_total': 'counter',
+    'cascade_served_teacher_total': 'counter',
+    'cascade_student_failover_total': 'counter',
+    'cascade_teacher_fallback_total': 'counter',
+    'cascade_escalation_rate': 'gauge',
+    'cascade_threshold': 'gauge',
+    'cascade_predicted_agreement': 'gauge',
+    'cascade_margin': 'histogram',
+    'cascade_drift_window_rate': 'gauge',
+    'cascade_drift_expected_rate': 'gauge',
+    'cascade_drift_alarm_active': 'gauge',
+    'cascade_drift_alarms_total': 'counter',
+    'trace_traces_total': 'gauge',
+    'trace_p50_s': 'gauge',
+    'trace_p90_s': 'gauge',
+    'trace_p99_s': 'gauge',
 }
 
 # Prometheus # HELP text for the declared instruments (the renderer
@@ -180,6 +227,69 @@ HELP_TEXT: Dict[str, str] = {
     'distill_loss': 'Latest KD train loss (blended hard+soft)',
     'distill_teacher_agree_frac': 'Per-epoch student/teacher argmax '
                                   'agreement over train batches',
+    'shipper_frames_total': 'Telemetry frames delivered to the aggregator',
+    'shipper_dropped_total': 'Telemetry frames dropped (aggregator '
+                             'unreachable)',
+    'shipper_reconnects_total': 'Aggregator (re)connections',
+    'fleet_route_requests_total': 'Client request lines the fleet router '
+                                  'dispatched',
+    'fleet_route_retries_total': 'Re-dispatches after a replica died or '
+                                 'pushed back mid-request',
+    'fleet_route_rejected_total': 'Requests refused with fleet-level '
+                                  'backpressure',
+    'fleet_route_errors_total': 'Requests that exhausted every routable '
+                                'replica',
+    'fleet_route_inflight': 'Requests in flight through the router',
+    'fleet_route_lat_s': 'Client-observed request seconds through the router',
+    'fleet_route_lat_ema_s': 'EMA of client-observed request seconds through '
+                             'the router',
+    'fleet_replicas_up': 'Replicas inside the health deadline',
+    'fleet_swaps_total': 'Rolling checkpoint swaps completed',
+    'fleet_swap_failures_total': 'Replica swaps that failed the '
+                                 'health/warm/probe gate',
+    'fleet_swap_rollbacks_total': 'Rolling swaps rolled back to the old '
+                                  'checkpoint',
+    'fleet_swap_active': '1 while a rolling swap is in progress',
+    'fleet_swap_last_s': 'Seconds the last completed replica swap took',
+    'replica_restarts_total': 'Supervised replica restarts',
+    'autoscale_decisions_total': 'Autoscaler observe/decide ticks',
+    'autoscale_up_total': 'Replicas scaled up (warm gate passed)',
+    'autoscale_down_total': 'Replicas drained out by scale-down',
+    'autoscale_aborts_total': 'Scale-ups aborted at the warm gate',
+    'autoscale_replicas_target': 'Replica count the last decision asked for',
+    'autoscale_signal_load': 'Queue pressure per up-replica the decider last '
+                             'saw',
+    'autoscale_signal_lat_s': 'Router latency EMA the decider last saw, '
+                              'seconds',
+    'autoscale_warm_coverage': 'Fraction of up replicas warm for the expected '
+                               'ladder',
+    'autoscale_spinup_s': 'Scale-up spawn-to-warm-admitted seconds',
+    'autoscale_drain_s': 'Scale-down quiesce-to-removed seconds',
+    'cascade_requests_total': 'Requests admitted to the cascade',
+    'cascade_escalated_total': 'Low-margin rows escalated to the teacher',
+    'cascade_served_student_total': 'Requests answered by the student tier',
+    'cascade_served_teacher_total': 'Requests answered by the teacher tier',
+    'cascade_student_failover_total': 'Student failures escalated to the '
+                                      'teacher unconditionally',
+    'cascade_teacher_fallback_total': 'Teacher failures answered with the '
+                                      "student's low-margin result",
+    'cascade_escalation_rate': 'Escalated / admitted, running fraction',
+    'cascade_threshold': 'Softmax-margin escalation threshold in force',
+    'cascade_predicted_agreement': 'Calibration-predicted top-1 agreement '
+                                   'floor at the threshold in force',
+    'cascade_margin': 'Student softmax margin (top1 - top2) per row',
+    'cascade_drift_window_rate': 'Rolling-window escalation fraction the '
+                                 'drift alarm watches',
+    'cascade_drift_expected_rate': 'Calibrated escalation-rate expectation '
+                                   'the window is judged against',
+    'cascade_drift_alarm_active': '1 while the window sits outside the drift '
+                                  'band, else 0',
+    'cascade_drift_alarms_total': 'Drift-alarm firings (band exits, with '
+                                  'hysteresis)',
+    'trace_traces_total': 'Complete request traces in the merged view',
+    'trace_p50_s': 'Merged-trace root-span latency p50 seconds',
+    'trace_p90_s': 'Merged-trace root-span latency p90 seconds',
+    'trace_p99_s': 'Merged-trace root-span latency p99 seconds',
 }
 
 class _RollingHistogram:

@@ -19,8 +19,9 @@ predictions one JSON line per record. Usage::
 Re-running the same command against the same ``--out`` resumes from the
 manifest; ``--fresh`` restarts from record 0. Runs on every visible CUDA
 device unless ``--device`` names one (``cpu`` runs the kernels' plain
-versions). ``--ship-to`` (the fleet telemetry shipper) and
-``--compile-cache-dir`` are parsed and refused: not ported yet.
+versions). ``--ship-to HOST:PORT`` ships the ``bi_*`` telemetry in
+frames (role ``batch_infer``) to a fleet aggregator while the sweep runs;
+``--compile-cache-dir`` is parsed and refused: not ported yet.
 """
 
 from __future__ import annotations
@@ -66,14 +67,26 @@ def run_job(args) -> dict:
         args.pack, eval_center_transform(spec["image_size"],
                                          normalize=spec["normalize"]),
         startup_readahead=False)
-    summary = engine.run(
-        dataset, args.out, batch_size=args.batch_size,
-        resume=not args.fresh, limit=args.limit,
-        num_workers=args.num_workers, worker_type=args.worker_type,
-        readahead=args.readahead, evict_behind=not args.no_evict_behind,
-        checkpoint_every_records=args.checkpoint_every_records,
-        checkpoint_every_s=args.checkpoint_every_s,
-        preds_jsonl=args.preds_jsonl)
+    shipper = None
+    if args.ship_to:
+        from ..telemetry.shipper import TelemetryShipper
+        shipper = TelemetryShipper(
+            args.ship_to, worker_id=args.worker_id, role="batch_infer",
+            interval_s=args.ship_interval_s).start()
+        print(f"[batch_infer] telemetry shipper: {shipper.worker_id} -> "
+              f"{args.ship_to} every {args.ship_interval_s:g}s")
+    try:
+        summary = engine.run(
+            dataset, args.out, batch_size=args.batch_size,
+            resume=not args.fresh, limit=args.limit,
+            num_workers=args.num_workers, worker_type=args.worker_type,
+            readahead=args.readahead, evict_behind=not args.no_evict_behind,
+            checkpoint_every_records=args.checkpoint_every_records,
+            checkpoint_every_s=args.checkpoint_every_s,
+            preds_jsonl=args.preds_jsonl)
+    finally:
+        if shipper is not None:
+            shipper.close()
     summary["device"] = [str(d) for d in engine.devices]
     if args.sha256:
         summary["sink_sha256"] = sink_sha256(summary["sink"])
@@ -143,10 +156,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda = every visible CUDA device; a device name "
                         "(cuda:1, cpu) = that one")
     p.add_argument("--ship-to", default=None, metavar="HOST:PORT",
-                   help="(not ported)")
-    p.add_argument("--ship-interval-s", type=float, default=2.0,
-                   help="(not ported)")
-    p.add_argument("--worker-id", default=None, help="(not ported)")
+                   help="ship bi_* telemetry frames to a fleet aggregator")
+    p.add_argument("--ship-interval-s", type=float, default=2.0)
+    p.add_argument("--worker-id", default=None)
     p.add_argument("--compile-cache-dir", default=None, metavar="DIR",
                    help="(not ported)")
     return p
@@ -154,8 +166,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 # Flags of the JAX CLI whose path the port does not have yet, by the
 # ROADMAP Queue 1 item that brings it.
-NOT_PORTED = {"ship_to": 6, "ship_interval_s": 6, "worker_id": 6,
-              "compile_cache_dir": 9}
+NOT_PORTED = {"compile_cache_dir": 9}
 
 
 def main(argv=None) -> dict:
@@ -166,6 +177,12 @@ def main(argv=None) -> dict:
             flag = "--" + dest.replace("_", "-")
             raise SystemExit(f"{flag} is not yet ported (ROADMAP Queue 1 "
                              f"item {item})")
+    if args.ship_to:
+        from ..telemetry.shipper import parse_address
+        try:
+            parse_address(args.ship_to)
+        except ValueError as e:
+            raise SystemExit(f"--ship-to: {e}")
     return run_job(args)
 
 

@@ -28,10 +28,12 @@ It runs on ``cuda`` unless ``--device cpu`` is given (then the kernels'
 plain PyTorch versions run); without a card it raises ``no CUDA device``.
 Checkpoint saves are asynchronous unless ``--sync-checkpoints``. The flags
 keep the JAX CLI's names, defaults and semantics. Those whose path is not
-ported yet (elastic and multi-card meshes, the metrics HTTP endpoint, the
-fleet shipper, TensorBoard, the compile cache) are parsed and refused
-with ``... not yet ported (ROADMAP Queue 1 item N)`` when given a value
-other than their default.
+ported yet (elastic and multi-card meshes, TensorBoard, the compile cache)
+are parsed and refused with ``... not yet ported (ROADMAP Queue 1 item
+N)`` when given a value other than their default. ``--metrics-port``
+serves the registry as Prometheus text on ``/metrics``; ``--ship-to
+HOST:PORT`` pushes registry frames (role ``train``) to a fleet aggregator
+every ``--ship-interval-s``, one last frame at exit.
 
 Distillation: ``--distill-from SINK`` trains a student against a sealed
 ``tools.batch_infer --head logits`` sink the teacher dumped over the same
@@ -103,8 +105,7 @@ NOT_PORTED: Dict[str, int] = {
     "elastic_generation": 7, "elastic_collective": 7,
     "mesh_model": 7, "mesh_seq": 7, "mesh_pipe": 7, "pipe_microbatches": 7,
     "multihost": 7, "sp_impl": 7,
-    "tensorboard_dir": 6, "metrics_port": 6, "ship_to": 6,
-    "ship_interval_s": 6, "worker_id": 6,
+    "tensorboard_dir": 11,
 }
 
 
@@ -345,13 +346,19 @@ def build_parser() -> argparse.ArgumentParser:
                      help="capture destination (default: profiles/ next "
                           "to --checkpoint-dir or --telemetry-jsonl)")
     obs.add_argument("--metrics-port", type=int, default=None,
-                     help="(not ported)")
+                     help="serve the telemetry registry as Prometheus "
+                          "text on http://127.0.0.1:PORT/metrics (stdlib "
+                          "HTTP; 0 = pick a free port). Default: off")
     obs.add_argument("--ship-to", type=str, default=None,
-                     metavar="HOST:PORT", help="(not ported)")
+                     metavar="HOST:PORT",
+                     help="push registry snapshots to a fleet aggregator "
+                          "every --ship-interval-s (a dead aggregator "
+                          "costs dropped frames, never a stalled step)")
     obs.add_argument("--ship-interval-s", type=float, default=2.0,
-                     help="(not ported)")
+                     help="shipper cadence for --ship-to")
     obs.add_argument("--worker-id", type=str, default=None,
-                     help="(not ported)")
+                     help="identity in the fleet view (default "
+                          "train-<host>-<pid>)")
     p.add_argument("--compile-cache-dir", default=None, metavar="DIR",
                    help="(not ported)")
     return p
@@ -481,13 +488,20 @@ def main(argv=None) -> dict:
     parser = build_parser()
     args = parser.parse_args(argv)
     refuse_unported(parser, args)
-    # A typo'd window must fail before the data and model set-up.
+    # A typo'd window or address must fail before the data and model
+    # set-up.
     profile_window = None
     if args.profile_steps:
         try:
             profile_window = parse_profile_steps(args.profile_steps)
         except ValueError as e:
             raise SystemExit(str(e))
+    if args.ship_to:
+        from .telemetry.shipper import parse_address
+        try:
+            parse_address(args.ship_to)
+        except ValueError as e:
+            raise SystemExit(f"--ship-to: {e}")
     dev = resolve_device(args.device)
 
     cfg_kwargs = dict(image_size=args.image_size, dtype=args.dtype,
@@ -672,6 +686,7 @@ def main(argv=None) -> dict:
         logger = (stack.enter_context(MetricsLogger(args.metrics_jsonl))
                   if args.metrics_jsonl else None)
         telemetry = make_telemetry(args, cfg, dev, profile_window, stack)
+        start_sinks(args, stack)
         if args.eval_only:
             return eval_only(args, state, checkpointer, eval_batches, logger,
                              telemetry)
@@ -763,13 +778,14 @@ def check_resume(meta: dict, args, steps_per_epoch: int, total_steps: int,
 def make_telemetry(args, cfg: Optional[ViTConfig], dev: torch.device,
                    profile_window, stack: contextlib.ExitStack):
     """The run's :class:`..telemetry.StepTelemetry` (None when no
-    telemetry, watchdog or profiling flag is given), with its watchdog and
-    profile controller; each is closed by ``stack``. ``tel_mfu`` takes the
-    card's bf16 peak from :mod:`..telemetry.flops`; a card the table lacks
-    (or the CPU) gets one printed line and no MFU gauge, and so does
-    TinyVGG (``cfg`` None: no FLOP count)."""
+    telemetry, watchdog, profiling or sink flag is given), with its
+    watchdog and profile controller; each is closed by ``stack``.
+    ``tel_mfu`` takes the card's bf16 peak from :mod:`..telemetry.flops`;
+    a card the table lacks (or the CPU) gets one printed line and no MFU
+    gauge, and so does TinyVGG (``cfg`` None: no FLOP count)."""
     if not (args.telemetry_jsonl or args.watchdog_s > 0
-            or args.profile_steps or args.profile_auto):
+            or args.profile_steps or args.profile_auto
+            or args.ship_to or args.metrics_port is not None):
         return None
     from .telemetry import (ProfileController, StepTelemetry, Watchdog,
                             bf16_peak_tflops, train_step_flops_per_image)
@@ -809,6 +825,28 @@ def make_telemetry(args, cfg: Optional[ViTConfig], dev: torch.device,
         flops_per_image=(train_step_flops_per_image(cfg) if cfg is not None
                          else None), peak_tflops=peak,
         watchdog=watchdog, profiler=profiler))
+
+
+def start_sinks(args, stack: contextlib.ExitStack) -> None:
+    """``--metrics-port`` (the registry on ``/metrics``) and ``--ship-to``
+    (registry frames, role ``train``), each stopped by ``stack``; the
+    shipper sends one last frame when it closes."""
+    if args.metrics_port is not None:
+        from .telemetry import start_metrics_http
+        http_srv = start_metrics_http(port=args.metrics_port)
+        stack.callback(http_srv.server_close)
+        stack.callback(http_srv.shutdown)
+        print(f"metrics: http://127.0.0.1:{http_srv.server_address[1]}"
+              f"/metrics")
+    if args.ship_to:
+        from .telemetry import TelemetryShipper
+        shipper = TelemetryShipper(
+            args.ship_to, worker_id=args.worker_id, role="train",
+            interval_s=args.ship_interval_s)
+        stack.callback(shipper.close)
+        shipper.start()
+        print(f"telemetry shipper: {shipper.worker_id} -> {args.ship_to} "
+              f"every {args.ship_interval_s:g}s")
 
 
 def eval_only(args, state, checkpointer, eval_batches, logger,

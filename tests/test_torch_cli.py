@@ -220,8 +220,7 @@ def test_resume_schedule_horizon_guard(folder, tmp_path):
     (["--sp-impl", "ulysses"], 7),
     (["--elastic", "2"], 7), (["--mesh-data", "2"], 7),
     (["--mesh-model", "2"], 7), (["--mesh-pipe", "2"], 7),
-    (["--multihost"], 7), (["--ship-to", "127.0.0.1:9"], 6),
-    (["--tensorboard-dir", "tb"], 6), (["--metrics-port", "0"], 6),
+    (["--multihost"], 7), (["--tensorboard-dir", "tb"], 11),
     (["--compile-cache-dir", "cc"], 9)])
 def test_unported_flags_exit_nonzero(folder, extra, item):
     with pytest.raises(SystemExit, match=f"not yet ported \\(ROADMAP Queue "
@@ -502,3 +501,61 @@ def test_tinyvgg_cli_matches_jax_cli(folder, tmp_path, monkeypatch):
 def test_tinyvgg_refuses_transfer_flags(folder, extra):
     with pytest.raises(SystemExit, match="apply to ViT only"):
         ttrain.main(_cpu(_common(folder)) + ["--model", "tinyvgg"] + extra)
+
+
+def test_metrics_port_and_ship_to_carry_jax_instrument_names(
+        folder, tmp_path, monkeypatch):
+    """``--metrics-port 0 --ship-to`` on the port's train CLI and on
+    JAX's, one epoch each: ``/metrics`` answers while the run is on, and
+    the frames (role ``train``, the last one sent at exit) carry the same
+    ``tel_`` / ``shipper_`` instrument names as JAX's frames."""
+    import urllib.request
+
+    from pytorch_vit_paper_replication_tpu.telemetry import (
+        shipper as jship)
+    from pytorch_vit_paper_replication_tpu_torch import (
+        telemetry as ttelemetry)
+    from pytorch_vit_paper_replication_tpu_torch.telemetry import (
+        shipper as tship)
+
+    with pytest.raises(SystemExit, match="--ship-to: expected HOST:PORT"):
+        ttrain.main(_cpu(_common(folder)) + ["--ship-to", "nohost"])
+    scraped = []
+    real = ttelemetry.start_metrics_http
+
+    def start_and_scrape(*a, **k):
+        srv = real(*a, **k)
+        url = f"http://127.0.0.1:{srv.server_address[1]}/metrics"
+        with urllib.request.urlopen(url, timeout=10) as r:
+            scraped.append(r.read().decode())
+        return srv
+
+    monkeypatch.setattr(ttelemetry, "start_metrics_http", start_and_scrape)
+    argv = _common(folder) + ["--attention", "xla", "--mlp-impl", "xla",
+                              "--epochs", "1"]
+    frames = {}
+    for name, fn, sink_mod, extra in (
+            ("jax", jax_train_main, jship, []),
+            ("port", ttrain.main, tship, ["--device", "cpu"])):
+        with sink_mod.FrameSink() as sink:
+            fn(argv + extra + ["--metrics-port", "0", "--ship-to",
+                               f"127.0.0.1:{sink.port}",
+                               "--ship-interval-s", "30",
+                               "--worker-id", f"{name}-0"])
+            frames[name] = list(sink.frames)
+    assert len(scraped) == 1 and "# TYPE vit_" in scraped[0]
+
+    def names(frame):
+        snap = frame["snapshot"]
+        return sorted(k for kind in ("counters", "gauges", "histograms")
+                      for k in snap[kind]
+                      if k.startswith(("tel_", "shipper_"))
+                      and k not in PORT_OMITS)
+
+    assert [f["role"] for f in frames["port"]] == ["train"] * len(
+        frames["port"]) and len(frames["port"]) >= 2
+    assert frames["port"][-1]["worker_id"] == "port-0"
+    assert set(frames["port"][-1]) == set(frames["jax"][-1])
+    assert names(frames["port"][-1]) == names(frames["jax"][-1])
+    assert frames["port"][-1]["snapshot"]["counters"][
+        "tel_steps_total"] >= 3

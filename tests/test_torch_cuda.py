@@ -1194,3 +1194,145 @@ def test_scan_ties_and_padded_tail_on_card(dev):
         s1, i1 = scanner.scan(q[j], 8)
         np.testing.assert_array_equal(s1[0], scores[j])
         np.testing.assert_array_equal(i1[0], ids[j])
+
+
+# ------------------------------------------------------------ the fleet
+def _fleet_export(root, preset, seed, image_size=224):
+    from PIL import Image
+
+    from pytorch_vit_paper_replication_tpu_torch.configs import PRESETS
+    from pytorch_vit_paper_replication_tpu_torch.convert import seeded_state
+    from pytorch_vit_paper_replication_tpu_torch.models import ViT
+    from pytorch_vit_paper_replication_tpu_torch.predictions import (
+        save_inference_export)
+    model = ViT(PRESETS[preset](num_classes=3, image_size=image_size))
+    model.load_state_dict(seeded_state(model, seed))
+    out = save_inference_export(root / f"{preset.replace('/', '')}_{seed}",
+                                model, transform_spec={"normalize": False})
+    classes = root / "classes.txt"
+    classes.write_text("pizza\nsteak\nsushi\n")
+    rng = np.random.default_rng(seed)
+    probes = []
+    for i in range(6):
+        p = root / f"probe{i}.png"
+        if not p.exists():
+            Image.fromarray(rng.integers(0, 256, (80, 72, 3), np.uint8)
+                            ).save(p)
+        probes.append(p)
+    return out, classes, probes
+
+
+def _fleet_ask(address, lines, timeout=120.0):
+    import socket
+    with socket.create_connection(address, timeout=timeout) as sock:
+        sock.settimeout(timeout)
+        rfile = sock.makefile("r", encoding="utf-8")
+        out = []
+        for line in lines:
+            sock.sendall((line + "\n").encode())
+            out.append(rfile.readline().rstrip("\n"))
+        return out
+
+
+def _lone_probs(export, preset, classes, probes, dev):
+    """``::probs`` replies an in-process engine on the card gives for lone
+    requests (bucket 1), and the kernels' launches in them."""
+    import json
+
+    from pytorch_vit_paper_replication_tpu_torch.ops import (
+        flash_attention as fa, fused_mlp)
+    from pytorch_vit_paper_replication_tpu_torch.serve import InferenceEngine
+    from pytorch_vit_paper_replication_tpu_torch.serve.__main__ import (
+        _answer)
+    eng = InferenceEngine.from_checkpoint(
+        export, preset=preset, class_names=["pizza", "steak", "sushi"],
+        device=dev, buckets=(1, 4), use_manifest=False)
+    try:
+        before = (fused_mlp.launches, fa.launches)
+        replies = [_answer(f"::probs {p}", eng, None) for p in probes]
+        launched = (fused_mlp.launches - before[0], fa.launches - before[1])
+    finally:
+        eng.close()
+    assert all("probs" in json.loads(r) for r in replies)
+    return replies, launched
+
+
+def test_two_replicas_on_card_behind_router_equal_in_process(dev, tmp_path):
+    """Two port serve-CLI replicas on the one card (CUDA_VISIBLE_DEVICES
+    from partition_devices(1, 2)) behind the router: routed ``::probs``
+    replies equal an in-process engine's on the card bit for bit, and
+    that engine launched the MLP and flash kernels in every block."""
+    import functools
+
+    from pytorch_vit_paper_replication_tpu_torch.serve.fleet import (
+        FleetRouter, ReplicaManager, ReplicaSpec, build_serve_command,
+        partition_devices)
+    from pytorch_vit_paper_replication_tpu_torch.telemetry.registry import (
+        TelemetryRegistry)
+    export, classes, probes = _fleet_export(tmp_path, "ViT-Ti/16", 3)
+    want, launched = _lone_probs(export, "ViT-Ti/16", classes, probes, dev)
+    assert launched == (12 * len(probes), 12 * len(probes))
+    reg = TelemetryRegistry()
+    manager = ReplicaManager(
+        [ReplicaSpec(rid=f"r{i}", checkpoint=str(export), devices=part)
+         for i, part in enumerate(partition_devices(1, 2))],
+        command_factory=functools.partial(
+            build_serve_command, classes_file=str(classes),
+            preset="ViT-Ti/16", buckets="1,4",
+            extra=["--no-manifest", "--sync-warmup"]),
+        health_interval_s=0.25, stale_after_s=30.0, registry=reg)
+    router = FleetRouter(manager, registry=reg)
+    with manager, router:
+        manager.start()
+        assert manager.wait_ready(300.0), manager.stderr_tail("r0")
+        router.start()
+        got = _fleet_ask(router.address, [f"::probs {p}" for p in probes])
+        direct = [manager.request(r, f"::probs {probes[0]}",
+                                  timeout_s=60.0) for r in ("r0", "r1")]
+    assert got == want
+    assert direct == [want[0], want[0]]
+
+
+def test_cascade_on_card_threshold_zero_and_inf(dev, tmp_path):
+    """A ViT-Ti/16 student and a ViT-S/16 teacher replica on the card
+    behind the cascade: threshold 0 answers the student's in-process
+    replies bit for bit, infinity the teacher's."""
+    import functools
+
+    from pytorch_vit_paper_replication_tpu_torch.serve.cascade import (
+        CascadeRouter)
+    from pytorch_vit_paper_replication_tpu_torch.serve.fleet import (
+        ReplicaManager, ReplicaSpec, build_serve_command)
+    from pytorch_vit_paper_replication_tpu_torch.telemetry.registry import (
+        TelemetryRegistry)
+    tiers = {"student": ("ViT-Ti/16", 4), "teacher": ("ViT-S/16", 5)}
+    exports, want = {}, {}
+    for tier, (preset, seed) in tiers.items():
+        exports[tier], classes, probes = _fleet_export(tmp_path, preset, seed)
+        want[tier], _ = _lone_probs(exports[tier], preset, classes, probes,
+                                    dev)
+
+    def command(spec):
+        return build_serve_command(
+            spec, classes_file=str(classes), preset=tiers[spec.model][0],
+            buckets="1,4", extra=["--no-manifest", "--sync-warmup"])
+
+    reg = TelemetryRegistry()
+    manager = ReplicaManager(
+        [ReplicaSpec(rid=tier[0], checkpoint=str(exports[tier]),
+                     model=tier) for tier in tiers],
+        command_factory=command, health_interval_s=0.25,
+        stale_after_s=30.0, registry=reg)
+    router = CascadeRouter(manager, threshold=0.0, registry=reg)
+    with manager, router:
+        manager.start()
+        assert manager.wait_ready(300.0), manager.stderr_tail("s")
+        router.start()
+        lines = [f"::probs {p}" for p in probes]
+        at_zero = _fleet_ask(router.address, lines)
+        router.threshold = float("inf")
+        at_inf = _fleet_ask(router.address, lines)
+        counters = router.counters()
+    assert at_zero == want["student"] and at_inf == want["teacher"]
+    assert counters["escalated"] == len(probes)
+    assert counters["served_student"] == len(probes)

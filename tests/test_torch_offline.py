@@ -415,7 +415,8 @@ def test_kill_resume_subprocess_byte_identical(job, tmp_path):
 
 def test_batch_infer_cli_heads_summary_and_refusals(job, tmp_path, capsys):
     """The CLI in-process on the CPU: each head's sink shape and
-    summary.json, --sha256 equals the manifest's seal; refused flags."""
+    summary.json, --sha256 equals the manifest's seal; refused flags;
+    --ship-to's frames."""
     export, pack, classes = job
     base = [str(pack), "--checkpoint", str(export), "--classes-file",
             str(classes), "--preset", "ViT-Ti/16", "--device", "cpu",
@@ -434,10 +435,22 @@ def test_batch_infer_cli_heads_summary_and_refusals(job, tmp_path, capsys):
     fresh = batch_infer.main(base + ["--out", str(tmp_path / "probs"),
                                      "--fresh", "--limit", "20"])
     assert fresh["records"] == 20 and fresh["resumed_from"] == 0
-    for extra, msg in ((["--ship-to", "127.0.0.1:9"], "not yet ported"),
-                       (["--compile-cache-dir", "cc"], "not yet ported")):
+    for extra, msg in ((["--compile-cache-dir", "cc"], "not yet ported"),
+                       (["--ship-to", "nohost"], "--ship-to: expected")):
         with pytest.raises(SystemExit, match=msg):
             batch_infer.main(base + ["--out", str(tmp_path / "x")] + extra)
+    # --ship-to: bi_* frames of role batch_infer, the last at exit.
+    from pytorch_vit_paper_replication_tpu_torch.telemetry.shipper import (
+        FrameSink)
+    with FrameSink() as sink:
+        batch_infer.main(base + ["--out", str(tmp_path / "shipped"),
+                                 "--limit", "16", "--ship-to",
+                                 f"127.0.0.1:{sink.port}",
+                                 "--worker-id", "bi-0"])
+        frames = list(sink.frames)
+    assert frames and {f["role"] for f in frames} == {"batch_infer"}
+    assert frames[-1]["worker_id"] == "bi-0"
+    assert frames[-1]["snapshot"]["counters"]["bi_records_total"] >= 16
     with pytest.raises(SystemExit, match="--classes-file or --num-classes"):
         batch_infer.main([str(pack), "--checkpoint", str(export), "--out",
                           str(tmp_path / "y"), "--device", "cpu"])

@@ -10,6 +10,7 @@ the features/tokens heads must match JAX's ``ViTFeatureExtractor``.
 
 import json
 import subprocess
+import time
 import sys
 from pathlib import Path
 
@@ -121,8 +122,10 @@ def test_cli_control_lines(engine):
         "::head\tok\tfeatures"
     assert "ERROR" in _answer("::head nope", engine, None)
     reply = _answer("::metrics", engine, None)
-    assert "\tERROR\tNotImplementedError:" in reply
-    assert "not yet ported" in reply
+    assert reply.endswith("\n") and "\tERROR\t" not in reply
+    assert "# HELP vit_serve_queue_depth Serve micro-batcher queue depth" \
+        in reply
+    assert "# TYPE vit_serve_warm_rungs gauge" in reply
     # Search is ported: without --search-index it answers the request's
     # error line.
     for line in ("::search 3 /x.png", "::req k=2 /x.png"):
@@ -144,7 +147,12 @@ def test_pipe_mode_cli_replies_well_formed(export):
         input="\n".join(lines) + "\n", capture_output=True, text=True,
         timeout=300, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
-    out = proc.stdout.strip().splitlines()
+    # ::metrics answers a Prometheus block ended by one blank line; every
+    # other line answers one line.
+    text = proc.stdout
+    head, block = text.split("# HELP", 1)
+    block, tail = ("# HELP" + block).split("\n\n", 1)
+    out = head.splitlines() + [block] + tail.splitlines()
     assert len(out) == len(lines)
     path0, label, prob = out[0].split("\t")
     assert path0 == str(paths[0]) and label in CLASSES
@@ -154,7 +162,9 @@ def test_pipe_mode_cli_replies_well_formed(export):
     p1, head, row = out[3].split("\t")
     assert head == "features" and len(json.loads(row)) == 192
     assert out[4].split("\t")[1] in CLASSES
-    assert "not yet ported" in out[5]
+    assert "# TYPE vit_serve_queue_depth gauge" in out[5]
+    assert all(line.startswith(("# HELP ", "# TYPE ", "vit_"))
+               for line in out[5].splitlines())
     assert out[6].startswith("/no/such/image.png\tERROR\t")
 
 
@@ -166,7 +176,11 @@ def test_import_whole_port_pulls_no_jax():
         "    importlib.import_module(m.name)\n"
         "for name in ('distill', 'distill.sink', 'distill.recipe', 'search',"
         " 'search.index', 'search.ivf', 'search.scan', 'ops.scan_scores',"
-        " 'tools.build_index'):\n"
+        " 'tools.build_index', 'telemetry.shipper', 'telemetry.chrome_trace',"
+        " 'serve.loadgen', 'serve.cascade', 'serve.fleet',"
+        " 'serve.fleet.policy', 'serve.fleet.replica', 'serve.fleet.router',"
+        " 'serve.fleet.rollout', 'serve.fleet.autoscale',"
+        " 'serve.fleet.__main__'):\n"
         "    assert pkg.__name__ + '.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'flax'"
@@ -191,3 +205,200 @@ def test_entry_point_without_device_raises_without_a_card(export):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceEngine.from_checkpoint(export[0], preset="ViT-Ti/16",
                                         class_names=CLASSES)
+
+
+# ---------------------------------------------- telemetry sinks vs JAX
+REQUESTS = 4
+
+
+@pytest.fixture(scope="module")
+def engines(export):
+    """A JAX and a port engine over the same weights, each publishing
+    into a registry of its own."""
+    from pytorch_vit_paper_replication_tpu.serve import (
+        InferenceEngine as JEngine)
+    from pytorch_vit_paper_replication_tpu.serve.stats import (
+        ServeStats as JStats)
+    from pytorch_vit_paper_replication_tpu.telemetry.registry import (
+        TelemetryRegistry as JRegistry)
+    from pytorch_vit_paper_replication_tpu_torch.serve.stats import (
+        ServeStats)
+    from pytorch_vit_paper_replication_tpu_torch.telemetry.registry import (
+        TelemetryRegistry)
+
+    export_dir, paths, jm, params = export
+    jeng = JEngine(jm, params, image_size=32, class_names=CLASSES,
+                   buckets=(1, 4), stats=JStats(registry=JRegistry()))
+    teng = InferenceEngine.from_checkpoint(
+        export_dir, preset="ViT-Ti/16", class_names=CLASSES, device="cpu",
+        config_overrides=F32, buckets=(1, 4), use_manifest=False,
+        stats=ServeStats(registry=TelemetryRegistry()))
+    yield jeng, teng
+    jeng.close()
+    teng.close()
+
+
+def _sequential(eng, paths):
+    for i in range(REQUESTS):
+        eng.submit(str(paths[i % len(paths)])).result(timeout=120)
+    eng.submit(str(paths[0]), head="features", tier="batch").result(
+        timeout=120)
+
+
+def _help_and_types(text):
+    return sorted(line for line in text.splitlines()
+                  if line.startswith(("# HELP vit_serve_",
+                                      "# TYPE vit_serve_")))
+
+
+def test_metrics_names_and_help_equal_jax_serve(export, engines):
+    from pytorch_vit_paper_replication_tpu.serve.__main__ import (
+        _answer as jax_answer)
+
+    paths = export[1]
+    jeng, teng = engines
+    _sequential(jeng, paths)
+    _sequential(teng, paths)
+    theirs = jax_answer("::metrics", jeng, None)
+    mine = _answer("::metrics", teng, None)
+    assert _help_and_types(mine) == _help_and_types(theirs)
+    assert len(_help_and_types(mine)) > 20
+    names = [sorted(line.split()[0].split("{")[0]
+                    for line in text.splitlines()
+                    if line.startswith("vit_serve_"))
+             for text in (mine, theirs)]
+    assert names[0] == names[1]
+
+
+def test_stats_jsonl_keys_equal_jax_serve(export, engines, tmp_path):
+    from pytorch_vit_paper_replication_tpu.metrics import (
+        MetricsLogger as JLogger)
+    from pytorch_vit_paper_replication_tpu_torch.metrics import MetricsLogger
+
+    jeng, teng = engines
+    rows = []
+    for eng, logger_cls, name in ((jeng, JLogger, "jax"),
+                                  (teng, MetricsLogger, "port")):
+        path = tmp_path / f"{name}.jsonl"
+        logger = logger_cls(jsonl_path=str(path))
+        eng.stats.emit(logger)
+        logger.close()
+        rows.append(json.loads(path.read_text().splitlines()[-1]))
+    # The JAX row carries compile_cache_hits / _misses once its process's
+    # persistent XLA cache has seen a request (other tests in the same
+    # worker may have turned it on); the port has no such cache (ROADMAP
+    # Queue 1 item 9), so it never writes them.
+    no_cache = {"compile_cache_hits", "compile_cache_misses"}
+    assert sorted(set(rows[0]) - no_cache) == sorted(rows[1])
+    assert rows[1]["head_probs_completed"] >= REQUESTS
+
+
+def _spans(path):
+    rows = [json.loads(line) for line in Path(path).read_text().splitlines()]
+    by_id = {r["span_id"]: r for r in rows}
+    traces = {}
+    for r in rows:
+        parent = by_id.get(r["parent_id"])
+        traces.setdefault(r["trace_id"], []).append(
+            (r["name"], parent["name"] if parent else
+             str(r["parent_id"])))
+    return sorted(sorted(t) for t in traces.values())
+
+
+def test_trace_spans_and_parents_equal_jax_serve(export, engines, tmp_path,
+                                                 monkeypatch):
+    """The same lines through each package's pipe mode and socket-mode
+    answer, traced at rate 1: the same span names under the same parents
+    per trace (an inbound trace= token adopted, control lines never
+    traced)."""
+    import io
+
+    from pytorch_vit_paper_replication_tpu.serve import (
+        __main__ as jserve)
+    from pytorch_vit_paper_replication_tpu.telemetry import (
+        tracing as jtracing)
+    from pytorch_vit_paper_replication_tpu_torch.serve import (
+        __main__ as tserve)
+    from pytorch_vit_paper_replication_tpu_torch.telemetry import (
+        tracing as ttracing)
+
+    paths = export[1]
+    upstream = "00-" + "f" * 32 + "-" + "e" * 16 + "-01"
+    lines = [str(paths[0]), "::stats", f"::req head=features {paths[1]}",
+             ttracing.inject_wire_context(f"::probs {paths[2]}", upstream),
+             "::head probs", f"::req k=3 {paths[0]}", str(paths[3])]
+    jeng, teng = engines
+    got = {}
+    for name, serve_mod, tr, eng in (("jax", jserve, jtracing, jeng),
+                                     ("port", tserve, ttracing, teng)):
+        sink = tmp_path / f"{name}_spans.jsonl"
+        tr.configure_tracer(str(sink), role="replica", sample_rate=1.0)
+        try:
+            monkeypatch.setattr(sys, "stdin", io.StringIO(
+                "\n".join(lines) + "\n"))
+            out = io.StringIO()
+            monkeypatch.setattr(sys, "stdout", out)
+            serve_mod._serve_stdin(eng, None)
+            monkeypatch.undo()
+            for line in lines:
+                serve_mod._answer(line, eng, None)
+        finally:
+            tr.get_tracer().close()
+            tr.configure_tracer(None)
+        got[name] = (_spans(sink), len(out.getvalue().splitlines()))
+    assert got["port"] == got["jax"]
+    names = {n for trace in got["port"][0] for n, _ in trace}
+    assert {"serve.request", "batch.queue_wait", "batch.device"} <= names
+    assert any(("serve.request", "e" * 16) in t for t in got["port"][0])
+
+
+def test_serve_cli_stats_ship_and_trace_flags(export, tmp_path,
+                                              monkeypatch):
+    """The serve CLI in pipe mode with --stats-jsonl, --ship-to and
+    --trace-jsonl: a stats row on exit, frames of role serve (the last
+    one sent at shutdown) and request spans; bad values are refused as
+    the JAX CLI refuses them."""
+    import io
+
+    from pytorch_vit_paper_replication_tpu_torch.serve import (
+        __main__ as tserve)
+    from pytorch_vit_paper_replication_tpu_torch.telemetry import (
+        tracing as ttracing)
+    from pytorch_vit_paper_replication_tpu_torch.telemetry.shipper import (
+        FrameSink)
+
+    export_dir, paths, _, _ = export
+    with pytest.raises(SystemExit, match="--ship-to: expected HOST:PORT"):
+        tserve.main(["--checkpoint", str(export_dir), "--classes", *CLASSES,
+                     "--ship-to", "nohost"])
+    stats, spans = tmp_path / "stats.jsonl", tmp_path / "spans.jsonl"
+    with FrameSink() as sink:
+        monkeypatch.setattr(sys, "stdin", io.StringIO(
+            f"{paths[0]}\n{paths[1]}\n::metrics\n"))
+        monkeypatch.setattr(sys, "stdout", io.StringIO())
+        try:
+            tserve.main([
+                "--checkpoint", str(export_dir), "--classes", *CLASSES,
+                "--preset", "ViT-Ti/16", "--device", "cpu", "--buckets",
+                "1,4", "--no-manifest", "--sync-warmup",
+                "--stats-jsonl", str(stats),
+                "--stats-interval-s", "100", "--ship-to",
+                f"127.0.0.1:{sink.port}", "--ship-interval-s", "100",
+                "--worker-id", "rep-0", "--trace-jsonl", str(spans),
+                "--trace-sample", "1", "--trace-role", "replica-x"])
+        finally:
+            ttracing.get_tracer().close()
+            ttracing.configure_tracer(None)
+        monkeypatch.undo()
+        deadline = time.monotonic() + 10
+        while sink.frame_count() < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        frames = list(sink.frames)
+    row = json.loads(stats.read_text().splitlines()[-1])
+    assert row["head_probs_completed"] == 2
+    assert len(frames) >= 2 and {f["role"] for f in frames} == {"serve"}
+    assert frames[-1]["worker_id"] == "rep-0"
+    assert frames[-1]["snapshot"]["gauges"]["serve_warm_rungs"] == 2
+    rows = [json.loads(line) for line in spans.read_text().splitlines()]
+    assert {r["role"] for r in rows} == {"replica-x"}
+    assert sum(r["name"] == "serve.request" for r in rows) == 2
