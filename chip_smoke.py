@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (ViT-B/16 serving and
 training paths, the Quickstart and the ImageNet-scale training CLIs, the
-transfer-learning path, distillation, embedding search and the serving
-fleet with its telemetry sinks).
+transfer-learning path, distillation, embedding search, the serving
+fleet with its telemetry sinks, and the train CLI on a dp x tp x pp
+mesh).
 
 Run from the repository root on a machine with one CUDA card::
 
@@ -268,12 +269,13 @@ final ``ok`` line is never printed:
 5. parallel — the data x tensor x pipeline path through the port's
              ``parallel.spawn``, four rank processes sharing the one card
              (gloo, every transfer through host memory; the phase prints
-             the transport): (a) ViT-B/16 at full width and depth, bf16,
-             ``mlp_impl``/``attention_impl`` auto, default dropouts, on
-             dp = 1 x tp = 2 x pp = 2 with M = 2 microbatches of a batch
-             of 8: 3 steps + one eval pass, loss finite and falling, the
-             MLP core kernels (rows 6 and 7) and the flash kernels
-             launched (12 / 2) * 2 times per step forward and backward on
+             the transport): (a) ViT-B/16 at full width, PAR_LAYERS = 4
+             layers (phase train_mesh runs the full depth on a pipeline),
+             bf16, ``mlp_impl``/``attention_impl`` auto, default dropouts,
+             on dp = 1 x tp = 2 x pp = 2 with M = 2 microbatches of a
+             batch of 8: 3 steps + one eval pass, loss finite and falling,
+             the MLP core kernels (rows 6 and 7) and the flash kernels
+             launched (4 / 2) * 2 times per step forward and backward on
              every rank and the LN-MLP kernels (rows 1 and 2) never; (b) a
              2-layer f32 ViT-B/16,
              dropout off, biases perturbed per channel, on dp = 2 x
@@ -283,6 +285,28 @@ final ``ok`` line is never printed:
              TP_DP_LOSS_RTOL; the gap to the JAX elementwise param bound
              is printed). Wall times there are four ranks sharing one
              H100, not parallel-training throughput.
+5a. train_mesh — the train CLI itself on a mesh, four rank processes
+             sharing the card (gloo): ViT-B/16 at full width and depth,
+             bf16, auto, default dropouts, 224 px synthetic folders,
+             batch 8. (a) through ``train.main`` in this process:
+             ``--mesh-data 2 --mesh-pipe 2 --grad-accum 2
+             --checkpoint-every-steps 2``, one short epoch of 4
+             micro-steps: every rank's launches exactly its stage's (rows
+             1-5, 6 layers x 2 microbatches per micro-step and eval
+             batch; rows 6 and 7 never), the ranks' global metrics equal,
+             losses finite; the steps after the first checkpoint and
+             final/ set aside and the command rerun: its final params, its
+             step-4 checkpoint (params, mu, nu, acc, count, mini_step)
+             and its eval equal the uninterrupted run's bit for bit;
+             ``--eval-only`` on the mesh (a background CLI process on the
+             uninterrupted run's step 4) equals its eval; the ``predict``
+             CLI on the mesh run's final/ prints what ``predict_image``
+             gives on it. (b) a background CLI process from the phase's
+             start: ``--mesh-model 2 --mesh-pipe 2 --grad-accum 2
+             --nan-guard``, three epochs of one update each: rows 3-7
+             launched per stage, rows 1 and 2 never, the loss finite and
+             falling, no step skipped. Walls are host clocks with the
+             ranks' start included.
 6. the kernel list, the card's name and power limit, and the ``ok`` line.
    Every entry's ``ms``, ``plain_ms`` and ``library_ms`` are event times,
    its ``device_ms`` and ``library_device_ms`` device times.
@@ -1755,14 +1779,8 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    fused_mlp, fa = _counters()
-    return {"fused_ln_mlp_residual": fused_mlp.launches,
-            "fused_ln_mlp_residual_bwd": fused_mlp.bwd_launches,
-            "fused_mlp_core": fused_mlp.core_launches,
-            "fused_mlp_core_bwd": fused_mlp.core_bwd_launches,
-            "flash_attention": fa.launches,
-            "flash_attention_bwd_dq": fa.dq_launches,
-            "flash_attention_bwd_dkv": fa.dkv_launches}
+    from pytorch_vit_paper_replication_tpu_torch.train import launch_counts
+    return launch_counts()
 
 
 def _train_run(cfg, dev, steps: int, seed: int):
@@ -2163,6 +2181,9 @@ def phase_presets(dev) -> None:
 PAR_BATCH = 8
 PAR_MICRO = 2
 PAR_STEPS = 3
+# (a)'s depth, cut from B/16's 12 for the script's time limit: phase
+# train_mesh (b) runs tp 2 x pp 2 at full depth through the train CLI.
+PAR_LAYERS = 4
 TP_DP_STEPS = 2
 PAR_TIMEOUT_S = 300
 # (b)'s gate, on the same weights with every bias shifted per channel
@@ -2210,15 +2231,15 @@ def _rank_state(mesh, cfg, params, tcfg, total_steps: int):
 
 
 def pp_tp_rank(mesh) -> dict:
-    """One rank of (a): ViT-B/16, dp 1 x tp 2 x pp 2, PAR_STEPS steps and
-    one eval pass, the launch counters set to 0 right before and read
-    right after."""
+    """One rank of (a): ViT-B/16 at full width, PAR_LAYERS layers, dp 1 x
+    tp 2 x pp 2, PAR_STEPS steps and one eval pass, the launch counters
+    set to 0 right before and read right after."""
     import torch
     from pytorch_vit_paper_replication_tpu_torch.configs import (
         PRESETS, TrainConfig)
     from pytorch_vit_paper_replication_tpu_torch.parallel import api
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = PRESETS[PRESET](num_classes=NUM_CLASSES)
+    cfg = PRESETS[PRESET](num_classes=NUM_CLASSES, num_layers=PAR_LAYERS)
     from pytorch_vit_paper_replication_tpu_torch.convert import seeded_params
     state = _rank_state(mesh, cfg, seeded_params(cfg, 3), TrainConfig(),
                         PAR_STEPS)
@@ -2379,14 +2400,13 @@ def phase_parallel(dev) -> dict:
     """(a) then (b) through parallel.spawn on this card; returns (a)'s
     launch counts of rank 0."""
     import math
-    from pytorch_vit_paper_replication_tpu_torch.configs import (MeshConfig,
-                                                                 PRESETS)
+    from pytorch_vit_paper_replication_tpu_torch.configs import MeshConfig
     from pytorch_vit_paper_replication_tpu_torch.parallel import spawn
     t0 = time.perf_counter()
     ranks = spawn(pp_tp_rank, MeshConfig(data=1, model=2, pipe=2),
                   device=dev.type, timeout_s=PAR_TIMEOUT_S)
     a_s = time.perf_counter() - t0
-    layers = PRESETS[PRESET]().num_layers // 2
+    layers = PAR_LAYERS // 2
     fwd, bwd = layers * PAR_MICRO * (PAR_STEPS + 1), layers * PAR_MICRO * \
         PAR_STEPS
     want = {"fused_ln_mlp_residual": 0, "fused_ln_mlp_residual_bwd": 0,
@@ -2406,7 +2426,8 @@ def phase_parallel(dev) -> dict:
                 r["eval"] != ranks[0]["eval"]:
             raise AssertionError("ranks disagree on the global metrics")
     emit({"phase": "parallel", "run": "a", "ok": True,
-          "layout": "dp1 x tp2 x pp2", "model": PRESET,
+          "layout": "dp1 x tp2 x pp2",
+          "model": f"{PRESET}, {PAR_LAYERS} layers",
           "batch": PAR_BATCH, "microbatches": PAR_MICRO,
           "transport": ranks[0]["transport"],
           "losses": [m["loss_sum"] / m["count"] for m in ranks[0]["metrics"]],
@@ -2429,6 +2450,323 @@ def phase_parallel(dev) -> dict:
           "steps": TP_DP_STEPS, **cmp,
           "seconds_incl_rank_start": round(time.perf_counter() - t1, 3)})
     return ranks[0]["launches"]
+
+
+# ------------------------------------------------------------- phase 5a
+# The train CLI itself on a mesh: four rank processes sharing the card
+# (gloo), ViT-B/16 at full width and depth, bf16, auto, default dropouts,
+# on 224 px synthetic image folders, batch 8. (a) dp 2 x pp 2: one short
+# epoch of MESH_A_STEPS micro-steps with --grad-accum 2, a checkpoint every
+# MESH_EVERY_STEPS micro-steps; resumed from the first; --eval-only of its
+# final/ export on the mesh, and on one card through the train CLI,
+# predict_image and the predict CLI. (b) tp 2 x pp 2: --grad-accum 2
+# --nan-guard, MESH_B_EPOCHS epochs of 2 micro-steps (one update an
+# epoch). (b) and the mesh's --eval-only go as background CLI processes
+# beside (a) and beside the rest: the card idles in these host-bound runs.
+MESH_BATCH = 8
+MESH_A_PER_CLASS = (11, 2)         # 33 train images: 4 micro-steps of 8
+MESH_A_STEPS = 4
+MESH_EVERY_STEPS = 2
+MESH_B_PER_CLASS = (6, 1)          # 18 train images: 2 micro-steps an epoch
+MESH_B_EPOCHS = 3
+MESH_B_LR = "1e-4"
+MESH_TIMEOUT_S = 900
+# The one-card scores of (a)'s export against the mesh's eval: the mean
+# loss is ~exp(-margin) for a model this sure, so a bound on |ln(loss
+# ratio)| bounds the shift of the logit margin; 0.5 is 8 bf16 ulps of a
+# logit in [8, 16). A layer or slice in the wrong place moves it by
+# orders of magnitude.
+MESH_EXPORT_LOSS_LN = 0.5
+
+
+def _mesh_launches(stage_layers: int, micro: int, steps: int,
+                   eval_passes: int, tp: bool) -> dict:
+    """A rank's kernel launches over a mesh CLI run: each of its stage's
+    layers once per microbatch in every train micro-step (forward and
+    backward) and every eval batch (forward); rows 6 and 7 with a model
+    axis, rows 1 and 2 without."""
+    fwd, bwd = stage_layers * micro * (steps + eval_passes), \
+        stage_layers * micro * steps
+    mlp = ("fused_mlp_core", "fused_mlp_core_bwd") if tp else \
+        ("fused_ln_mlp_residual", "fused_ln_mlp_residual_bwd")
+    other = ("fused_ln_mlp_residual", "fused_ln_mlp_residual_bwd") if tp \
+        else ("fused_mlp_core", "fused_mlp_core_bwd")
+    return {mlp[0]: fwd, mlp[1]: bwd, other[0]: 0, other[1]: 0,
+            "flash_attention": fwd, "flash_attention_bwd_dq": bwd,
+            "flash_attention_bwd_dkv": bwd}
+
+
+def _check_mesh_run(tag: str, res: dict, want: dict) -> None:
+    """Every rank's launches are its stage's, the ranks hold one set of
+    global metrics, and the losses are finite."""
+    import math
+    for r, got in enumerate(res["rank_launches"]):
+        if got != want:
+            raise AssertionError(f"{tag}: rank {r} launched {got}, its "
+                                 f"stage's path is {want}")
+    if any(r != res["rank_results"][0] for r in res["rank_results"]):
+        raise AssertionError(f"{tag}: the ranks disagree on the global "
+                             f"metrics: {res['rank_results']}")
+    losses = res["train_loss"] + res["test_loss"]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{tag}: losses {losses} not finite")
+
+
+class _TrainCLI:
+    """``python -m ...train``'s ``main`` in a background process (``-c``:
+    its rank processes import the package, not this script), started at
+    construction, its output in ``log``.out / .err; :meth:`results` waits
+    for it and returns the results dict it prints as JSON (floats exact),
+    its standard output (rank 0's lines too) and its wall (to its last
+    line). :meth:`kill` ends it and its ranks."""
+
+    def __init__(self, argv, log: Path):
+        code = (f"import json, sys\nfrom {PKG}.train import main\n"
+                "r = main(sys.argv[1:])\nprint('RESULTS ' + json.dumps(r))")
+        self.out, self.err = log.with_suffix(".out"), log.with_suffix(".err")
+        self.t0 = time.time()
+        with open(self.out, "w") as out, open(self.err, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", code, *argv], stdout=out, stderr=err,
+                cwd=REPO, start_new_session=True)
+
+    def results(self):
+        try:
+            self.proc.wait(timeout=MESH_TIMEOUT_S)
+        finally:
+            self.kill()
+        # Its last line is written as it ends, maybe long before this call.
+        wall = self.out.stat().st_mtime - self.t0
+        out = self.out.read_text()
+        if self.proc.returncode != 0:
+            raise AssertionError(f"train CLI exit {self.proc.returncode}: "
+                                 f"{self.err.read_text()[-3000:]}")
+        line = [x for x in out.splitlines() if x.startswith("RESULTS ")][-1]
+        return json.loads(line[len("RESULTS "):]), out, wall
+
+    def kill(self):
+        """SIGKILL its process group: the launcher, the server its ranks
+        fork from, and the ranks."""
+        import os
+        import signal
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
+
+
+def _check_mesh_export(dev, exp: Path, test_dir, classes, model_argv,
+                       res_a: dict, walls: dict) -> dict:
+    """The mesh run's ``final/`` export, standard layout, through one-card
+    code: the train CLI's ``--eval-only`` and the probability rows of
+    ``predict_image`` (each test image alone) score the test split as the
+    mesh's own eval did (accuracy equal; the loss within
+    MESH_EXPORT_LOSS_LN in log space, since it is a bf16 run's;
+    ``predict_image`` decodes with PIL where the loader uses the native
+    decoder, so its rows see slightly other pixels); the predict CLI
+    prints ``predict_image``'s line. Returns the readings."""
+    import math
+    import numpy as np
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.predictions import (
+        load_inference_checkpoint, predict_image)
+    mesh_loss, mesh_acc = res_a["test_loss"][-1], res_a["test_acc"][-1]
+
+    def held(tag, loss, acc):
+        gap = abs(math.log(loss / mesh_loss)) if loss > 0 else math.inf
+        if acc != mesh_acc or not gap <= MESH_EXPORT_LOSS_LN:
+            raise AssertionError(
+                f"{tag} on the mesh export: loss {loss!r}, acc {acc!r}; the "
+                f"mesh's eval: loss {mesh_loss!r}, acc {mesh_acc!r} (|ln "
+                f"ratio| {gap:.4g}, bound {MESH_EXPORT_LOSS_LN})")
+        return {"test_loss": loss, "test_acc": acc, "ln_loss_ratio": gap}
+
+    t0 = time.perf_counter()
+    ev, _ = _cli_main("train", ["--test-dir", str(test_dir), *model_argv,
+                                "--eval-only", "--checkpoint-dir", str(exp),
+                                "--mesh-data", "1"])
+    walls["one_card_eval_only_s"] = time.perf_counter() - t0
+    out = {"one_card_eval_only": held("one-card --eval-only",
+                                      ev["test_loss"][0], ev["test_acc"][0])}
+    images = sorted(Path(test_dir).rglob("*.jpg"))
+    labels = [classes.index(img.parent.name) for img in images]
+    one, transform, _ = load_inference_checkpoint(exp, PRESET, len(classes),
+                                                  device=dev)
+    rows = np.stack([predict_image(one, img, classes, transform)[2]
+                     for img in images]).astype(np.float64)
+    del one
+    torch.cuda.empty_cache()
+    if not (np.isfinite(rows).all() and
+            np.allclose(rows.sum(1), 1.0, atol=1e-5)):
+        raise AssertionError(f"predict_image rows on the mesh export: {rows}")
+    picked = rows[np.arange(len(images)), labels]
+    out["predict_image_rows"] = held(
+        "predict_image's rows", float(-np.log(picked).mean()),
+        float((rows.argmax(1) == labels).mean()))
+    t0 = time.perf_counter()
+    _, printed = _cli_main("predict", [str(images[0]), "--checkpoint",
+                                       str(exp), "--classes", *classes,
+                                       "--preset", PRESET])
+    walls["predict_s"] = time.perf_counter() - t0
+    p0 = rows[0].astype(np.float32)
+    want = f"{images[0]}: {classes[int(p0.argmax())]} ({p0.max():.3f})"
+    if printed.strip().splitlines() != [want]:
+        raise AssertionError(f"predict on the mesh export printed "
+                             f"{printed!r}, predict_image gives {want!r}")
+    out["predict"] = want
+    return out
+
+
+def phase_train_mesh(dev, root: Path) -> dict:
+    """``python -m ...train --mesh-*``: (a) through ``train.main`` in this
+    process (its launcher starts four rank processes on the card), the
+    others as background CLI processes; see MESH_*. Returns rank 0's
+    launch counts of (a)'s uninterrupted run and of (b)."""
+    import os
+    import shutil
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.configs import PRESETS
+    from pytorch_vit_paper_replication_tpu_torch.convert import (
+        load_params_npz)
+    from pytorch_vit_paper_replication_tpu_torch.data import (
+        make_synthetic_image_folder)
+    emit({"phase": "train_mesh", "start": True})
+    t_phase = time.perf_counter()
+    layers = PRESETS[PRESET]().num_layers // 2
+    walls = {}
+    classes = ["pizza", "steak", "sushi"]
+    model = ["--preset", PRESET, "--image-size", "224", "--dtype",
+             "bfloat16", "--batch-size", str(MESH_BATCH), "--attention",
+             "auto", "--mlp-impl", "auto", "--seed", "3"]
+    train_b, test_b = make_synthetic_image_folder(
+        root / "ds_b", train_per_class=MESH_B_PER_CLASS[0],
+        test_per_class=MESH_B_PER_CLASS[1], image_size=224, seed=1)
+    jsonl_b = root / "b.jsonl"
+    background = []
+    try:
+        run_b = _TrainCLI([
+            "--train-dir", str(train_b), "--test-dir", str(test_b), *model,
+            "--epochs", str(MESH_B_EPOCHS), "--grad-accum", "2",
+            "--nan-guard", "--lr", MESH_B_LR, "--mesh-data", "1",
+            "--mesh-model", "2", "--mesh-pipe", "2", "--metrics-jsonl",
+            str(jsonl_b)], root / "b")
+        background.append(run_b)
+        train_a, test_a = make_synthetic_image_folder(
+            root / "ds_a", train_per_class=MESH_A_PER_CLASS[0],
+            test_per_class=MESH_A_PER_CLASS[1], image_size=224)
+        ck = root / "A"
+        run_a = ["--train-dir", str(train_a), "--test-dir", str(test_a),
+                 *model, "--epochs", "1", "--grad-accum", "2",
+                 "--mesh-data", "2", "--mesh-pipe", "2", "--checkpoint-dir",
+                 str(ck), "--checkpoint-every-steps", str(MESH_EVERY_STEPS)]
+        t0 = time.perf_counter()
+        res_a, out_a = _cli_main("train", run_a)
+        walls["a_s"] = time.perf_counter() - t0
+        transport = next(line for line in out_a.splitlines()
+                         if line.startswith("mesh:"))
+        # One eval batch: 6 test images padded to dp x M = 4, each shard's
+        # 4 rows in 2 microbatches.
+        launches_a = _mesh_launches(layers, 2, MESH_A_STEPS, 1, tp=False)
+        _check_mesh_run("train_mesh (a)", res_a, launches_a)
+        saved = sorted(int(d.name) for d in ck.iterdir() if d.name.isdigit())
+        if saved != [MESH_EVERY_STEPS, MESH_A_STEPS]:
+            raise AssertionError(f"(a) saved steps {saved}")
+
+        # ---- The uninterrupted run's export moves to a directory of its
+        # own, F, and its last checkpoint beside it. The mesh's --eval-only
+        # of F in the background; here meanwhile the one-card checks of F,
+        # then the run stopped after its first checkpoint and resumed.
+        exp = root / "F"
+        exp.mkdir()
+        os.rename(ck / "final", exp / "final")
+        for name in ("transform.json", "model_meta.json"):
+            shutil.copy(ck / name, exp / name)
+        os.rename(ck / str(MESH_A_STEPS), root / "A_last")
+        run_ev = _TrainCLI(["--test-dir", str(test_a), *model, "--eval-only",
+                            "--checkpoint-dir", str(exp), "--mesh-data",
+                            "2", "--mesh-pipe", "2"], root / "eval_only")
+        background.append(run_ev)
+        export = _check_mesh_export(dev, exp, test_a, classes, model,
+                                    res_a, walls)
+        t0 = time.perf_counter()
+        res_r, _ = _cli_main("train", run_a)
+        walls["resume_s"] = time.perf_counter() - t0
+        # The launches say where the run resumed (the micro-steps after
+        # the checkpoint).
+        _check_mesh_run("train_mesh (a) resumed", res_r, _mesh_launches(
+            layers, 2, MESH_A_STEPS - MESH_EVERY_STEPS, 1, tp=False))
+        final_a = load_params_npz(exp / "final" / "params.npz")
+        final_r = load_params_npz(ck / "final" / "params.npz")
+        state_a = torch.load(root / "A_last" / "state.pt", weights_only=True)
+        state_r = torch.load(ck / str(MESH_A_STEPS) / "state.pt",
+                             weights_only=True)
+        differ = [k for k in final_a
+                  if not torch.equal(final_a[k], final_r[k])]
+        differ += [f"params/{k}" for k in state_a["params"] if not
+                   torch.equal(state_a["params"][k], state_r["params"][k])]
+        for group in ("mu", "nu", "acc"):
+            differ += [f"{group}/{k}" for k in state_a["opt_state"][group]
+                       if not torch.equal(state_a["opt_state"][group][k],
+                                          state_r["opt_state"][group][k])]
+        scalars = [(state_a["opt_state"][k], state_r["opt_state"][k])
+                   for k in ("count", "mini_step")] + [
+            (state_a[k], state_r[k]) for k in ("step", "seed")]
+        del state_a, state_r
+        same = (res_r["test_loss"] == res_a["test_loss"]
+                and res_r["test_acc"] == res_a["test_acc"])
+        if set(final_a) != set(final_r) or differ or not same or any(
+                x != y for x, y in scalars):
+            raise AssertionError(f"(a) resumed != uninterrupted: "
+                                 f"{differ[:4]}, {scalars}, evals "
+                                 f"{res_r['test_loss']} vs "
+                                 f"{res_a['test_loss']}")
+
+        ev, _, walls["eval_only_s"] = run_ev.results()
+        _check_mesh_run("train_mesh (a) --eval-only", ev,
+                        _mesh_launches(layers, 2, 0, 1, tp=False))
+        if (ev["test_loss"], ev["test_acc"]) != (res_a["test_loss"],
+                                                 res_a["test_acc"]):
+            raise AssertionError(f"(a) --eval-only {ev} != the run's eval "
+                                 f"{res_a}")
+        res_b, _, walls["b_s"] = run_b.results()
+    finally:
+        for run in background:
+            run.kill()
+    launches_b = _mesh_launches(layers, 2, 2 * MESH_B_EPOCHS, MESH_B_EPOCHS,
+                                tp=True)
+    _check_mesh_run("train_mesh (b)", res_b, launches_b)
+    losses_b = res_b["train_loss"]
+    rows_b = _jsonl(jsonl_b)
+    if not losses_b[-1] < losses_b[0] or any("skipped_steps" in r
+                                              for r in rows_b):
+        raise AssertionError(f"(b) losses {losses_b} not falling, or a "
+                             f"clean step skipped: {rows_b}")
+    emit({"phase": "train_mesh", "ok": True, "model": PRESET,
+          "transport": transport,
+          "a": {"layout": "dp2 x pp2", "microbatches": 2,
+                "micro_steps": MESH_A_STEPS, "grad_accum": 2,
+                "train_loss": res_a["train_loss"],
+                "test_loss": res_a["test_loss"], "checkpoints": saved,
+                "resumed_from": MESH_EVERY_STEPS,
+                "resume_bit_equal": ["final params", "step state",
+                                     "eval"],
+                "eval_only_equal": True, "export": export,
+                "launches_per_rank": launches_a},
+          "b": {"layout": "tp2 x pp2", "microbatches": 2,
+                "micro_steps": 2 * MESH_B_EPOCHS, "grad_accum": 2,
+                "nan_guard": True, "train_loss": losses_b,
+                "test_loss": res_b["test_loss"],
+                "launches_per_rank": launches_b},
+          "walls_s": {k: round(v, 3) for k, v in walls.items()},
+          "walls_are": "four ranks sharing one card (gloo through host "
+                       "memory), rank start and the launcher's set-up "
+                       "included, (b) beside (a), the mesh's --eval-only "
+                       "beside the one-card checks and the resume: a "
+                       "measure of the host, not of parallel-training "
+                       "throughput",
+          "seconds": round(time.perf_counter() - t_phase, 3)})
+    return {"a": res_a["rank_launches"][0], "b": res_b["rank_launches"][0]}
 
 
 # ------------------------------------------------------------- phase 5b
@@ -5055,16 +5393,17 @@ KERNEL_DESIGN = {
     "fused_mlp_core": "wgmma+tma", "fused_mlp_core_bwd": "wgmma+tma"}
 
 
-def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
-                cli_launches, packed_launches, transfer, distill_step,
-                search, fleet):
+def kernel_list(k_rows, launches, serve_launches, ops, cli_launches,
+                packed_launches, transfer, distill_step, search, fleet,
+                mesh):
     """The seven ported kernels with their main-path numbers: rows 1-5 at
     batch 32, bf16, dropout off, T = 197; rows 6 and 7 (the MLP core) at
-    the parallel phase's per-microbatch shape (4 * 197 rows, F / tp =
-    1536, bf16, t = 26). ``launches`` are the counts of the main training
-    run (``auto``, which runs flash at T = 197 on the card),
-    ``serve_launches`` the serve phase's, ``par_launches`` rank 0's in the
-    parallel phase (a), ``ops`` the ops phase's result: each entry's
+    a tensor-parallel microbatch's shape (4 * 197 rows, F / tp = 1536,
+    bf16, t = 26). ``launches`` are the counts of the main training run
+    (``auto``, which runs flash at T = 197 on the card; rows 6 and 7:
+    rank 0's in the train_mesh phase's tp 2 x pp 2 CLI run (b)),
+    ``serve_launches`` the serve phase's, ``ops`` the ops phase's result:
+    each entry's
     ``checked`` lists the mask forms, Tq != Tk cases, head dims and widths
     its kernel was held to its plain version at in this run,
     ``ops_launches`` its launches on the ops phase's path and
@@ -5076,7 +5415,8 @@ def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
     ``::search`` (its features embed and the scan), ``fleet_launches`` in
     the fleet phase's in-process engine whose replies the routed ones
     equal bit for bit (four lone requests: two ``::probs``, a features
-    row and a ``::search``), and rows 1-5 carry
+    row and a ``::search``), ``train_mesh_launches`` rank 0's in the
+    train_mesh phase's runs (a) and (b), and rows 1-5 carry
     ``t577``, their readings at the 384 px step's shapes (T = 577, N =
     18,464 MLP rows). The eighth entry, ``scan_scores``, is the exact
     scan's scores kernel (no Pallas kernel in the JAX package: XLA's dot
@@ -5158,8 +5498,8 @@ def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
           "bwd_bound_by"), none,
          (core["bwd_gemms_library_ms"], core["bwd_gemms_library_device_ms"])),
     ]
-    launches = {**launches, "fused_mlp_core": par_launches["fused_mlp_core"],
-                "fused_mlp_core_bwd": par_launches["fused_mlp_core_bwd"]}
+    launches = {**launches, "fused_mlp_core": mesh["b"]["fused_mlp_core"],
+                "fused_mlp_core_bwd": mesh["b"]["fused_mlp_core_bwd"]}
     flash_checked = {
         "mask_forms": sorted({r["mask"] for r in ops["flash"]
                               if r["mask"]}),
@@ -5196,6 +5536,8 @@ def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
         entry["distill_launches"] = distill_step[name]
         entry["search_launches"] = search["search_launches"][name]
         entry["fleet_launches"] = fleet[name]
+        entry["train_mesh_launches"] = {run: mesh[run][name]
+                                        for run in ("a", "b")}
         out.append(entry)
     sk = search["kernel"]
     out.append({
@@ -5212,7 +5554,8 @@ def kernel_list(k_rows, launches, serve_launches, par_launches, ops,
         "library_device_ms": sk["library_device_ms"], "shape": sk["shape"],
         "distill_launches": 0,
         "search_launches": search["search_launches"]["scan_scores"],
-        "fleet_launches": fleet["scan_scores"]})
+        "fleet_launches": fleet["scan_scores"],
+        "train_mesh_launches": {"a": 0, "b": 0}})
     return {"kernels": out, "to_port": []}
 
 
@@ -5283,15 +5626,21 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    par_launches = phase_parallel(dev)
+    phase_parallel(dev)
+    torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        mesh_launches = phase_train_mesh(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             3)})
     print(card, flush=True)
     print(json.dumps(kernel_list(k_rows, launches, serve_launches,
-                                 par_launches, ops, cli_launches,
+                                 ops, cli_launches,
                                  packed_launches, transfer,
                                  distill["launches_per_step"], search,
-                                 fleet)),
+                                 fleet, mesh_launches)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

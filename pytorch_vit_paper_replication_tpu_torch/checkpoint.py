@@ -134,15 +134,57 @@ def _state_tensors(state) -> Dict[str, Mapping[str, torch.Tensor]]:
             "acc": opt.acc}
 
 
-def _payload(state, tensors: Dict[str, Mapping[str, torch.Tensor]]
-             ) -> Dict[str, Any]:
+def _scalars(state) -> Dict[str, int]:
+    """The integers of a checkpoint: the optimizer's count and mini_step,
+    the train step and the seed."""
     opt: OptState = state.opt_state
+    return {"count": int(opt.count), "mini_step": int(opt.mini_step),
+            "step": int(state.step), "seed": int(state.seed)}
+
+
+def _refuse_other_trainables(step: int, saved: set, state) -> None:
+    """A frozen-backbone run keeps Adam state for the head only: the
+    optimizer ``state`` was built with must label the same params
+    trainable as the one that saved (``saved``: the names it holds
+    moments for)."""
+    if saved != set(state.opt_state.mu):
+        raise ValueError(
+            f"checkpoint step {step} holds optimizer state for "
+            f"{len(saved)} params, this run's optimizer trains "
+            f"{len(state.opt_state.mu)}; resume with the same "
+            "--freeze-backbone setting")
+
+
+def _apply_payload(state, params: Mapping[str, torch.Tensor],
+                   groups: Dict[str, Mapping[str, torch.Tensor]],
+                   scalars: Dict[str, int]):
+    """Load a checkpoint's tensors into ``state``: ``params`` into the
+    model in place, a new optimizer state (``groups``: ``mu``, ``nu``,
+    ``acc``) on the params' device, and ``scalars`` (as :func:`_scalars`
+    gives them). Returns ``state``."""
+    state.model.load_state_dict(params)
+    dev = next(state.model.parameters()).device
+
+    def on_dev(d):
+        return {k: v.to(dev) for k, v in d.items()}
+    state.opt_state = OptState(
+        count=int(scalars["count"]), mu=on_dev(groups["mu"]),
+        nu=on_dev(groups["nu"]), acc=on_dev(groups["acc"]),
+        mini_step=int(scalars["mini_step"]))
+    state.step = int(scalars["step"])
+    state.seed = int(scalars["seed"])
+    return state
+
+
+def _payload(scalars: Dict[str, int],
+             tensors: Dict[str, Mapping[str, torch.Tensor]]
+             ) -> Dict[str, Any]:
     return {"params": tensors["params"],
-            "opt_state": {"count": int(opt.count),
-                          "mini_step": int(opt.mini_step),
+            "opt_state": {"count": scalars["count"],
+                          "mini_step": scalars["mini_step"],
                           "mu": tensors["mu"], "nu": tensors["nu"],
                           "acc": tensors["acc"]},
-            "step": int(state.step), "seed": int(state.seed)}
+            "step": scalars["step"], "seed": scalars["seed"]}
 
 
 class _Snapshot:
@@ -255,15 +297,23 @@ class Checkpointer:
         snapshot it and return before the step is durable (:meth:`wait`
         makes it so). Returns False (and writes nothing) when that step is
         already committed, unless ``force``."""
+        return self.save_parts(_state_tensors(state), _scalars(state),
+                               force=force)
+
+    def save_parts(self, tensors: Dict[str, Mapping[str, torch.Tensor]],
+                   scalars: Dict[str, int], *, force: bool = False) -> bool:
+        """:meth:`save` of a state given as its payload groups (``params``,
+        ``mu``, ``nu``, ``acc``: named tensors) and its integers (``count``,
+        ``mini_step``, ``step``, ``seed``)."""
         self.wait()
-        step = int(state.step)
+        step = int(scalars["step"])
         if self.step_dir(step).is_dir() and not force:
             return False
         if not self._async:
-            self._commit(step, _payload(state, {
-                g: _cpu(d) for g, d in _state_tensors(state).items()}))
+            self._commit(step, _payload(scalars, {
+                g: _cpu(d) for g, d in tensors.items()}))
             return True
-        payload = _payload(state, self._snapshot.take(_state_tensors(state)))
+        payload = _payload(scalars, self._snapshot.take(tensors))
         self._writer = threading.Thread(
             target=self._write_async, args=(step, payload),
             name=f"checkpoint-writer-{step}")
@@ -305,36 +355,27 @@ class Checkpointer:
         ``verify=True`` checks the step's digest first and raises
         :class:`CheckpointCorruptError` on a mismatch; a step saved with
         no digest recorded restores unverified."""
+        payload = self.load_payload(step, verify=verify)
+        o = payload["opt_state"]
+        _refuse_other_trainables(payload["step"], set(o["mu"]), state)
+        return _apply_payload(
+            state, payload["params"],
+            {g: o[g] for g in ("mu", "nu", "acc")},
+            {"count": o["count"], "mini_step": o["mini_step"],
+             "step": payload["step"], "seed": payload["seed"]})
+
+    def load_payload(self, step: Optional[int] = None, *,
+                     verify: bool = True) -> Dict[str, Any]:
+        """The saved payload of step ``step`` (default: the latest), CPU
+        tensors, its digest checked first with ``verify``."""
         self.wait()
         step = self.latest_step() if step is None else int(step)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
         if verify and self._integrity:
             self.verify(step)
-        payload = torch.load(self.step_dir(step) / STATE_FILE,
-                             map_location="cpu", weights_only=True)
-        model = state.model
-        model.load_state_dict(payload["params"])
-        dev = next(model.parameters()).device
-        o = payload["opt_state"]
-        if set(o["mu"]) != set(state.opt_state.mu):
-            # A frozen-backbone run keeps Adam state for the head only: the
-            # optimizer this state was built with must label the same
-            # params trainable as the one that saved.
-            raise ValueError(
-                f"checkpoint step {step} holds optimizer state for "
-                f"{len(o['mu'])} params, this run's optimizer trains "
-                f"{len(state.opt_state.mu)}; resume with the same "
-                "--freeze-backbone setting")
-
-        def on_dev(d):
-            return {k: v.to(dev) for k, v in d.items()}
-        state.opt_state = OptState(count=int(o["count"]), mu=on_dev(o["mu"]),
-                                   nu=on_dev(o["nu"]), acc=on_dev(o["acc"]),
-                                   mini_step=int(o["mini_step"]))
-        state.step = int(payload["step"])
-        state.seed = int(payload["seed"])
-        return state
+        return torch.load(self.step_dir(step) / STATE_FILE,
+                          map_location="cpu", weights_only=True)
 
     # ------------------------------------------------ integrity guard
     @property
@@ -449,6 +490,88 @@ class Checkpointer:
 
     def close(self) -> None:
         self.wait()
+
+
+class MeshCheckpointer:
+    """:class:`Checkpointer` of a train state sharded over a dp x tp x pp
+    mesh, in the one-card format, so a mesh run resumes on one card and a
+    one-card run on a mesh. Every rank holds one and calls each method
+    (they are collectives); rank 0 alone writes: it owns the
+    :class:`Checkpointer` (the async writer, the manifest, pins). A save
+    gathers params, ``mu``, ``nu`` and ``acc`` to rank 0 in the standard
+    layout (only the ranks at data coordinate 0 send); a restore reads on
+    rank 0 and sends every rank its slices."""
+
+    def __init__(self, directory: str | Path, mesh, **kwargs):
+        self.mesh = mesh
+        self.directory = Path(directory).absolute()
+        self.inner = (Checkpointer(directory, **kwargs) if mesh.rank == 0
+                      else None)
+
+    def latest_step(self) -> Optional[int]:
+        from .parallel.mesh import from_rank0
+        return from_rank0(self.mesh, self.inner and self.inner.latest_step)
+
+    def all_steps(self) -> List[int]:
+        from .parallel.mesh import from_rank0
+        return from_rank0(self.mesh, self.inner and self.inner.all_steps)
+
+    def save(self, state, *, force: bool = False) -> bool:
+        """Commit ``state`` as step ``state.step`` (asynchronously on rank 0
+        when its Checkpointer is async); False on every rank when that
+        step is already committed, unless ``force``."""
+        from .parallel.mesh import from_rank0
+        from .parallel.sharding import gather_to_rank0
+        inner = self.inner
+        step = int(state.step)
+        if not force and from_rank0(
+                self.mesh,
+                lambda: inner.wait() or inner.step_dir(step).is_dir()):
+            return False
+        full = gather_to_rank0(_state_tensors(state), self.mesh)
+        if inner is None:
+            return True
+        return inner.save_parts(full, _scalars(state), force=force)
+
+    def restore(self, state, step: Optional[int] = None, *,
+                verify: bool = True):
+        """Load step ``step`` (default: the latest) into every rank's
+        ``state``: its slices of the params in place, of the optimizer
+        state on the params' device, ``step`` and ``seed``."""
+        from .parallel.mesh import from_rank0
+        from .parallel.sharding import (_num_layers, block_index,
+                                        scatter_from_rank0, stage_layers)
+        inner = self.inner
+        full = None
+        if inner is not None:
+            try:
+                full = inner.load_payload(step, verify=verify)
+                # Rank 0's optimizer holds its pipeline stage's names.
+                layers = stage_layers(_num_layers(full["params"]),
+                                      self.mesh)
+                _refuse_other_trainables(
+                    full["step"],
+                    {k for k in full["opt_state"]["mu"]
+                     if block_index(k) in (None, *layers)}, state)
+            except Exception as e:  # noqa: BLE001 — raised on every rank
+                full = e
+        groups = None
+        if inner is not None:
+            groups = full if isinstance(full, BaseException) else {
+                "params": full["params"],
+                **{g: full["opt_state"][g] for g in ("mu", "nu", "acc")}}
+        mine = scatter_from_rank0(groups, self.mesh)
+        scalars = from_rank0(self.mesh, lambda: {
+            "count": int(full["opt_state"]["count"]),
+            "mini_step": int(full["opt_state"]["mini_step"]),
+            "step": int(full["step"]), "seed": int(full["seed"])})
+        return _apply_payload(state, mine.pop("params"), mine, scalars)
+
+    def wait(self) -> None:
+        """Rank 0: block until the save in flight is durable (and raise
+        its writer's error); the other ranks write nothing."""
+        if self.inner is not None:
+            self.inner.wait()
 
 
 def save_model(params: Mapping[str, torch.Tensor], target_dir: str | Path,

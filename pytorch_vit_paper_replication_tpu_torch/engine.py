@@ -248,8 +248,8 @@ def train(state: TrainState, train_batches: Callable[[], Iterable[Batch]],
           checkpoint_every_epochs: int = 1,
           lr_schedule: Optional[Callable[[int], float]] = None,
           telemetry=None,
-          stop_check: Optional[Callable[[int], bool]] = None
-          ) -> Tuple[TrainState, Dict[str, list]]:
+          stop_check: Optional[Callable[[int], bool]] = None,
+          batch_shards: int = 1) -> Tuple[TrainState, Dict[str, list]]:
     """The epoch loop (reference ``engine.train``): per epoch the train
     steps, then one eval pass; returns ``(state, {"train_loss", "train_acc",
     "test_loss", "test_acc"})``.
@@ -280,7 +280,9 @@ def train(state: TrainState, train_batches: Callable[[], Iterable[Batch]],
     profiler's capture windows before a step's dispatch, and closes each
     epoch with a goodput summary row. ``profile_dir`` traces the first
     epoch with ``torch.profiler`` (``metrics.profile_trace``). With
-    neither, their only cost is two clock reads a step."""
+    neither, their only cost is two clock reads a step. On a mesh each
+    batch is a rank's ``data`` slice: ``batch_shards`` (the data axis
+    size) makes telemetry count the global batch's images."""
     from .compile_cache import seconds_since_process_start
     from .metrics import block_until_ready, profile_trace
 
@@ -330,7 +332,7 @@ def train(state: TrainState, train_batches: Callable[[], Iterable[Batch]],
                     telemetry.step(
                         data_wait_s=t_step - t_wait,
                         exec_s=time.perf_counter() - t_step,
-                        images=int(batch["label"].shape[0]),
+                        images=int(batch["label"].shape[0]) * batch_shards,
                         step=global_step, epoch=epoch_no, blocked=blocked)
                 if (checkpoint_every_steps and checkpointer is not None
                         and global_step % checkpoint_every_steps == 0):

@@ -151,16 +151,14 @@ class RecipeOptimizer:
     @torch.no_grad()
     def apply(self, params: Mapping[str, torch.Tensor],
               grads: Mapping[str, torch.Tensor], state: OptState, *,
-              norm: Optional[torch.Tensor] = None) -> bool:
-        """One (micro-)step; returns whether params were updated. ``norm``
-        is the clip's norm of the trainable gradients when the caller has
-        it (a sharded step passes the norm of the unsharded gradient), else
-        :func:`global_norm` of ``grads``; with accumulation the clip takes
-        the norm of the accumulated mean, so ``norm`` must be None."""
-        if norm is not None and self.accum > 1:
-            raise ValueError("norm= is the norm of this step's gradient; "
-                             "with grad_accum_steps > 1 the clip takes the "
-                             "norm of the accumulated mean")
+              norm_fn: Optional[Callable[[Dict[str, torch.Tensor]],
+                                         torch.Tensor]] = None) -> bool:
+        """One (micro-)step; returns whether params were updated.
+        ``norm_fn(named gradients)`` gives the clip's norm of the trainable
+        gradient the update applies (with accumulation the accumulated
+        mean, on the k-th micro-step only): a sharded step passes the norm
+        of the unsharded gradient (:func:`sharded_global_norm`); default
+        :func:`global_norm`."""
         names = list(state.mu)
         gs = [grads[n].float() for n in names]
         if self.accum > 1:
@@ -177,8 +175,8 @@ class RecipeOptimizer:
                 a.zero_()
             state.mini_step = 0
         cfg = self.cfg
-        if norm is None:
-            norm = global_norm(gs)
+        norm = (global_norm(gs) if norm_fn is None
+                else norm_fn(dict(zip(names, gs))))
         clipped = [torch.where(norm < cfg.grad_clip_norm, g,
                                g / norm * cfg.grad_clip_norm) for g in gs]
         mask = decay_mask({n: params[n] for n in names})

@@ -19,17 +19,29 @@ over ``pipe`` (only the first and last stage compute them), one of every
 gradient over ``data``, the clip norm over the whole unsharded gradient
 (:func:`..optim.sharded_global_norm`), and the metrics summed over
 ``data`` and ``pipe`` so every rank returns the global ones. The optimizer
-updates the local shards; its moments are elementwise, so they are the
-single-device moments' slices.
+updates the local shards; its moments and its accumulator are elementwise,
+so they are the single-device ones' slices.
+
+The step is JAX's ``engine.make_train_step`` on a mesh: label smoothing,
+the NaN guard (one nonfinite flag reduced over every rank, so all ranks
+skip the same step), the distillation objective (``teacher_logits`` is a
+batch key like any other: sharded over ``data``, split per microbatch,
+read by the loss on the last stage) and gradient accumulation (the
+optimizer's ``optax.MultiSteps`` counterpart: each rank accumulates its
+local shards; on the k-th micro-step the clip takes the sharded norm of
+the accumulated mean). A model other than the pipelined ViT (TinyVGG)
+trains on a data-only mesh: its full params on every rank, gradients
+summed over ``data``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 
-from ..engine import TrainState, _to, cross_entropy_loss, step_generator
+from ..engine import (TrainState, _to, cross_entropy_loss, distill_loss,
+                      step_generator)
 from ..optim import sharded_global_norm
 from .collectives import all_reduce
 from .pipeline import PipelineViT, dropout_seeds
@@ -50,21 +62,22 @@ def shard_batch(batch: Mapping[str, Any], mesh) -> Dict[str, Any]:
     return out
 
 
+def _data_only(mesh) -> bool:
+    return all(mesh.shape[a] == 1 for a in ("model", "seq", "pipe"))
+
+
 def shard_train_state(state: TrainState, mesh) -> TrainState:
     """The rank's train state: the rank-local model (a
-    :class:`.pipeline.PipelineViT` holding its slices) and its optimizer
-    state on ``mesh.device``. The parallel step hands the optimizer the
-    clip norm of the whole unsharded gradient; it takes no gradient
-    accumulation (``grad_accum_steps > 1`` raises)."""
+    :class:`.pipeline.PipelineViT` holding its slices, or on a data-only
+    mesh any model holding the full params) and its optimizer state on
+    ``mesh.device``."""
     model = state.model
-    if not isinstance(model, PipelineViT) or model.mesh is not mesh:
+    pipelined = isinstance(model, PipelineViT) and model.mesh is mesh
+    if not pipelined and (isinstance(model, PipelineViT)
+                          or not _data_only(mesh)):
         raise ValueError("shard_train_state needs the model of "
                          "make_pipeline_apply(cfg, mesh, ...) with the rank's "
-                         "slices loaded")
-    if state.tx.accum > 1:
-        raise NotImplementedError("the parallel train step takes no "
-                                  "gradient accumulation (grad_accum_steps "
-                                  f"= {state.tx.accum})")
+                         "slices loaded (any model on a data-only mesh)")
     model.to(mesh.device)
     opt = state.opt_state
     for moments in (opt.mu, opt.nu, opt.acc):
@@ -84,7 +97,7 @@ def _reduce_flat(tensors, group) -> None:
         offset += t.numel()
 
 
-def _sync_grads(model: PipelineViT, mesh) -> Dict[str, torch.Tensor]:
+def _sync_grads(model, mesh) -> Dict[str, torch.Tensor]:
     """Every parameter's full-batch gradient on this rank: the replicated
     embedding and tail summed over ``pipe`` (zeros where a stage did not
     compute them), then everything summed over ``data``."""
@@ -114,14 +127,30 @@ def _global_metrics(metrics: Dict[str, torch.Tensor], mesh
 
 
 def make_parallel_train_step(state: TrainState, mesh, *,
-                             label_smoothing: float = 0.0):
+                             label_smoothing: float = 0.0,
+                             nan_guard: bool = False,
+                             distill_alpha: Optional[float] = None,
+                             distill_t: float = 1.0):
     """The train step ``(state, local batch) -> (state, metrics)`` on every
     rank: ``loss_sum``, ``correct``, ``count`` of the global batch and
-    ``grad_norm`` (the unclipped global norm), equal on every rank."""
+    ``grad_norm`` (the unclipped global norm of this micro-step's
+    gradient), plus ``teacher_agree`` when distilling and ``skipped`` with
+    ``nan_guard``, equal on every rank. The keyword arguments are
+    :func:`..engine.make_train_step`'s: a skipped step applies no update
+    (params, optimizer state, accumulator and schedule position stay),
+    adds zeros to the sums and still advances ``state.step``."""
     model = state.model
-    cfg = model.config
     dev = mesh.device
     dp = mesh.shape["data"]
+    pipelined = isinstance(model, PipelineViT)
+    distill = distill_alpha is not None
+
+    def objective(logits, rows):
+        if distill:
+            return distill_loss(logits, rows["teacher_logits"], rows["label"],
+                                t=distill_t, alpha=distill_alpha,
+                                label_smoothing=label_smoothing)
+        return cross_entropy_loss(logits, rows["label"], label_smoothing)
 
     def train_step(state: TrainState, batch):
         model.train()
@@ -131,32 +160,57 @@ def make_parallel_train_step(state: TrainState, mesh, *,
         for p in model.parameters():
             p.grad = None
         gen = step_generator(state.seed, state.step)
-        seeds = dropout_seeds(gen, mesh, cfg.num_layers,
-                              model.num_microbatches)
+        targets = {k: b[k] for k in ("label", "teacher_logits") if k in b}
 
-        def loss_fn(logits, labels):
+        def loss_fn(logits, rows):
             # The microbatch's share of the global-batch mean.
-            return cross_entropy_loss(logits, labels, label_smoothing) * (
-                labels.shape[0] / n_global)
+            return objective(logits, rows) * (rows["label"].shape[0]
+                                              / n_global)
 
-        out = model.forward_backward(b["image"], b["label"], seeds, loss_fn)
+        if pipelined:
+            seeds = dropout_seeds(gen, mesh, model.config.num_layers,
+                                  model.num_microbatches)
+            out = model.forward_backward(b["image"], targets, seeds, loss_fn)
+        else:
+            logits = model(b["image"], gen)
+            loss = loss_fn(logits, targets)
+            loss.backward()
+            out = [(logits.detach(), loss.detach())]
         zero = torch.zeros((), device=dev)
         metrics = {"loss_sum": zero, "correct": zero, "count": zero}
+        if distill:
+            metrics["teacher_agree"] = zero
         if out is not None:
             logits = torch.cat([o[0] for o in out])
             metrics = {
                 "loss_sum": torch.stack([o[1] for o in out]).sum() * n_global,
                 "correct": (logits.argmax(-1) == b["label"]).sum().float(),
                 "count": torch.tensor(float(n_local), device=dev)}
+            if distill:
+                metrics["teacher_agree"] = (
+                    logits.argmax(-1) == b["teacher_logits"].argmax(-1)
+                ).sum().float()
         metrics = _global_metrics(metrics, mesh)
         grads = _sync_grads(model, mesh)
         metrics["grad_norm"] = sharded_global_norm(grads, mesh)
-        trainable = state.opt_state.mu
-        clip_norm = (metrics["grad_norm"] if len(trainable) == len(grads)
-                     else sharded_global_norm(
-                         {n: grads[n] for n in trainable}, mesh))
-        state.tx.apply(dict(model.named_parameters()), grads,
-                       state.opt_state, norm=clip_norm)
+        ok = True
+        if nan_guard:
+            # One flag over every rank: each sees the same global loss and
+            # norm, and the reduction makes the skip one decision anyway.
+            bad = ~(torch.isfinite(metrics["loss_sum"])
+                    & torch.isfinite(metrics["grad_norm"]))
+            ok = not bool(all_reduce(bad.float(), None))
+            metrics = {k: v if ok else torch.zeros_like(v)
+                       for k, v in metrics.items()}
+            metrics["skipped"] = torch.tensor(0.0 if ok else 1.0, device=dev)
+        if ok:
+            norm = metrics["grad_norm"]
+            whole = (state.tx.accum == 1
+                     and len(state.opt_state.mu) == len(grads))
+            state.tx.apply(dict(model.named_parameters()), grads,
+                           state.opt_state,
+                           norm_fn=(lambda gs: norm) if whole else
+                           (lambda gs: sharded_global_norm(gs, mesh)))
         for p in model.parameters():
             p.grad = None
         state.step += 1
@@ -175,7 +229,8 @@ def make_parallel_eval_step(state: TrainState, mesh):
     def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         model.eval()
         b = _to(batch, dev)
-        logits = model(b["image"])
+        with torch.no_grad():
+            logits = model(b["image"])
         zero = torch.zeros((), device=dev)
         metrics = {"loss_sum": zero, "correct": zero, "count": zero}
         if logits is not None:

@@ -6,10 +6,11 @@ process, and :func:`make_mesh` gives it the same coordinates (row-major over
 ``AXES`` in rank order) and one ``torch.distributed`` process group per
 axis: the ranks that differ from this one only along that axis.
 
-:func:`spawn` starts the ranks (``torch.multiprocessing``, spawn context),
-rendezvouses them through a ``FileStore`` in a temporary directory (no TCP
-port, so parallel test workers cannot collide), and joins them with a
-timeout. The backend is chosen from the layout, never after a failure:
+:func:`spawn` starts the ranks (``torch.multiprocessing``, forkserver
+context with torch preloaded), rendezvouses them through a ``FileStore`` in
+a temporary directory (no TCP port, so parallel test workers cannot
+collide), and joins them with a timeout. The backend is chosen from the
+layout, never after a failure:
 
 * ``nccl`` when every rank gets a CUDA device of its own;
 * ``gloo`` when ranks share one device: the CPU, or one card that several
@@ -65,12 +66,16 @@ class Mesh:
     @property
     def transport(self) -> str:
         """How tensors move between this rank and the others."""
-        if self.backend == "gloo" and self.device is not None and \
-                self.device.type == "cuda":
-            return ("gloo, through host memory: the ranks share "
-                    f"{self.device} and gloo takes no CUDA tensor for "
-                    "point-to-point transfers")
-        return self.backend
+        return describe_transport(
+            self.backend, self.device.type if self.device else "cpu")
+
+    def layout_of(self, rank: int) -> "Mesh":
+        """Global rank ``rank``'s coordinates on this mesh, without device
+        or groups (what the sharding rules read)."""
+        coords = np.unravel_index(rank, [self.shape[a] for a in AXES])
+        return Mesh(shape=dict(self.shape),
+                    coords={a: int(c) for a, c in zip(AXES, coords)},
+                    rank=rank, world=self.world)
 
     def rank_at(self, **coords: int) -> int:
         """The global rank at this rank's coordinates with ``coords``
@@ -78,6 +83,15 @@ class Mesh:
         c = {**self.coords, **coords}
         return int(np.ravel_multi_index([c[a] for a in AXES],
                                         [self.shape[a] for a in AXES]))
+
+
+def describe_transport(backend: str, device_type: str) -> str:
+    """How tensors move between the ranks of ``backend`` on
+    ``device_type``."""
+    if backend == "gloo" and device_type == "cuda":
+        return ("gloo, through host memory: the ranks share one card and "
+                "gloo takes no CUDA tensor for point-to-point transfers")
+    return backend
 
 
 def mesh_layout(config: MeshConfig, world: int, rank: int = 0) -> Mesh:
@@ -110,6 +124,23 @@ def make_mesh(config: MeshConfig, *, device: torch.device) -> Mesh:
             if rank in line:
                 mesh.groups[axis] = group
     return mesh
+
+
+def from_rank0(mesh: Mesh, fn: Callable[[], Any]) -> Any:
+    """Collective over every rank: ``fn()`` runs on rank 0 alone and its
+    value is returned on every rank; an exception it raises (a refusal's
+    ``SystemExit`` too) is raised on every rank."""
+    box: List[Any] = [None]
+    if mesh.rank == 0:
+        try:
+            box = [(True, fn())]
+        except (Exception, SystemExit) as e:  # noqa: BLE001 — re-raised
+            box = [(False, e)]
+    dist.broadcast_object_list(box, src=0)
+    ok, value = box[0]
+    if not ok:
+        raise value
+    return value
 
 
 def _rank_main(rank: int, world: int, call_path: str, config: MeshConfig,
@@ -158,18 +189,22 @@ def backend_for(device: str, world: int) -> str:
 
 
 def spawn(fn: Callable, mesh_config: MeshConfig, *, device: str = "cuda",
-          timeout_s: float = 120.0, args: Sequence = ()) -> List[Any]:
+          timeout_s: float = 120.0, wait_while_alive: bool = False,
+          args: Sequence = ()) -> List[Any]:
     """Run ``fn(mesh, *args)`` on one rank process per device of
     ``mesh_config`` (the product of its sizes, which must all be given);
     returns each rank's return value, in rank order.
 
     ``fn`` must be importable by name (a module-level function), and its
     return value picklable. ``device``: ``"cuda"`` (the default) or
-    ``"cpu"`` (see the module docstring for the backend). Raises
-    RuntimeError with the traceback when a rank fails, TimeoutError when
-    the ranks have not all finished within ``timeout_s`` (the ranks'
-    collectives time out after the same span); every rank process is
-    ended either way."""
+    ``"cpu"`` (see the module docstring for the backend). Every
+    collective and transfer of a rank times out after ``timeout_s``. The
+    join waits as long: TimeoutError when the ranks have not all finished
+    within ``timeout_s``; with ``wait_while_alive`` (a training run
+    outlives any one collective's bound) it waits while every rank is
+    alive, so a hung rank fails the run through the others' collective
+    timeouts. Raises RuntimeError with the traceback when a rank fails or
+    exits without a result; every rank process is ended either way."""
     if device not in ("cpu", "cuda"):
         raise ValueError(f"device must be 'cpu' or 'cuda', got {device!r}")
     if device == "cuda" and not torch.cuda.is_available():
@@ -181,7 +216,12 @@ def spawn(fn: Callable, mesh_config: MeshConfig, *, device: str = "cuda",
              * max(1, mesh_config.seq) * max(1, mesh_config.pipe))
     mesh_config.axis_sizes(world)      # validate before starting anything
     backend = backend_for(device, world)
-    ctx = torch.multiprocessing.get_context("spawn")
+    # The ranks fork from a server process that has imported torch once
+    # (started at the first call, reused after), instead of importing it
+    # each: seconds a rank, tens of seconds when several start together.
+    # The server never touches CUDA, so each rank initializes its own.
+    ctx = torch.multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch"])
     results = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="vit_mesh_")
     # The call goes through a file: a start() whose pickled arguments
@@ -196,7 +236,8 @@ def spawn(fn: Callable, mesh_config: MeshConfig, *, device: str = "cuda",
     try:
         for p in procs:
             p.start()
-        return _collect(procs, results, timeout_s)
+        return _collect(procs, results,
+                        None if wait_while_alive else timeout_s)
     finally:
         for p in procs:
             if p.pid is None:       # never started
@@ -207,14 +248,14 @@ def spawn(fn: Callable, mesh_config: MeshConfig, *, device: str = "cuda",
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _collect(procs, results, timeout_s: float) -> List[Any]:
+def _collect(procs, results, timeout_s: Optional[float]) -> List[Any]:
     """Drain ``results`` until every rank reported; raise on a failure, a
-    rank that died without reporting, or the deadline."""
+    rank that died without reporting, or the deadline (None: none)."""
     out: Dict[int, Any] = {}
-    deadline = time.monotonic() + timeout_s
+    deadline = None if timeout_s is None else time.monotonic() + timeout_s
     dead_since: Dict[int, float] = {}
     while len(out) < len(procs):
-        left = deadline - time.monotonic()
+        left = 0.5 if deadline is None else deadline - time.monotonic()
         if left <= 0:
             missing = sorted(set(range(len(procs))) - set(out))
             raise TimeoutError(f"ranks {missing} did not finish within "
@@ -233,6 +274,12 @@ def _collect(procs, results, timeout_s: float) -> List[Any]:
                                        f"{p.exitcode} without a result")
             continue
         if not ok:
-            raise RuntimeError(f"rank {rank} failed:\n{value}")
+            # A rank that died first (a watchdog ending it, a crash) is
+            # often why this one's collective failed: name it too.
+            dead = "".join(
+                f"\nrank {r} exited with code {p.exitcode} without a result"
+                for r, p in enumerate(procs)
+                if r != rank and r not in out and not p.is_alive())
+            raise RuntimeError(f"rank {rank} failed:\n{value}{dead}")
         out[rank] = pickle.loads(value)
     return [out[r] for r in range(len(procs))]

@@ -209,15 +209,18 @@ class PipelineViT(nn.Module):
                     send(out, self.mesh.rank_at(pipe=self.stage + 1))
         return torch.cat(logits) if self.last else None
 
-    def forward_backward(self, images: torch.Tensor, labels: torch.Tensor,
+    def forward_backward(self, images: torch.Tensor,
+                         targets: Mapping[str, torch.Tensor],
                          seeds: Sequence[Sequence[int]], loss_fn
                          ) -> Optional[List[torch.Tensor]]:
         """One GPipe pass in training mode: the forward of every
         microbatch, then the backward in reverse order, accumulating into
-        the parameters' ``.grad``. ``loss_fn(logits, labels)`` gives the
-        microbatch's loss to differentiate. Returns the detached per-
-        microbatch ``(logits, loss)`` pairs on the last stage, None on the
-        others."""
+        the parameters' ``.grad``. ``targets`` holds the rows the loss
+        reads (``label``, and ``teacher_logits`` when distilling), split
+        per microbatch like the images; ``loss_fn(logits, rows)`` gives a
+        microbatch's loss to differentiate, on the last stage only.
+        Returns the detached per-microbatch ``(logits, loss)`` pairs on the
+        last stage, None on the others."""
         dev = self.mesh.device
         m_count = self.num_microbatches
         mb = images.shape[0] // m_count
@@ -236,7 +239,8 @@ class PipelineViT(nn.Module):
                 x = recv(shape, dtype, dev, prev).requires_grad_()
             out = self._stage(x, seeds[m], remat)
             if self.last:
-                out = (out, loss_fn(out, labels[rows]))
+                out = (out, loss_fn(out, {k: v[rows]
+                                          for k, v in targets.items()}))
             else:
                 send(out, nxt)
             saved.append((x, out))

@@ -130,16 +130,72 @@ def assemble_state_dict(parts: Sequence[Tuple[Dict[str, int],
     return full
 
 
-def gather_state_dict(local: Mapping[str, torch.Tensor],
-                      mesh) -> Dict[str, torch.Tensor]:
-    """Collective over every rank: the full standard-layout ``state_dict``
-    (CPU tensors) from each rank's local one."""
+def _holders(mesh) -> list:
+    """The ranks whose local states together hold the whole state: data
+    (and seq) coordinate 0, rank 0 first."""
+    return [r for r in range(mesh.world)
+            if mesh.layout_of(r).coords["data"] == 0
+            and mesh.layout_of(r).coords["seq"] == 0]
+
+
+def gather_to_rank0(groups: Mapping[str, Mapping[str, torch.Tensor]],
+                    mesh) -> Optional[Dict[str, Dict[str, torch.Tensor]]]:
+    """Collective over every rank: each group of ``groups`` (named
+    ``state_dict``-like maps of the rank's local tensors: params, Adam
+    moments, ...) as the full standard-layout map on rank 0 (CPU
+    tensors), None on the other ranks. Only the ranks at data coordinate 0
+    send, each its slices once, point to point to rank 0."""
     import torch.distributed as dist
 
-    parts = [None] * mesh.world
-    dist.all_gather_object(parts, (dict(mesh.coords), {
-        k: v.detach().cpu() for k, v in local.items()}))
-    return assemble_state_dict(parts)
+    # Copies: on the CPU .cpu() would alias the live tensors.
+    local = {g: {k: v.detach().to("cpu", copy=True) for k, v in d.items()}
+             for g, d in groups.items()}
+    holders = _holders(mesh)
+    if mesh.rank != 0:
+        if mesh.rank in holders:
+            dist.send_object_list([local], dst=0)
+        return None
+    parts = [(dict(mesh.coords), local)]
+    for r in holders[1:]:
+        box = [None]
+        dist.recv_object_list(box, src=r)
+        parts.append((mesh.layout_of(r).coords, box[0]))
+    return {g: assemble_state_dict([(c, p[g]) for c, p in parts])
+            for g in local}
+
+
+def scatter_from_rank0(full, mesh) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Collective over every rank, the inverse of :func:`gather_to_rank0`:
+    rank 0 passes each group's full standard-layout map (the other ranks
+    pass None) and every rank returns its slices of each group
+    (:func:`shard_state_dict`, CPU tensors), sent point to point. Rank 0
+    may pass an exception instead: every rank raises it."""
+    import torch.distributed as dist
+
+    if mesh.rank == 0:
+        for r in range(1, mesh.world):
+            part = full if isinstance(full, BaseException) else {
+                g: shard_state_dict(d, mesh.layout_of(r))
+                for g, d in full.items()}
+            dist.send_object_list([part], dst=r)
+        mine = full if isinstance(full, BaseException) else {
+            g: shard_state_dict(d, mesh) for g, d in full.items()}
+    else:
+        box = [None]
+        dist.recv_object_list(box, src=0)
+        mine = box[0]
+    if isinstance(mine, BaseException):
+        raise mine
+    return mine
+
+
+def gather_state_dict(local: Mapping[str, torch.Tensor],
+                      mesh) -> Optional[Dict[str, torch.Tensor]]:
+    """Collective over every rank: the full standard-layout ``state_dict``
+    (CPU tensors) on rank 0 from each rank's local one, None on the other
+    ranks (:func:`gather_to_rank0`)."""
+    full = gather_to_rank0({"params": local}, mesh)
+    return None if full is None else full["params"]
 
 
 def validate_tp_divisibility(config, mesh) -> None:

@@ -23,8 +23,9 @@ per-epoch summary row (step p50/p95/p99, data-wait fraction, goodput %).
 Live gauges: ``tel_images_per_sec`` over the sampling window and
 ``tel_mfu`` — analytic model FLOPs (:mod:`.flops`) against the card's
 bf16 dense peak, given by the caller from :func:`.flops.bf16_peak_tflops`
-(None = no peak for this card: the gauge is left out). The trainer runs
-on one card, so the per-card rate is the rate. On the honesty-barrier
+(None = no peak for this card: the gauge is left out). On a mesh the
+caller gives the peak of the distinct cards the ranks run on and the
+global batch's images. On the honesty-barrier
 cadence, where the card has just caught up with the host, the
 device-memory watermark gauges are sampled too
 (:func:`.profiling.sample_device_memory`).

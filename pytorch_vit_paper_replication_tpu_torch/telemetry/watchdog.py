@@ -32,7 +32,7 @@ import sys
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 from .registry import TelemetryRegistry, dump_events_jsonl, get_registry
 
@@ -90,6 +90,9 @@ class Watchdog:
         accumulates its history in one file).
       registry: where stall counters/events publish and whose event
         ring the dump includes; default process-global.
+      on_stall: called with the postmortem's path after a stall dump
+        (a rank of a mesh ends its process there: a stall on any rank
+        fails the run).
 
     The checker polls every ``deadline_s / 4`` (clamped to 0.05-5 s);
     until the first beat it judges against :data:`FIRST_GRACE_FACTOR`
@@ -98,12 +101,14 @@ class Watchdog:
 
     def __init__(self, deadline_s: float, *,
                  postmortem_path: str | Path = "postmortem.txt",
-                 registry: Optional[TelemetryRegistry] = None):
+                 registry: Optional[TelemetryRegistry] = None,
+                 on_stall: Optional[Callable[[Path], None]] = None):
         if deadline_s <= 0:
             raise ValueError("deadline_s must be > 0")
         self.deadline_s = float(deadline_s)
         self.postmortem_path = Path(postmortem_path)
         self.registry = registry if registry is not None else get_registry()
+        self.on_stall = on_stall
         self.poll_s = min(max(self.deadline_s / 4.0, 0.05), 5.0)
         self._last_beat = time.monotonic()
         self._beat_seen = False
@@ -155,7 +160,9 @@ class Watchdog:
             if silent > deadline and not self._stalled:
                 self._stalled = True
                 self.registry.count("watchdog_stalls_total")
-                self.dump(reason="stall", silent_s=silent)
+                path = self.dump(reason="stall", silent_s=silent)
+                if self.on_stall is not None:
+                    self.on_stall(path)
 
     # --------------------------------------------------------------- dump
     def dump(self, *, reason: str, silent_s: Optional[float] = None

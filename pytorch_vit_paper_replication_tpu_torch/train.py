@@ -28,9 +28,28 @@ It runs on ``cuda`` unless ``--device cpu`` is given (then the kernels'
 plain PyTorch versions run); without a card it raises ``no CUDA device``.
 Checkpoint saves are asynchronous unless ``--sync-checkpoints``. The flags
 keep the JAX CLI's names, defaults and semantics. Those whose path is not
-ported yet (elastic and multi-card meshes, TensorBoard, the compile cache)
-are parsed and refused with ``... not yet ported (ROADMAP Queue 1 item
-N)`` when given a value other than their default. ``--metrics-port``
+ported yet (sequence parallelism, multihost and elastic runs, TensorBoard,
+the compile cache) are parsed and refused with ``... not yet ported
+(ROADMAP Queue 1 item N)`` when given a value other than their default.
+
+A data x tensor x pipeline mesh (``--mesh-data D --mesh-model M
+--mesh-pipe P [--pipe-microbatches K]``; ``--mesh-data -1``, the default,
+is every remaining card) runs the same command on D x M x P ranks::
+
+    python -m pytorch_vit_paper_replication_tpu_torch.train --synthetic \
+        --mesh-data 2 --mesh-model 2 --mesh-pipe 2 --grad-accum 2 \
+        --checkpoint-dir runs/mesh
+
+This process is the launcher: it makes the JAX CLI's mesh checks, the
+initial weights, then starts one rank process per device
+(``parallel.spawn``: NCCL when every rank has a card of its own, gloo
+when they share one), each holding its slices (``parallel/``). Rank 0
+alone prints, logs, serves the sinks and writes files; checkpoints and
+``final/`` are gathered to it in the one-card format, so one card resumes
+a mesh run and the one-card ``predict`` and ``serve`` read its export.
+Every rank decodes the whole global batch and keeps its data slice. A
+rank that fails (or whose ``--watchdog-s`` fires) fails the run with its
+traceback. ``--metrics-port``
 serves the registry as Prometheus text on ``/metrics``; ``--ship-to
 HOST:PORT`` pushes registry frames (role ``train``) to a fleet aggregator
 every ``--ship-interval-s``, one last frame at exit.
@@ -67,23 +86,36 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
+import importlib
+import io
 import json
+import os
+import sys
 import tempfile
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Dict, Optional
 
 import torch
 
 from . import engine
-from .checkpoint import Checkpointer, load_model, save_model
-from .configs import PRESETS, TrainConfig, ViTConfig
-from .convert import seeded_state
-from .data import create_dataloaders, make_synthetic_image_folder, pad_batch
+from .checkpoint import (Checkpointer, MeshCheckpointer, load_model,
+                         save_model)
+from .configs import PRESETS, MeshConfig, TrainConfig, ViTConfig
+from .convert import rank_local_params, seeded_state
+from .data import (create_dataloaders, make_fake_cifar10,
+                   make_synthetic_image_folder, pad_batch)
 from .data.image_folder import prefetch_to_device
 from .data.transforms import make_transform
 from .metrics import MetricsLogger
 from .models import TinyVGG, ViT
 from .optim import head_only_label_fn, make_lr_schedule, make_optimizer
+from .parallel import (from_rank0, gather_state_dict, make_pipeline_apply,
+                       make_parallel_eval_step, make_parallel_train_step,
+                       mesh_layout, scatter_from_rank0, shard_batch,
+                       shard_train_state, spawn, validate_mesh_for_config,
+                       validate_pipeline)
 from .predictions import resolve_device, write_model_meta
 from .telemetry.profiling import parse_profile_steps
 from .transfer import init_from_pretrained
@@ -94,8 +126,7 @@ from .utils.seeding import set_seeds
 
 # Flags of the JAX CLI whose path the port does not have yet, by the
 # ROADMAP Queue 1 item that brings it. Parsed with the JAX defaults; any
-# other value exits non-zero (--mesh-data is checked on its own: -1 and 1
-# both mean the one card).
+# other value exits non-zero.
 NOT_PORTED: Dict[str, int] = {
     "compile_cache_dir": 9,
     "elastic": 7, "elastic_backend": 7, "elastic_heartbeat_s": 7,
@@ -103,8 +134,7 @@ NOT_PORTED: Dict[str, int] = {
     "elastic_local_devices": 7, "elastic_rendezvous": 7,
     "elastic_worker_id": 7, "elastic_process_count": 7,
     "elastic_generation": 7, "elastic_collective": 7,
-    "mesh_model": 7, "mesh_seq": 7, "mesh_pipe": 7, "pipe_microbatches": 7,
-    "multihost": 7, "sp_impl": 7,
+    "mesh_seq": 7, "multihost": 7, "sp_impl": 7,
     "tensorboard_dir": 11,
 }
 
@@ -378,24 +408,35 @@ def refuse_unported(parser: argparse.ArgumentParser,
             "dropout draws from torch.Generator streams seeded by (seed, "
             "step) and the kernels' positional hash (ROADMAP Queue 3, "
             "known divergence)")
-    if args.mesh_data not in (-1, 1):
-        raise SystemExit("--mesh-data other than 1 is not yet ported "
-                         "(ROADMAP Queue 1 item 7)")
+
+
+def materialize_synthetic(args) -> argparse.Namespace:
+    """``--synthetic``: make the image folder (or the fake CIFAR-10) once,
+    before the run splits into one card or a mesh, and return args that
+    name its directories (every mesh rank reads the same files)."""
+    if not args.synthetic or args.dataset == "packed":
+        return args
+    args = copy.copy(args)
+    if args.dataset == "cifar10":
+        args.data_root = str(make_fake_cifar10(
+            Path(tempfile.mkdtemp(prefix="cifar_fake_"))))
+    else:
+        train_dir, test_dir = make_synthetic_image_folder(
+            Path(tempfile.mkdtemp(prefix="vit_synth_")),
+            train_per_class=args.synthetic_per_class,
+            test_per_class=max(1, args.synthetic_per_class // 4),
+            image_size=args.image_size, noise_sigma=args.synthetic_noise)
+        args.train_dir, args.test_dir = str(train_dir), str(test_dir)
+    args.synthetic = False
+    return args
 
 
 def folder_loaders(args, loader_kwargs: dict, transform_spec: dict):
     """(train, test, classes) of ``--dataset imagefolder``."""
-    if args.synthetic:
-        tmp = Path(tempfile.mkdtemp(prefix="vit_synth_"))
-        train_dir, test_dir = make_synthetic_image_folder(
-            tmp, train_per_class=args.synthetic_per_class,
-            test_per_class=max(1, args.synthetic_per_class // 4),
-            image_size=args.image_size, noise_sigma=args.synthetic_noise)
-    else:
-        if not args.train_dir or not args.test_dir:
-            raise SystemExit(
-                "--train-dir/--test-dir required (or pass --synthetic)")
-        train_dir, test_dir = args.train_dir, args.test_dir
+    if not args.train_dir or not args.test_dir:
+        raise SystemExit(
+            "--train-dir/--test-dir required (or pass --synthetic)")
+    train_dir, test_dir = args.train_dir, args.test_dir
     transform = make_transform(**transform_spec)
     if args.augment:
         # Augment the train split only; eval (and predict, via
@@ -414,18 +455,15 @@ def folder_loaders(args, loader_kwargs: dict, transform_spec: dict):
 
 def cifar_loaders(args, loader_kwargs: dict, transform_spec: dict):
     """(train, test, classes) of ``--dataset cifar10``: the archive at
-    ``--data-root`` (``--synthetic``: a seeded fake one), resized per item
-    to ``--image-size``. transform.json records that plain square resize."""
-    from .data import (DataLoader, ResizedArrayDataset, load_cifar10,
-                       make_fake_cifar10)
+    ``--data-root`` (``--synthetic`` puts a seeded fake one there), resized
+    per item to ``--image-size``. transform.json records that plain square
+    resize."""
+    from .data import DataLoader, ResizedArrayDataset, load_cifar10
     transform_spec["pretrained"] = False
-    if args.synthetic:
-        root = make_fake_cifar10(Path(tempfile.mkdtemp(prefix="cifar_fake_")))
-    elif args.data_root:
-        root = args.data_root
-    else:
+    if not args.data_root:
         raise SystemExit("--data-root required for --dataset cifar10 (or "
                          "pass --synthetic)")
+    root = args.data_root
     train_ds, test_ds = load_cifar10(root)
     train_ds = ResizedArrayDataset(train_ds, args.image_size,
                                    normalize=transform_spec["normalize"])
@@ -484,16 +522,33 @@ def initial_params(model: torch.nn.Module,
     return seeded_state(model, seed)
 
 
+def mesh_request(args) -> Optional[MeshConfig]:
+    """The mesh of ``--mesh-data/-model/-pipe``, None for a world of one
+    process. ``--mesh-data -1`` is every remaining card under ``--device
+    cuda`` (the card count over model x pipe, at least 1), 1 on any other
+    device."""
+    model, pipe = max(1, args.mesh_model), max(1, args.mesh_pipe)
+    data = args.mesh_data
+    if data == -1:
+        data = (max(1, torch.cuda.device_count() // (model * pipe))
+                if args.device == "cuda" else 1)
+    if data < 1:
+        raise SystemExit(f"--mesh-data must be -1 (every remaining card) "
+                         f"or >= 1, got {args.mesh_data}")
+    if data * model * pipe == 1:
+        return None
+    return MeshConfig(data=data, model=model, pipe=pipe)
+
+
 def main(argv=None) -> dict:
     parser = build_parser()
     args = parser.parse_args(argv)
     refuse_unported(parser, args)
     # A typo'd window or address must fail before the data and model
     # set-up.
-    profile_window = None
     if args.profile_steps:
         try:
-            profile_window = parse_profile_steps(args.profile_steps)
+            parse_profile_steps(args.profile_steps)
         except ValueError as e:
             raise SystemExit(str(e))
     if args.ship_to:
@@ -502,8 +557,28 @@ def main(argv=None) -> dict:
             parse_address(args.ship_to)
         except ValueError as e:
             raise SystemExit(f"--ship-to: {e}")
-    dev = resolve_device(args.device)
+    mesh_cfg = mesh_request(args)
+    args = materialize_synthetic(args)
+    if mesh_cfg is not None:
+        return launch(args, mesh_cfg)
+    return run(args)
 
+
+def make_model(args, cfg: Optional[ViTConfig], num_classes: int):
+    """The whole model of ``--model`` (TinyVGG, or ViT on ``cfg``)."""
+    if cfg is None:
+        return TinyVGG(hidden_units=args.hidden_units,
+                       num_classes=num_classes, dtype=args.dtype,
+                       image_size=args.image_size)
+    return ViT(cfg)
+
+
+def prepare(args, mesh=None) -> SimpleNamespace:
+    """Everything the run decides before it builds the model: the loaders,
+    the teacher rows, the model config and the step counts, with every
+    check of the flags against the data and the mesh (the JAX CLI's, in
+    its order and with its messages). ``mesh`` is a rank's
+    :class:`.parallel.Mesh` or the launcher's layout of one."""
     cfg_kwargs = dict(image_size=args.image_size, dtype=args.dtype,
                       attention_impl=args.attention,
                       attention_softmax=args.attention_softmax,
@@ -562,33 +637,39 @@ def main(argv=None) -> dict:
     print(f"classes: {class_names} | train batches/epoch: {len(train_dl)}")
     distill_rows = load_teacher(args, train_dl, class_names)
 
-    # Model + state ---------------------------------------------------------
+    # Model config -----------------------------------------------------------
     if args.model == "tinyvgg":
         # Reference script-entry parity (going_modular train.py:39-43).
         if args.pretrained or args.freeze_backbone:
             raise SystemExit(
                 "--pretrained/--freeze-backbone apply to ViT only")
+        if args.mesh_model != 1 or args.mesh_seq != 1:
+            raise SystemExit("--model tinyvgg supports data parallelism "
+                             "only (no TP/SP shardings for a 2-block CNN)")
         cfg = None
-        model = TinyVGG(hidden_units=args.hidden_units,
-                        num_classes=len(class_names), dtype=args.dtype,
-                        image_size=args.image_size)
         model_name = f"TinyVGG({args.hidden_units})"
     else:
         cfg = PRESETS[args.preset](num_classes=len(class_names), **cfg_kwargs)
-        model = ViT(cfg)
         model_name = args.preset
-    if args.pretrained:
-        model.load_state_dict(init_from_pretrained(cfg, args.pretrained))
-        print(f"initialized backbone from {args.pretrained}")
-    else:
-        model.load_state_dict(initial_params(model, args.seed))
-    model.to(dev)
-    train_cfg = TrainConfig(
-        batch_size=args.batch_size, epochs=args.epochs,
-        learning_rate=args.lr, weight_decay=args.weight_decay,
-        warmup_fraction=args.warmup_fraction, grad_clip_norm=args.grad_clip,
-        label_smoothing=args.label_smoothing, seed=args.seed,
-        freeze_backbone=args.freeze_backbone)
+
+    # Mesh -------------------------------------------------------------------
+    microbatches = 1
+    if mesh is not None:
+        if args.batch_size % mesh.shape["data"] != 0:
+            raise SystemExit(
+                f"--batch-size {args.batch_size} not divisible by the mesh "
+                f"'data' axis size {mesh.shape['data']}")
+        if cfg is not None:
+            validate_mesh_for_config(cfg, mesh)
+        if mesh.shape["pipe"] > 1:
+            if cfg is None:
+                raise SystemExit("--mesh-pipe applies to --model vit only")
+            microbatches = args.pipe_microbatches or mesh.shape["pipe"]
+            try:
+                validate_pipeline(cfg, mesh, microbatches, args.batch_size)
+            except ValueError as e:
+                raise SystemExit(str(e))
+
     steps_per_epoch = len(train_dl)
     total_steps = steps_per_epoch * args.epochs
     accum = max(1, args.grad_accum)
@@ -603,6 +684,54 @@ def main(argv=None) -> dict:
         raise SystemExit(
             f"--grad-accum {accum} exceeds the run's {total_steps} total "
             "micro-steps: no optimizer update would ever be applied")
+    return SimpleNamespace(
+        train_dl=train_dl, test_dl=test_dl, class_names=class_names,
+        distill_rows=distill_rows, cfg=cfg, model_name=model_name,
+        transform_spec=transform_spec, microbatches=microbatches,
+        steps_per_epoch=steps_per_epoch, total_steps=total_steps,
+        accum=accum)
+
+
+def run(args, mesh=None, init: Optional[Dict[str, torch.Tensor]] = None
+        ) -> dict:
+    """The CLI's run in this process: on one device, or as one rank of a
+    mesh (``mesh`` the rank's :class:`.parallel.Mesh`, ``init`` the whole
+    model's initial params from the launcher). A rank holds its slices;
+    rank 0 alone logs, writes files and serves the sinks, every rank runs
+    the watchdog."""
+    profile_window = (parse_profile_steps(args.profile_steps)
+                      if args.profile_steps else None)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0
+    s = prepare(args, mesh)
+    cfg, train_dl, test_dl = s.cfg, s.train_dl, s.test_dl
+
+    # Model + state ---------------------------------------------------------
+    if mesh is not None and cfg is not None:
+        # Every ViT mesh (dp-only too) runs the pipelined model, with one
+        # stage when the pipe axis is 1.
+        model = make_pipeline_apply(cfg, mesh,
+                                    num_microbatches=s.microbatches)
+    else:
+        model = make_model(args, cfg, len(s.class_names))
+    if mesh is not None:
+        model.load_state_dict(rank_local_params(init, mesh))
+        if args.pretrained:
+            print(f"initialized backbone from {args.pretrained}")
+    elif args.pretrained:
+        model.load_state_dict(init_from_pretrained(cfg, args.pretrained))
+        print(f"initialized backbone from {args.pretrained}")
+    else:
+        model.load_state_dict(initial_params(model, args.seed))
+    model.to(dev)
+    train_cfg = TrainConfig(
+        batch_size=args.batch_size, epochs=args.epochs,
+        learning_rate=args.lr, weight_decay=args.weight_decay,
+        warmup_fraction=args.warmup_fraction, grad_clip_norm=args.grad_clip,
+        label_smoothing=args.label_smoothing, seed=args.seed,
+        freeze_backbone=args.freeze_backbone)
+    accum, steps_per_epoch, total_steps = (s.accum, s.steps_per_epoch,
+                                           s.total_steps)
     # A frozen backbone keeps requires_grad: the step's grad_norm metric is
     # the norm of every gradient, as JAX's engine takes it; the optimizer
     # (and its clip) sees the head only.
@@ -613,18 +742,43 @@ def main(argv=None) -> dict:
     if accum > 1:
         print(f"gradient accumulation: {accum} micro-batches/update "
               f"(effective batch {args.batch_size * accum})")
-    print(f"model: {model_name} | params: "
-          f"{count_params(model.state_dict()):,} | device: {dev}")
+        if args.checkpoint_every_steps:
+            print(f"note: --checkpoint-every-steps counts MICRO-steps — "
+                  f"{args.checkpoint_every_steps} micro-steps = "
+                  f"{args.checkpoint_every_steps / accum:g} optimizer "
+                  f"updates at this accumulation")
     state = engine.TrainState.create(model=model, tx=tx, seed=args.seed)
-    train_step = engine.make_train_step(
-        label_smoothing=args.label_smoothing, nan_guard=args.nan_guard,
-        distill_alpha=(args.distill_alpha if args.distill_from else None),
-        distill_t=args.distill_t)
+    distill_alpha = args.distill_alpha if args.distill_from else None
+    eval_step = None
+    if mesh is None:
+        print(f"model: {s.model_name} | params: "
+              f"{count_params(model.state_dict()):,} | device: {dev}")
+        train_step = engine.make_train_step(
+            label_smoothing=args.label_smoothing, nan_guard=args.nan_guard,
+            distill_alpha=distill_alpha, distill_t=args.distill_t)
+    else:
+        print(f"model: {s.model_name} | params: {count_params(init):,} | "
+              f"mesh: {dict(mesh.shape)} | ranks: {mesh.world} | device: "
+              f"{dev}")
+        if mesh.shape["pipe"] > 1:
+            print(f"pipeline: {mesh.shape['pipe']} stages x "
+                  f"{cfg.num_layers // mesh.shape['pipe']} layers, "
+                  f"{s.microbatches} microbatches")
+        state = shard_train_state(state, mesh)
+        train_step = make_parallel_train_step(
+            state, mesh, label_smoothing=args.label_smoothing,
+            nan_guard=args.nan_guard, distill_alpha=distill_alpha,
+            distill_t=args.distill_t)
+        eval_step = make_parallel_eval_step(state, mesh)
 
-    checkpointer = (Checkpointer(args.checkpoint_dir,
-                                 max_to_keep=args.keep_checkpoints,
-                                 async_save=not args.sync_checkpoints)
-                    if args.checkpoint_dir else None)
+    checkpointer = None
+    if args.checkpoint_dir:
+        ck_kwargs = dict(max_to_keep=args.keep_checkpoints,
+                         async_save=not args.sync_checkpoints)
+        checkpointer = (Checkpointer(args.checkpoint_dir, **ck_kwargs)
+                        if mesh is None else
+                        MeshCheckpointer(args.checkpoint_dir, mesh,
+                                         **ck_kwargs))
     epochs_to_run = args.epochs
     done_epochs = 0
     meta_path = (Path(args.checkpoint_dir) / "run_meta.json"
@@ -636,9 +790,17 @@ def main(argv=None) -> dict:
         done_epochs = done_steps // max(1, steps_per_epoch)
         skip_batches = done_steps % max(1, steps_per_epoch)
         epochs_to_run = max(0, args.epochs - done_epochs)
-        if meta_path.is_file():
-            check_resume(json.loads(meta_path.read_text()), args,
-                         steps_per_epoch, total_steps, accum, skip_batches)
+
+        def resume_check():
+            if meta_path.is_file():
+                check_resume(json.loads(meta_path.read_text()), args,
+                             steps_per_epoch, total_steps, accum,
+                             skip_batches)
+        if mesh is None:
+            resume_check()
+        else:
+            # Rank 0 alone reads run_meta.json (it rewrites it below).
+            from_rank0(mesh, resume_check)
         # Continue the per-epoch shuffle sequence where the run left off
         # (the loader derives order from (seed, epoch)); a mid-epoch
         # checkpoint also skips the interrupted epoch's trained prefix,
@@ -649,7 +811,7 @@ def main(argv=None) -> dict:
               f"({done_epochs}/{args.epochs} epochs done"
               + (f" + {skip_batches} steps" if skip_batches else "")
               + f"; {epochs_to_run} to run)")
-    if meta_path is not None and not args.eval_only:
+    if meta_path is not None and not args.eval_only and lead:
         meta_path.parent.mkdir(parents=True, exist_ok=True)
         meta = {"steps_per_epoch": steps_per_epoch,
                 "global_batch_size": args.batch_size,
@@ -662,21 +824,37 @@ def main(argv=None) -> dict:
                         distill_t=args.distill_t)
         atomic_write_json(meta_path, meta)
 
+    distill_rows = s.distill_rows
+
     def with_teacher():
         for b in train_dl:
             # This batch's teacher rows by dataset ordinal: a [B, C]
             # fancy-index copy out of the read-only sink memmap, sent to
-            # the card with the batch.
+            # the card with the batch (on a mesh, sharded like it).
             b["teacher_logits"] = distill_rows[b.pop("index")]
             yield b
 
+    # Every rank reads and decodes the whole global batch (the loaders are
+    # the one-card ones) and keeps its data slice.
+    shards = mesh.shape["data"] if mesh is not None else 1
+
+    def on_rank(batches):
+        if mesh is None:
+            return batches
+        return (shard_batch(b, mesh) for b in batches)
+
     def train_batches():
-        return prefetch_to_device(
-            train_dl if distill_rows is None else with_teacher(), device=dev)
+        return prefetch_to_device(on_rank(
+            train_dl if distill_rows is None else with_teacher()), device=dev)
+
+    # Ragged eval batches pad to the data axis times the microbatch count
+    # (a pipeline splits each shard into microbatches); the mask keeps the
+    # metrics example-exact.
+    eval_pad = shards * s.microbatches
 
     def eval_batches():
-        return prefetch_to_device((pad_batch(b, 1) for b in test_dl),
-                                  device=dev)
+        return prefetch_to_device(on_rank(
+            pad_batch(b, eval_pad) for b in test_dl), device=dev)
 
     with contextlib.ExitStack() as stack:
         if checkpointer is not None:
@@ -684,32 +862,108 @@ def main(argv=None) -> dict:
             # error); the writer thread is not a daemon either.
             stack.callback(checkpointer.wait)
         logger = (stack.enter_context(MetricsLogger(args.metrics_jsonl))
-                  if args.metrics_jsonl else None)
-        telemetry = make_telemetry(args, cfg, dev, profile_window, stack)
-        start_sinks(args, stack)
+                  if args.metrics_jsonl and lead else None)
+        telemetry = make_telemetry(args, cfg, dev, profile_window, stack,
+                                   mesh)
+        if lead:
+            start_sinks(args, stack)
         if args.eval_only:
             return eval_only(args, state, checkpointer, eval_batches, logger,
-                             telemetry)
+                             telemetry, eval_step=eval_step, mesh=mesh,
+                             template=lambda: make_model(
+                                 args, cfg, len(s.class_names)))
         lr_sched = make_lr_schedule(train_cfg, max(1, total_steps // accum))
         state, results = engine.train(
             state, train_batches, eval_batches, epochs=epochs_to_run,
-            train_step=train_step, logger=logger, checkpointer=checkpointer,
-            profile_dir=args.profile_dir, start_epoch=done_epochs,
+            train_step=train_step, eval_step=eval_step, logger=logger,
+            checkpointer=checkpointer, verbose=lead,
+            profile_dir=args.profile_dir if lead else None,
+            start_epoch=done_epochs,
             checkpoint_every_steps=args.checkpoint_every_steps,
             checkpoint_every_epochs=args.checkpoint_every_epochs,
-            lr_schedule=lambda s: lr_sched(s // accum), telemetry=telemetry)
+            lr_schedule=lambda step: lr_sched(step // accum),
+            telemetry=telemetry, batch_shards=shards)
 
     if args.checkpoint_dir:
         # The params-only export the port's predict and serve CLIs load,
-        # with the transform decision and the model identity beside it.
-        ckpt = Path(args.checkpoint_dir)
-        save_model(state.model.state_dict(), ckpt, "final")
-        atomic_write_json(ckpt / "transform.json", transform_spec)
-        if cfg is not None:
-            write_model_meta(ckpt, cfg, extra={"preset": args.preset})
-    if args.plot:
+        # with the transform decision and the model identity beside it; a
+        # mesh run's is gathered to rank 0 in the standard layout.
+        params = (state.model.state_dict() if mesh is None else
+                  gather_state_dict(state.model.state_dict(), mesh))
+        if lead:
+            ckpt = Path(args.checkpoint_dir)
+            save_model(params, ckpt, "final")
+            atomic_write_json(ckpt / "transform.json", s.transform_spec)
+            if cfg is not None:
+                write_model_meta(ckpt, cfg, extra={"preset": args.preset})
+    if args.plot and lead:
         plot_loss_curves(results, save_path=args.plot)
     return results
+
+
+# How long one collective or transfer of a mesh rank may wait for the
+# others before the run fails (the join itself waits while the ranks live).
+COLLECTIVE_TIMEOUT_S = 300.0
+
+
+def launch_counts() -> Dict[str, int]:
+    """This process's launch counters of the hand-written kernels."""
+    from .ops import flash_attention as fa
+    from .ops import fused_mlp
+    return {"fused_ln_mlp_residual": fused_mlp.launches,
+            "fused_ln_mlp_residual_bwd": fused_mlp.bwd_launches,
+            "fused_mlp_core": fused_mlp.core_launches,
+            "fused_mlp_core_bwd": fused_mlp.core_bwd_launches,
+            "flash_attention": fa.launches,
+            "flash_attention_bwd_dq": fa.dq_launches,
+            "flash_attention_bwd_dkv": fa.dkv_launches}
+
+
+def launch(args, mesh_cfg: MeshConfig) -> dict:
+    """The CLI on a mesh: the JAX CLI's checks, the initial weights made
+    once here (``initial_params`` or ``--pretrained``), then one rank
+    process per device (:func:`.parallel.spawn`), each running
+    :func:`run` on its slices. Returns rank 0's results with two keys
+    of the port's own: ``rank_launches``, each rank's kernel launch
+    counts, and ``rank_results``, each rank's results (the global metrics,
+    equal on every rank). A failed rank exits non-zero with its
+    traceback; no rank is left running."""
+    from .parallel.mesh import backend_for, describe_transport
+    dev = resolve_device(args.device)
+    world = mesh_cfg.data * mesh_cfg.model * mesh_cfg.pipe
+    with contextlib.redirect_stdout(io.StringIO()):
+        s = prepare(args, mesh_layout(mesh_cfg, world))
+    if args.pretrained:
+        init = init_from_pretrained(s.cfg, args.pretrained)
+    else:
+        with torch.device("meta"):
+            shapes = make_model(args, s.cfg, len(s.class_names))
+        init = initial_params(shapes, args.seed)
+    backend = backend_for(dev.type, world)
+    print(f"mesh: data {mesh_cfg.data} x model {mesh_cfg.model} x pipe "
+          f"{mesh_cfg.pipe}: {world} rank processes on {dev.type}, "
+          f"transport {describe_transport(backend, dev.type)}", flush=True)
+    rank_fn = importlib.import_module(f"{__package__}.train")._mesh_rank
+    try:
+        ranks = spawn(rank_fn, mesh_cfg, device=dev.type,
+                      timeout_s=COLLECTIVE_TIMEOUT_S, wait_while_alive=True,
+                      args=(args, init))
+    except RuntimeError as e:
+        raise SystemExit(f"mesh run failed: {e}")
+    return {**ranks[0]["results"],
+            "rank_launches": [r["launches"] for r in ranks],
+            "rank_results": [r["results"] for r in ranks]}
+
+
+def _mesh_rank(mesh, args, init) -> dict:
+    """One rank of a mesh run: :func:`run` on the rank's slices, its
+    standard output kept by rank 0 alone."""
+    with contextlib.ExitStack() as stack:
+        if mesh.rank != 0:
+            stack.enter_context(contextlib.redirect_stdout(
+                stack.enter_context(open(os.devnull, "w"))))
+        results = run(args, mesh=mesh, init=init)
+    return {"results": results, "launches": launch_counts()}
 
 
 def load_teacher(args, train_dl, class_names):
@@ -776,16 +1030,23 @@ def check_resume(meta: dict, args, steps_per_epoch: int, total_steps: int,
 
 
 def make_telemetry(args, cfg: Optional[ViTConfig], dev: torch.device,
-                   profile_window, stack: contextlib.ExitStack):
+                   profile_window, stack: contextlib.ExitStack, mesh=None):
     """The run's :class:`..telemetry.StepTelemetry` (None when no
     telemetry, watchdog, profiling or sink flag is given), with its
     watchdog and profile controller; each is closed by ``stack``.
     ``tel_mfu`` takes the card's bf16 peak from :mod:`..telemetry.flops`;
     a card the table lacks (or the CPU) gets one printed line and no MFU
-    gauge, and so does TinyVGG (``cfg`` None: no FLOP count)."""
-    if not (args.telemetry_jsonl or args.watchdog_s > 0
-            or args.profile_steps or args.profile_auto
-            or args.ship_to or args.metrics_port is not None):
+    gauge, and so does TinyVGG (``cfg`` None: no FLOP count).
+
+    On a mesh rank 0 alone writes the rows and profiles, and its MFU
+    divides by the peak of the distinct cards the ranks run on (one when
+    they share a card); every rank runs the watchdog, and a stall on any
+    rank ends that rank's process, which fails the run."""
+    lead = mesh is None or mesh.rank == 0
+    if not ((lead and (args.telemetry_jsonl or args.profile_steps
+                       or args.profile_auto or args.ship_to
+                       or args.metrics_port is not None))
+            or args.watchdog_s > 0):
         return None
     from .telemetry import (ProfileController, StepTelemetry, Watchdog,
                             bf16_peak_tflops, train_step_flops_per_image)
@@ -795,11 +1056,20 @@ def make_telemetry(args, cfg: Optional[ViTConfig], dev: torch.device,
     watchdog = None
     if args.watchdog_s > 0:
         pm = args.postmortem or str(run_dir / "postmortem.txt")
-        watchdog = Watchdog(args.watchdog_s, postmortem_path=pm)
+        on_stall = None
+        if mesh is not None:
+            if mesh.rank:
+                pm = str(Path(pm).with_suffix(f".rank{mesh.rank}.txt"))
+            on_stall = _end_stalled_rank(mesh.rank)
+        watchdog = Watchdog(args.watchdog_s, postmortem_path=pm,
+                            on_stall=on_stall)
         watchdog.install_sigterm()
         stack.callback(watchdog.stop)
         watchdog.start()
         print(f"watchdog: deadline {args.watchdog_s:g}s, postmortem -> {pm}")
+    if not lead:
+        return stack.enter_context(StepTelemetry(
+            None, sample_every=args.telemetry_every, watchdog=watchdog))
     # The capture controller exists whenever telemetry does: SIGUSR2 can
     # arm a window on a live run even with no profiling flag.
     trace_dir = args.profile_trace_dir or str(run_dir / "profiles")
@@ -820,11 +1090,28 @@ def make_telemetry(args, cfg: Optional[ViTConfig], dev: torch.device,
     if peak is None:
         print(f"[telemetry] no peak rate for {card!r} in telemetry/flops.py: "
               "tel_mfu left out")
+    elif mesh is not None and mesh.backend == "nccl":
+        peak *= mesh.world           # one card per rank
     return stack.enter_context(StepTelemetry(
         args.telemetry_jsonl, sample_every=args.telemetry_every,
         flops_per_image=(train_step_flops_per_image(cfg) if cfg is not None
                          else None), peak_tflops=peak,
         watchdog=watchdog, profiler=profiler))
+
+
+def _end_stalled_rank(rank: int):
+    """The watchdog's stall action on a mesh rank: after the postmortem,
+    end the process, so the launcher fails the run (the other ranks would
+    otherwise wait on it in their collectives)."""
+    def on_stall(path: Path) -> None:
+        print(f"rank {rank}: watchdog stall, postmortem {path}; ending the "
+              "rank", file=sys.stderr, flush=True)
+        os._exit(STALL_EXIT_CODE)
+    return on_stall
+
+
+# The exit code of a mesh rank that its watchdog ended.
+STALL_EXIT_CODE = 75
 
 
 def start_sinks(args, stack: contextlib.ExitStack) -> None:
@@ -850,9 +1137,12 @@ def start_sinks(args, stack: contextlib.ExitStack) -> None:
 
 
 def eval_only(args, state, checkpointer, eval_batches, logger,
-              telemetry=None) -> dict:
+              telemetry=None, *, eval_step=None, mesh=None,
+              template=None) -> dict:
     """Score a saved model: the latest checkpoint, else the final/
-    export; one eval pass, printed and logged."""
+    export; one eval pass, printed and logged. On a mesh, rank 0 reads the
+    export and sends every rank its slices (``template()``: the whole
+    model, whose names and shapes the export must have)."""
     if checkpointer is not None and checkpointer.latest_step() is not None:
         state = checkpointer.restore(state)
         src = f"checkpoint step {state.step}"
@@ -861,11 +1151,22 @@ def eval_only(args, state, checkpointer, eval_batches, logger,
         if not final.is_dir():
             raise SystemExit(f"--eval-only: no checkpoints and no final/ "
                              f"export under {args.checkpoint_dir}")
-        state.model.load_state_dict(
-            load_model(final, state.model.state_dict()))
+        if mesh is None:
+            params = load_model(final, state.model.state_dict())
+        else:
+            full = None
+            if mesh.rank == 0:
+                try:
+                    with torch.device("meta"):
+                        shapes = template().state_dict()
+                    full = {"params": load_model(final, shapes)}
+                except Exception as e:  # noqa: BLE001 — raised everywhere
+                    full = e
+            params = scatter_from_rank0(full, mesh)["params"]
+        state.model.load_state_dict(params)
         src = "final/ params export"
     m = engine.evaluate(
-        state, eval_batches,
+        state, eval_batches, eval_step=eval_step,
         on_batch=telemetry.heartbeat if telemetry is not None else None)
     print(f"eval ({src}) | test_loss: {m['loss']:.4f} | "
           f"test_acc: {m['acc']:.4f} | examples: {int(m['count'])}")

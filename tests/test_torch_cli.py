@@ -50,6 +50,15 @@ MODEL = ["--preset", "ViT-Ti/16", "--image-size", "32", "--patch-size", "16",
          "--dtype", "float32", "--batch-size", "8", "--num-workers", "1"]
 
 
+@pytest.fixture(autouse=True)
+def free_tmp_path(tmp_path):
+    """Delete the test's files as it ends: a CLI run writes hundreds of MB
+    of checkpoints, and the suite's runs together would fill a small
+    disk."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
     """One intra-op thread: these steps are tiny, and under a parallel
@@ -218,8 +227,7 @@ def test_resume_schedule_horizon_guard(folder, tmp_path):
 
 @pytest.mark.parametrize("extra,item", [
     (["--sp-impl", "ulysses"], 7),
-    (["--elastic", "2"], 7), (["--mesh-data", "2"], 7),
-    (["--mesh-model", "2"], 7), (["--mesh-pipe", "2"], 7),
+    (["--elastic", "2"], 7), (["--mesh-seq", "2"], 7),
     (["--multihost"], 7), (["--tensorboard-dir", "tb"], 11),
     (["--compile-cache-dir", "cc"], 9)])
 def test_unported_flags_exit_nonzero(folder, extra, item):

@@ -14,6 +14,8 @@ way in kernel and plain version moves that element by one ulp). The
 backward kernels must also be bitwise deterministic.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -1336,3 +1338,40 @@ def test_cascade_on_card_threshold_zero_and_inf(dev, tmp_path):
     assert at_zero == want["student"] and at_inf == want["teacher"]
     assert counters["escalated"] == len(probes)
     assert counters["served_student"] == len(probes)
+
+
+def test_mesh_train_cli_on_the_card(dev, tmp_path):
+    """The train CLI on dp 2 x pp 2, four gloo ranks sharing the card:
+    ViT-Ti/16 at 224 px (T = 197), bf16, auto, one epoch of 3 steps with
+    --grad-accum 2 and an eval. Every rank launches its stage's 6 layers'
+    LN-MLP and flash kernels, forward and backward, in each of its 2
+    microbatches, never the MLP core; the ranks agree; the one-card
+    --eval-only scores the mesh run's final/ export as the run's own eval
+    did (bf16, 2e-2 relative)."""
+    from pytorch_vit_paper_replication_tpu_torch import train
+    from pytorch_vit_paper_replication_tpu_torch.data import (
+        make_synthetic_image_folder)
+    train_dir, test_dir = make_synthetic_image_folder(
+        tmp_path / "ds", train_per_class=8, test_per_class=2,
+        image_size=224)
+    ck = tmp_path / "ck"
+    common = ["--test-dir", str(test_dir), "--preset", "ViT-Ti/16",
+              "--image-size", "224", "--batch-size", "8", "--seed", "0"]
+    res = train.main(["--train-dir", str(train_dir), *common, "--epochs",
+                      "1", "--grad-accum", "2", "--mesh-data", "2",
+                      "--mesh-pipe", "2", "--checkpoint-dir", str(ck)])
+    fwd, bwd = 6 * 2 * (3 + 1), 6 * 2 * 3
+    want = {"fused_ln_mlp_residual": fwd, "fused_ln_mlp_residual_bwd": bwd,
+            "fused_mlp_core": 0, "fused_mlp_core_bwd": 0,
+            "flash_attention": fwd, "flash_attention_bwd_dq": bwd,
+            "flash_attention_bwd_dkv": bwd}
+    assert res["rank_launches"] == [want] * 4
+    assert all(r == res["rank_results"][0] for r in res["rank_results"])
+    assert np.isfinite(res["train_loss"] + res["test_loss"]).all()
+    for d in ck.iterdir():
+        if d.name.isdigit():
+            shutil.rmtree(d)
+    one_card = train.main([*common, "--eval-only", "--checkpoint-dir",
+                           str(ck)])
+    np.testing.assert_allclose(one_card["test_loss"], res["test_loss"],
+                               rtol=2e-2)

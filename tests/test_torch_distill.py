@@ -31,7 +31,8 @@ from pytorch_vit_paper_replication_tpu_torch.distill import (
 from pytorch_vit_paper_replication_tpu_torch.serve.offline import (
     NpySink, sink_sha256, write_progress)
 from pytorch_vit_paper_replication_tpu_torch.telemetry import get_registry
-from test_torch_cli import MODEL, _against_jax, _rows
+from test_torch_cli import (MODEL, _against_jax, _rows,  # noqa: F401
+                            free_tmp_path)
 
 DISTILL = ["--distill-t", "2", "--distill-alpha", "0.7"]
 

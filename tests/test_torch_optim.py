@@ -128,20 +128,32 @@ def test_grad_accumulation_matches_optax_multisteps():
 
 
 def test_apply_with_the_callers_norm_equals_its_own():
-    """``apply(..., norm=)`` (a sharded step's clip norm) updates exactly
+    """``apply(..., norm_fn=)`` (a sharded step's clip norm) updates exactly
     as ``apply`` computing the norm itself, above the clip too; with
-    accumulation the clip needs the mean's norm, so ``norm=`` raises."""
+    accumulation ``norm_fn`` gets the accumulated mean, on the k-th
+    micro-step only."""
     rng = np.random.default_rng(3)
     params = params_from_flax(_tree(rng))
-    grads = {k: torch.from_numpy(10.0 * rng.standard_normal(
+    grads = [{k: torch.from_numpy(10.0 * rng.standard_normal(
         tuple(v.shape)).astype(np.float32)) for k, v in params.items()}
-    out = []
-    for norm in (None, toptim.global_norm(grads.values())):
-        tx = toptim.make_optimizer(TrainConfig(weight_decay=0.3), 10)
-        p = {k: v.clone() for k, v in params.items()}
-        tx.apply(p, grads, tx.init(p), norm=norm)
-        out.append(p)
-    assert all(torch.equal(out[0][k], out[1][k]) for k in params)
-    tx = toptim.make_optimizer(TrainConfig(), 10, grad_accum_steps=2)
-    with pytest.raises(ValueError, match="accumulated mean"):
-        tx.apply(params, grads, tx.init(params), norm=torch.tensor(1.0))
+        for _ in range(2)]
+    for accum in (1, 2):
+        out, seen = [], []
+
+        def caller_norm(gs):
+            seen.append({k: v.clone() for k, v in gs.items()})
+            return toptim.global_norm(gs.values())
+
+        for norm_fn in (None, caller_norm):
+            tx = toptim.make_optimizer(TrainConfig(weight_decay=0.3), 10,
+                                       grad_accum_steps=accum)
+            p = {k: v.clone() for k, v in params.items()}
+            state = tx.init(p)
+            for g in grads[:accum]:
+                tx.apply(p, g, state, norm_fn=norm_fn)
+            out.append(p)
+        assert all(torch.equal(out[0][k], out[1][k]) for k in params)
+        assert len(seen) == 1
+        want = grads[0] if accum == 1 else {
+            k: grads[0][k] + (grads[1][k] - grads[0][k]) / 2 for k in params}
+        assert all(torch.equal(seen[0][k], want[k]) for k in params)

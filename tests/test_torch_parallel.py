@@ -140,8 +140,8 @@ def _pipe_params():
         if jax.tree_util.keystr(p).endswith("['bias']") else a, params))
 
 
-def _pipe_batch():
-    rng = np.random.default_rng(0)
+def _pipe_batch(seed=0):
+    rng = np.random.default_rng(seed)
     labels = rng.integers(0, 3, 8).astype(np.int32)
     images = (labels[:, None, None, None] / 3.0 + 0.1 * rng.standard_normal(
         (8, 32, 32, 3))).astype(np.float32)
@@ -297,6 +297,41 @@ def test_rank_holds_only_its_stage_and_slices(port_pipeline):
         assert layers == {2 * s, 2 * s + 1}
         assert "head.kernel" in r["local_names"]
         assert "backbone.patch_embedding.pos_embedding" in r["local_names"]
+
+
+def test_pipeline_grad_accum_matches_jax():
+    """Two micro-steps of a --grad-accum 2 group on dp 2 x tp 2 x pp 2:
+    the first applies no update, the second equals JAX's accumulated
+    pipeline update (the counterpart of JAX's
+    test_pipeline_composes_with_grad_accum, with its bounds)."""
+    params = _pipe_params()
+    batches = [_pipe_batch(0), _pipe_batch(9)]
+    cfg = JCfg(**PIPE)
+    mesh = jparallel.make_mesh(JMeshCfg(data=2, model=2, pipe=2))
+    apply_fn = jparallel.make_pipeline_apply(cfg, mesh,
+                                             num_microbatches=MICRO)
+    stacked = jparallel.stack_block_params(params, cfg.num_layers)
+    tx = jopt(JTrain(**RECIPE), TOTAL, grad_accum_steps=2,
+              decay_mask_fn=jparallel.pipeline_decay_mask)
+    st = jparallel.shard_train_state(jengine.TrainState.create(
+        apply_fn=apply_fn, params=stacked, tx=tx, rng=jax.random.key(SEED)),
+        mesh)
+    step = jparallel.make_parallel_train_step(st, mesh)
+    for b in batches:
+        st, _ = step(st, jparallel.shard_batch(
+            jax.tree.map(jnp.asarray, b), mesh))
+    want = params_from_flax(jparallel.unstack_block_params(
+        jax.device_get(st.params)))
+    ranks = spawn(worker.pipeline_steps, MeshConfig(data=2, model=2, pipe=2),
+                  device="cpu", timeout_s=SPAWN_TIMEOUT_S,
+                  args=({**PIPE, "mlp_impl": "fused"}, flatten_tree(stacked),
+                        batches, TOTAL, RECIPE, MICRO, SEED, 2, False))
+    start = {k: v.numpy() for k, v in params_from_flax(params).items()}
+    first, second = ranks[0]["params"]
+    for k, v in start.items():
+        np.testing.assert_array_equal(first[k], v, err_msg=k)
+    _assert_params_close(second, {k: v.numpy() for k, v in want.items()})
+    assert all(r["mini_step"] == 0 for r in ranks)
 
 
 # --------------------------------------------------------------- pure rules

@@ -126,3 +126,30 @@ def hang(mesh):
     import time
     while True:
         time.sleep(1)
+
+
+def pipeline_steps(mesh, cfg_fields, params, batches, total_steps,
+                   train_fields, num_microbatches, seed, grad_accum,
+                   nan_guard):
+    """The parallel train step over ``batches`` (global batches, one step
+    each) with ``grad_accum`` micro-steps per update and the NaN guard on
+    or off: every step's metrics on every rank, and on rank 0 the full
+    params after each step (gathered)."""
+    cfg = ViTConfig(**cfg_fields)
+    model = pipeline.make_pipeline_apply(cfg, mesh,
+                                         num_microbatches=num_microbatches)
+    model.load_state_dict(rank_local_params(params, mesh))
+    tx = optim.make_optimizer(TrainConfig(**train_fields), total_steps,
+                              grad_accum_steps=grad_accum)
+    state = api.shard_train_state(
+        engine.TrainState.create(model=model, tx=tx, seed=seed), mesh)
+    step = api.make_parallel_train_step(state, mesh, nan_guard=nan_guard)
+    metrics, after = [], []
+    for batch in batches:
+        state, m = step(state, api.shard_batch(batch, mesh))
+        metrics.append({k: float(v) for k, v in m.items()})
+        full = sharding.gather_state_dict(dict(model.named_parameters()),
+                                          mesh)
+        after.append(None if full is None else _np(full))
+    return {"coords": dict(mesh.coords), "metrics": metrics,
+            "params": after, "mini_step": state.opt_state.mini_step}
