@@ -2,7 +2,7 @@
 """On-card smoke test of the PyTorch/CUDA port (ViT-B/16 serving and
 training paths, the Quickstart and the ImageNet-scale training CLIs, the
 transfer-learning path, distillation, embedding search, the serving
-fleet with its telemetry sinks, and the train CLI on a dp x tp x pp
+fleet with its telemetry sinks, and the train CLI on a dp x tp x seq x pp
 mesh).
 
 Run from the repository root on a machine with one CUDA card::
@@ -108,7 +108,9 @@ final ``ok`` line is never printed:
              free port, scraped while it runs and parsed as Prometheus
              text with HELP lines; ``--ship-to`` a ``FrameSink``: frames
              of role ``train``) and its losses equal run B's (no sinks)
-             bit for bit.
+             bit for bit. A runs beside B, so its JSONL img/s and
+             time_to_first_step are printed as ``..._beside_run_b``:
+             contended readings, where run C's are a run alone.
              ``--eval-only`` on A equals A's last JSONL row; ``python -m
              ...predict`` on a test image prints what ``predict_image``
              gives on the same export. Run C: two 10-step epochs, steps
@@ -266,10 +268,11 @@ final ``ok`` line is never printed:
              passes, with ``serve.request`` spans under router spans of
              the same trace id. Latency per segment is recorded, not
              gated.
-5. parallel — the data x tensor x pipeline path through the port's
-             ``parallel.spawn``, four rank processes sharing the one card
-             (gloo, every transfer through host memory; the phase prints
-             the transport): (a) ViT-B/16 at full width, PAR_LAYERS = 4
+5. parallel — the data x tensor x sequence x pipeline path through
+             the port's ``parallel.spawn``, one spawn of four rank
+             processes sharing the one card for its three runs (gloo,
+             every transfer through host memory; the phase prints the
+             transport): (a) ViT-B/16 at full width, PAR_LAYERS = 4
              layers (phase train_mesh runs the full depth on a pipeline),
              bf16, ``mlp_impl``/``attention_impl`` auto, default dropouts,
              on dp = 1 x tp = 2 x pp = 2 with M = 2 microbatches of a
@@ -283,8 +286,15 @@ final ``ok`` line is never printed:
              (losses rtol 1e-5, the JAX package's pipeline x TP bound;
              gradients per leaf and params elementwise, see
              TP_DP_LOSS_RTOL; the gap to the JAX elementwise param bound
-             is printed). Wall times there are four ranks sharing one
-             H100, not parallel-training throughput.
+             is printed); (c) sequence parallelism at B/16 width, 2
+             layers, 224 px with pool='gap' (T = 196), f32, attention
+             dropout 0.1: ring on seq 2 x model 2 and Ulysses on data 2 x
+             seq 2, one step each, every rank's logits and loss within
+             1e-4 and gradients within 2e-3 of each leaf's largest of the
+             one-rank step with the flash kernel and the same seeds; rows
+             6, 7 (ring) or 1, 2 (Ulysses) launched, rows 3-5 never. Wall
+             times there are four ranks sharing one H100, not
+             parallel-training throughput.
 5a. train_mesh — the train CLI itself on a mesh, four rank processes
              sharing the card (gloo): ViT-B/16 at full width and depth,
              bf16, auto, default dropouts, 224 px synthetic folders,
@@ -305,8 +315,15 @@ final ``ok`` line is never printed:
              start: ``--mesh-model 2 --mesh-pipe 2 --grad-accum 2
              --nan-guard``, three epochs of one update each: rows 3-7
              launched per stage, rows 1 and 2 never, the loss finite and
-             falling, no step skipped. Walls are host clocks with the
-             ranks' start included.
+             falling, no step skipped. (c) a background CLI process from
+             (a)'s end: ``--pool gap --mesh-model 2 --mesh-seq 2
+             --sp-impl ring``, one epoch of 2 steps: rows 6 and 7 launched
+             on every rank, rows 1-5 never; its final/ scored by the
+             one-card ``--eval-only`` as the seq mesh's eval did (the
+             mesh's loss below MESH_C_SURE_LOSS, the |ln ratio| within
+             MESH_C_LOSS_LN). Walls are host clocks with the ranks' start
+             included.
+5b. walls  — each phase's seconds, one line.
 6. the kernel list, the card's name and power limit, and the ``ok`` line.
    Every entry's ``ms``, ``plain_ms`` and ``library_ms`` are event times,
    its ``device_ms`` and ``library_device_ms`` device times.
@@ -2396,16 +2413,206 @@ def tp_dp_vs_single(ranks, dev) -> dict:
     return out
 
 
+# (c): sequence parallelism at B/16's full width (D 768, 12 heads, F
+# 3072), 224 px with pool='gap' (T = 196, 98 tokens a seq rank), SP_LAYERS
+# layers, f32, attention dropout SP_RATE, MLP and embedding dropout 0.
+# One spawn of four ranks runs ring on seq 2 x model 2 (the spawn's mesh)
+# and Ulysses on data 2 x seq 2 (a second mesh over the same ranks), one
+# train step each of the global batch SP_BATCH. Each rank first runs the
+# one-rank step of the same weights and batch in its process: the plain
+# ViT with the flash kernel (attention_impl="flash") and the same step
+# generator, whose attention seeds the SP meshes share, so the dropout
+# masks are the same bits by construction. Gate: each rank's logits (its
+# data rows) and loss within SP_FWD_TOL, its gradient leaves (its model
+# slices, summed by the step) within SP_GRAD_TOL of each reference leaf's
+# largest element; its launches on the SP step the rows the code predicts
+# (rows 1/2 without a model axis, 6/7 with one, never rows 3-5).
+SP_LAYERS = 2
+SP_BATCH = 8
+SP_RATE = 0.1
+SP_SEED = 11
+SP_FWD_TOL = 1e-4
+SP_GRAD_TOL = 2e-3
+SP_RUNS = (("ring", {"data": 1, "model": 2, "seq": 2}),
+           ("ulysses", {"data": 2, "model": 1, "seq": 2}))
+
+
+def _sp_cfg():
+    from pytorch_vit_paper_replication_tpu_torch.configs import vit_b16
+    return vit_b16(num_classes=NUM_CLASSES, num_layers=SP_LAYERS,
+                   pool="gap", dtype="float32", mlp_impl="fused",
+                   attn_dropout=SP_RATE, mlp_dropout=0.0,
+                   embedding_dropout=0.0)
+
+
+def sp_launches(layers: int, steps: int, eval_passes: int,
+                tp: bool) -> dict:
+    """A rank's launches over a sequence-parallel run: the MLP rows of its
+    blocks (6/7 with a model axis, else 1/2), forward in every train step
+    and eval pass, backward in every train step; the flash rows never
+    (ring and Ulysses attention are plain PyTorch, as JAX's are XLA)."""
+    return {**_mesh_launches(layers, 1, steps, eval_passes, tp),
+            "flash_attention": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
+
+
+def _one_rank_step(cfg, params, batch, dev):
+    """The one-rank reference of (c): logits, mean loss and full gradients
+    of the plain ViT (flash attention) in train mode with the step
+    generator of (SP_SEED, step 0)."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch import engine
+    from pytorch_vit_paper_replication_tpu_torch.models import ViT
+    model = ViT(cfg.replace(attention_impl="flash"))
+    model.load_state_dict(params)
+    model.to(dev).train()
+    images = torch.from_numpy(batch["image"]).to(dev)
+    labels = torch.from_numpy(batch["label"]).to(dev)
+    logits = model(images, engine.step_generator(SP_SEED, 0))
+    loss = engine.cross_entropy_loss(logits, labels)
+    loss.backward()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    return logits.detach().cpu(), float(loss.detach()), grads
+
+
+def sp_rank(mesh) -> dict:
+    """One rank of (c): the one-rank reference, then ring and Ulysses on
+    meshes of SP_RUNS over the ranks of ``mesh``, each one train step with
+    the launch counters set to 0 right before and read right after;
+    returns the readings against the reference."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch import engine, optim
+    from pytorch_vit_paper_replication_tpu_torch.configs import (
+        MeshConfig, TrainConfig)
+    from pytorch_vit_paper_replication_tpu_torch.convert import (
+        rank_local_params)
+    from pytorch_vit_paper_replication_tpu_torch.parallel import (
+        api, make_mesh, pipeline, shard_state_dict)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _sp_cfg()
+    params = _tp_dp_params(cfg)
+    batch = _par_batch(cfg, SP_BATCH, 6)
+    ref_logits, ref_loss, ref_grads = _one_rank_step(cfg, params, batch,
+                                                     mesh.device)
+    out = {}
+    for impl, sizes in SP_RUNS:
+        # A mesh over the spawn's four ranks (every rank makes its groups,
+        # in one order).
+        layout = make_mesh(MeshConfig(**sizes), device=mesh.device)
+        model = pipeline.make_pipeline_apply(cfg, layout,
+                                             num_microbatches=1)
+        model.load_state_dict(rank_local_params(params, layout))
+        state = api.shard_train_state(engine.TrainState.create(
+            model=model, tx=optim.make_optimizer(TrainConfig(), 10),
+            seed=SP_SEED), layout)
+        grads, logits = {}, []
+        _capture_grads(state, grads)
+        forward_backward = model.forward_backward
+
+        def keep_logits(*args, fb=forward_backward, into=logits):
+            res = fb(*args)
+            into.extend(o[0].cpu() for o in res)
+            return res
+        model.forward_backward = keep_logits
+        step = api.make_parallel_train_step(state, layout, sp_impl=impl)
+        local = api.shard_batch(batch, layout)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, local)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        d = layout.coords["data"]
+        rows = slice(d * SP_BATCH // layout.shape["data"],
+                     (d + 1) * SP_BATCH // layout.shape["data"])
+        want = shard_state_dict(ref_grads, layout)
+        if set(want) != set(grads):
+            raise AssertionError(f"(c) {impl}: gradient leaves {sorted(grads)}"
+                                 f" != {sorted(want)}")
+        out[impl] = {
+            "coords": dict(layout.coords), "launches": launches,
+            "step_wall_s": wall,
+            "logits": rel_err(torch.cat(logits), ref_logits[rows]),
+            "loss": abs(float(m["loss_sum"]) / float(m["count"]) - ref_loss)
+            / abs(ref_loss),
+            "grads_max_leaf": max(rel_err(grads[k], want[k]) for k in want),
+            "grad_norm": float(m["grad_norm"])}
+        del state, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def par_rank(mesh) -> dict:
+    """One rank of the phase: (a) on the spawn's mesh, then (b) and (c) on
+    meshes built over the same four ranks (one rank start for the three
+    runs), each with its wall on this rank."""
+    import torch
+    from pytorch_vit_paper_replication_tpu_torch.configs import MeshConfig
+    from pytorch_vit_paper_replication_tpu_torch.parallel import make_mesh
+    out, walls = {}, {}
+    for run, fn in (("a", lambda: pp_tp_rank(mesh)),
+                    ("b", lambda: tp_dp_rank(make_mesh(
+                        MeshConfig(data=2, model=2), device=mesh.device))),
+                    ("c", lambda: sp_rank(mesh))):
+        if mesh.rank == 0:
+            emit({"phase": "parallel", "run": run, "start": True})
+        t0 = time.perf_counter()
+        out[run] = fn()
+        walls[run] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["walls_s"] = walls
+    return out
+
+
+def _check_parallel_c(ranks) -> dict:
+    """(c)'s gate over every rank's readings and launches; returns rank
+    0's launches per strategy."""
+    for impl, sizes in SP_RUNS:
+        want = sp_launches(SP_LAYERS, 1, 0, tp=sizes["model"] > 1)
+        for r in ranks:
+            got = r[impl]
+            if got["launches"] != want:
+                raise AssertionError(f"(c) {impl} rank {got['coords']}: "
+                                     f"launches {got['launches']} != {want}")
+            bad = {k: got[k] for k, tol in (
+                ("logits", SP_FWD_TOL), ("loss", SP_FWD_TOL),
+                ("grads_max_leaf", SP_GRAD_TOL)) if not got[k] <= tol}
+            if bad:
+                raise AssertionError(f"(c) {impl} rank {got['coords']} vs "
+                                     f"the one-rank flash step: {bad}")
+    emit({"phase": "parallel", "run": "c", "ok": True,
+          "model": f"{PRESET} width, {SP_LAYERS} layers, 224 px, "
+                   "pool gap (T = 196), f32",
+          "attn_dropout": SP_RATE, "batch": SP_BATCH,
+          "reference": "one-rank step, flash kernel, same seeds",
+          "tolerance": {"logits": SP_FWD_TOL, "loss": SP_FWD_TOL,
+                        "grads_max_leaf": SP_GRAD_TOL},
+          **{impl: {"layout": " x ".join(f"{a}{n}" for a, n in
+                                         sizes.items()),
+                    "worst": {k: max(r[impl][k] for r in ranks)
+                              for k in ("logits", "loss",
+                                        "grads_max_leaf")},
+                    "launches_per_rank": ranks[0][impl]["launches"],
+                    "step_walls_s": [r[impl]["step_wall_s"] for r in ranks]}
+             for impl, sizes in SP_RUNS}})
+    return {impl: ranks[0][impl]["launches"] for impl, _ in SP_RUNS}
+
+
 def phase_parallel(dev) -> dict:
-    """(a) then (b) through parallel.spawn on this card; returns (a)'s
-    launch counts of rank 0."""
+    """(a), (b) then (c) in one parallel.spawn of four ranks on this card
+    (:func:`par_rank`); returns rank 0's launch counts of (a) and of (c)'s
+    two strategies."""
     import math
     from pytorch_vit_paper_replication_tpu_torch.configs import MeshConfig
     from pytorch_vit_paper_replication_tpu_torch.parallel import spawn
+    emit({"phase": "parallel", "start": True})
     t0 = time.perf_counter()
-    ranks = spawn(pp_tp_rank, MeshConfig(data=1, model=2, pipe=2),
+    every = spawn(par_rank, MeshConfig(data=1, model=2, pipe=2),
                   device=dev.type, timeout_s=PAR_TIMEOUT_S)
-    a_s = time.perf_counter() - t0
+    spawn_s = time.perf_counter() - t0
+    walls = every[0]["walls_s"]
+    ranks = [r["a"] for r in every]
     layers = PAR_LAYERS // 2
     fwd, bwd = layers * PAR_MICRO * (PAR_STEPS + 1), layers * PAR_MICRO * \
         PAR_STEPS
@@ -2440,16 +2647,18 @@ def phase_parallel(dev) -> dict:
               if len({r["device"] for r in ranks}) == 1
               else "one card per rank"),
           "peak_memory_gib_per_rank": [r["peak_memory_gib"] for r in ranks],
-          "seconds_incl_rank_start": round(a_s, 3)})
-    t1 = time.perf_counter()
-    b_ranks = spawn(tp_dp_rank, MeshConfig(data=2, model=2, pipe=1),
-                    device=dev.type, timeout_s=PAR_TIMEOUT_S)
-    cmp = tp_dp_vs_single(b_ranks, dev)
+          "seconds_on_rank_0": round(walls["a"], 3)})
+    cmp = tp_dp_vs_single([r["b"] for r in every], dev)
     emit({"phase": "parallel", "run": "b", "ok": True,
           "layout": "dp2 x tp2 x pp1", "model": "ViT-B/16, 2 layers, f32",
           "steps": TP_DP_STEPS, **cmp,
-          "seconds_incl_rank_start": round(time.perf_counter() - t1, 3)})
-    return ranks[0]["launches"]
+          "seconds_on_rank_0": round(walls["b"], 3)})
+    c = _check_parallel_c([r["c"] for r in every])
+    emit({"phase": "parallel", "ok": True,
+          "runs_seconds_on_rank_0": {k: round(v, 3) for k, v in walls.items()},
+          "spawn_seconds_incl_rank_start": round(spawn_s, 3),
+          "seconds": round(time.perf_counter() - t0, 3)})
+    return {"a": ranks[0]["launches"], **c}
 
 
 # ------------------------------------------------------------- phase 5a
@@ -2461,8 +2670,10 @@ def phase_parallel(dev) -> dict:
 # final/ export on the mesh, and on one card through the train CLI,
 # predict_image and the predict CLI. (b) tp 2 x pp 2: --grad-accum 2
 # --nan-guard, MESH_B_EPOCHS epochs of 2 micro-steps (one update an
-# epoch). (b) and the mesh's --eval-only go as background CLI processes
-# beside (a) and beside the rest: the card idles in these host-bound runs.
+# epoch). (c) tp 2 x seq 2, ring attention, --pool gap, full depth: one
+# epoch of 2 steps, its final/ scored on one card (MESH_C_SP). (b), (c)
+# and the mesh's --eval-only go as background CLI processes beside (a)
+# and beside the rest: the card idles in these host-bound runs.
 MESH_BATCH = 8
 MESH_A_PER_CLASS = (11, 2)         # 33 train images: 4 micro-steps of 8
 MESH_A_STEPS = 4
@@ -2470,6 +2681,11 @@ MESH_EVERY_STEPS = 2
 MESH_B_PER_CLASS = (6, 1)          # 18 train images: 2 micro-steps an epoch
 MESH_B_EPOCHS = 3
 MESH_B_LR = "1e-4"
+# (c): sequence parallelism through the CLI, ring on seq 2 x model 2 with
+# --pool gap (T = 196), on (b)'s folder (2 steps and one eval batch an
+# epoch), one epoch, its final/ scored on one card.
+MESH_C_SP = ["--pool", "gap", "--mesh-data", "1", "--mesh-model", "2",
+             "--mesh-seq", "2", "--sp-impl", "ring"]
 MESH_TIMEOUT_S = 900
 # The one-card scores of (a)'s export against the mesh's eval: the mean
 # loss is ~exp(-margin) for a model this sure, so a bound on |ln(loss
@@ -2477,6 +2693,15 @@ MESH_TIMEOUT_S = 900
 # logit in [8, 16). A layer or slice in the wrong place moves it by
 # orders of magnitude.
 MESH_EXPORT_LOSS_LN = 0.5
+# (c)'s own bound, set from its reading (|ln ratio| 0.0089 on the H100):
+# its seq mesh's test loss must first show a sure model (below
+# MESH_C_SURE_LOSS, a margin above ~4.6 over 3 classes; 1.19e-3 was
+# read), so that the loss is ~exp(-margin) and 0.05 bounds the margin's
+# shift to 0.05, under 2 bf16 ulps of a logit in [4, 8). An attention
+# that saw only its own token piece, or a pool over the wrong count,
+# moves the margin by far more.
+MESH_C_LOSS_LN = 0.05
+MESH_C_SURE_LOSS = 0.02
 
 
 def _mesh_launches(stage_layers: int, micro: int, steps: int,
@@ -2518,16 +2743,20 @@ class _TrainCLI:
     construction, its output in ``log``.out / .err; :meth:`results` waits
     for it and returns the results dict it prints as JSON (floats exact),
     its standard output (rank 0's lines too) and its wall (to its last
-    line). :meth:`kill` ends it and its ranks."""
+    line). With ``as_module`` the process is ``python -m ...train``
+    itself, and the results dict is None. :meth:`kill` ends it and its
+    ranks."""
 
-    def __init__(self, argv, log: Path):
+    def __init__(self, argv, log: Path, as_module: bool = False):
         code = (f"import json, sys\nfrom {PKG}.train import main\n"
                 "r = main(sys.argv[1:])\nprint('RESULTS ' + json.dumps(r))")
+        entry = ["-m", f"{PKG}.train"] if as_module else ["-c", code]
+        self.as_module = as_module
         self.out, self.err = log.with_suffix(".out"), log.with_suffix(".err")
         self.t0 = time.time()
         with open(self.out, "w") as out, open(self.err, "w") as err:
             self.proc = subprocess.Popen(
-                [sys.executable, "-c", code, *argv], stdout=out, stderr=err,
+                [sys.executable, *entry, *argv], stdout=out, stderr=err,
                 cwd=REPO, start_new_session=True)
 
     def results(self):
@@ -2541,6 +2770,8 @@ class _TrainCLI:
         if self.proc.returncode != 0:
             raise AssertionError(f"train CLI exit {self.proc.returncode}: "
                                  f"{self.err.read_text()[-3000:]}")
+        if self.as_module:
+            return None, out, wall
         line = [x for x in out.splitlines() if x.startswith("RESULTS ")][-1]
         return json.loads(line[len("RESULTS "):]), out, wall
 
@@ -2622,7 +2853,8 @@ def phase_train_mesh(dev, root: Path) -> dict:
     """``python -m ...train --mesh-*``: (a) through ``train.main`` in this
     process (its launcher starts four rank processes on the card), the
     others as background CLI processes; see MESH_*. Returns rank 0's
-    launch counts of (a)'s uninterrupted run and of (b)."""
+    launch counts of (a)'s uninterrupted run, of (b) and of (c)."""
+    import math
     import os
     import shutil
     import torch
@@ -2663,6 +2895,15 @@ def phase_train_mesh(dev, root: Path) -> dict:
         t0 = time.perf_counter()
         res_a, out_a = _cli_main("train", run_a)
         walls["a_s"] = time.perf_counter() - t0
+        # (c) starts as (a) ends, beside (b)'s tail, the mesh's
+        # --eval-only and the resume below.
+        emit({"phase": "train_mesh", "run": "c", "start": True})
+        ck_c = root / "C"
+        run_c = _TrainCLI([
+            "--train-dir", str(train_b), "--test-dir", str(test_b), *model,
+            *MESH_C_SP, "--epochs", "1", "--checkpoint-dir", str(ck_c)],
+            root / "c")
+        background.append(run_c)
         transport = next(line for line in out_a.splitlines()
                          if line.startswith("mesh:"))
         # One eval batch: 6 test images padded to dp x M = 4, each shard's
@@ -2730,6 +2971,26 @@ def phase_train_mesh(dev, root: Path) -> dict:
             raise AssertionError(f"(a) --eval-only {ev} != the run's eval "
                                  f"{res_a}")
         res_b, _, walls["b_s"] = run_b.results()
+        res_c, _, walls["c_s"] = run_c.results()
+        launches_c = sp_launches(2 * layers, 2, 1, tp=True)
+        _check_mesh_run("train_mesh (c)", res_c, launches_c)
+        t0 = time.perf_counter()
+        ev_c, _ = _cli_main("train", [
+            "--test-dir", str(test_b), *model, "--pool", "gap",
+            "--eval-only", "--checkpoint-dir", str(ck_c), "--mesh-data",
+            "1"])
+        walls["c_one_card_eval_only_s"] = time.perf_counter() - t0
+        if not res_c["test_loss"][-1] < MESH_C_SURE_LOSS:
+            raise AssertionError(f"(c) the seq mesh's test loss "
+                                 f"{res_c['test_loss']} is not below "
+                                 f"{MESH_C_SURE_LOSS}: too unsure a model "
+                                 f"for MESH_C_LOSS_LN")
+        gap_c = abs(math.log(ev_c["test_loss"][0] / res_c["test_loss"][-1]))
+        if ev_c["test_acc"][0] != res_c["test_acc"][-1] or \
+                not gap_c <= MESH_C_LOSS_LN:
+            raise AssertionError(f"(c) one-card --eval-only {ev_c} vs the "
+                                 f"seq mesh's eval {res_c} (|ln ratio| "
+                                 f"{gap_c:.4g}, bound {MESH_C_LOSS_LN})")
     finally:
         for run in background:
             run.kill()
@@ -2758,15 +3019,23 @@ def phase_train_mesh(dev, root: Path) -> dict:
                 "nan_guard": True, "train_loss": losses_b,
                 "test_loss": res_b["test_loss"],
                 "launches_per_rank": launches_b},
+          "c": {"layout": "tp2 x seq2, ring, pool gap", "micro_steps": 2,
+                "train_loss": res_c["train_loss"],
+                "test_loss": res_c["test_loss"],
+                "one_card_eval_only": {"test_loss": ev_c["test_loss"][0],
+                                       "test_acc": ev_c["test_acc"][0],
+                                       "ln_loss_ratio": gap_c},
+                "launches_per_rank": launches_c},
           "walls_s": {k: round(v, 3) for k, v in walls.items()},
           "walls_are": "four ranks sharing one card (gloo through host "
                        "memory), rank start and the launcher's set-up "
-                       "included, (b) beside (a), the mesh's --eval-only "
-                       "beside the one-card checks and the resume: a "
-                       "measure of the host, not of parallel-training "
-                       "throughput",
+                       "included, (b) beside (a), (c) and the mesh's "
+                       "--eval-only beside the one-card checks and the "
+                       "resume: a measure of the host, not of "
+                       "parallel-training throughput",
           "seconds": round(time.perf_counter() - t_phase, 3)})
-    return {"a": res_a["rank_launches"][0], "b": res_b["rank_launches"][0]}
+    return {"a": res_a["rank_launches"][0], "b": res_b["rank_launches"][0],
+            "c": res_c["rank_launches"][0]}
 
 
 # ------------------------------------------------------------- phase 5b
@@ -3068,8 +3337,9 @@ class TrainSinks:
 
 def phase_train_cli(dev, root: Path) -> dict:
     """Run A through ``python -m ...train`` (2 epochs, saves every 2
-    steps, metrics JSONL); run B the same command in this process with
-    the launch counters, then interrupted after step 4 and resumed: its
+    steps, metrics JSONL) in the background; run B the same command in
+    this process beside it, with the launch counters, then interrupted
+    after step 4 and resumed: its
     final export must equal A's bit for bit; ``--eval-only`` on A equal to
     A's last JSONL row; ``predict`` on A's export equal to
     ``predict_image``; run C two 10-step epochs, the first with a
@@ -3101,12 +3371,28 @@ def phase_train_cli(dev, root: Path) -> dict:
     run_a = common + ["--checkpoint-dir", str(ck_a), "--metrics-jsonl",
                       str(ck_a / "m.jsonl"), "--checkpoint-every-steps",
                       str(CLI_EVERY_STEPS)]
+    run_b = common + ["--checkpoint-dir", str(ck_b), "--metrics-jsonl",
+                      str(ck_b / "m.jsonl"), "--checkpoint-every-steps",
+                      str(CLI_EVERY_STEPS), "--keep-checkpoints", "20"]
     # Run A carries the telemetry sinks: /metrics scraped while it runs,
-    # frames to a stand-in aggregator; run B (no sinks) must equal it.
+    # frames to a stand-in aggregator; run B (no sinks) must equal it. A
+    # runs beside B (both host-bound): the card serves both.
     with TrainSinks() as sinks:
-        t0 = time.perf_counter()
-        _cli_subprocess("train", run_a + sinks.argv)
-        a_s = time.perf_counter() - t0
+        proc_a = _TrainCLI(run_a + sinks.argv, root / "a", as_module=True)
+        try:
+            # ---- the main path, in this process: counts to 0, drive,
+            # read.
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            with StepProbe() as probe:
+                res_b, _ = _cli_main("train", run_b)
+            torch.cuda.synchronize()
+            b_s = time.perf_counter() - t0
+            launches = read_counts()
+            _, _, a_s = proc_a.results()
+        finally:
+            proc_a.kill()
     rows = _jsonl(ck_a / "m.jsonl")
     if len(rows) != CLI_EPOCHS or any(
             not CLI_JSONL_KEYS <= set(r) or not math.isfinite(r["train_loss"])
@@ -3117,54 +3403,55 @@ def phase_train_cli(dev, root: Path) -> dict:
     for name in ("final/params.npz", "transform.json", "model_meta.json"):
         if not (ck_a / name).is_file():
             raise AssertionError(f"run A wrote no {name}")
-
-    # ---- the main path, in this process: counts to 0, drive, read.
-    run_b = common + ["--checkpoint-dir", str(ck_b), "--metrics-jsonl",
-                      str(ck_b / "m.jsonl"), "--checkpoint-every-steps",
-                      str(CLI_EVERY_STEPS), "--keep-checkpoints", "20"]
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    with StepProbe() as probe:
-        res_b, _ = _cli_main("train", run_b)
-    torch.cuda.synchronize()
-    b_s = time.perf_counter() - t0
-    launches = read_counts()
-    sinks.check(rows, res_b)
-    _check_step_launches("run B", probe.deltas)
-    steps = len(probe.deltas)
-    for d in ck_b.iterdir():
-        if d.is_dir() and (d.name == "final" or (
-                d.name.isdigit() and int(d.name) > CLI_RESUME_FROM)):
-            shutil.rmtree(d)
-    with StepProbe() as resumed:
-        _, resume_out = _cli_main("train", run_b)
-    _check_step_launches("run B resumed", resumed.deltas)
-    if f"resumed from step {CLI_RESUME_FROM}" not in resume_out or \
-            len(resumed.deltas) != steps - CLI_RESUME_FROM:
-        raise AssertionError(f"run B did not resume from step "
-                             f"{CLI_RESUME_FROM}: {resume_out[-600:]}")
-    pa = load_params_npz(ck_a / "final" / "params.npz")
-    pb = load_params_npz(ck_b / "final" / "params.npz")
-    differ = [k for k in pa if not torch.equal(pa[k], pb[k])]
-    if set(pa) != set(pb) or differ:
-        raise AssertionError(f"resumed run B's final params differ from "
-                             f"run A's: {differ[:5]}")
-
-    ev, _ = _cli_main("train", ["--test-dir", str(test_dir), "--preset",
-                                PRESET, "--image-size", "224",
-                                "--batch-size", str(TRAIN_BATCH),
-                                "--eval-only", "--checkpoint-dir",
-                                str(ck_a)])
-    if (ev["test_loss"][0], ev["test_acc"][0]) != (rows[-1]["test_loss"],
-                                                   rows[-1]["test_acc"]):
-        raise AssertionError(f"--eval-only {ev} != run A's last row "
-                             f"{rows[-1]}")
-
+    # The predict CLI on A's export runs in the background beside the
+    # resume and --eval-only below.
     img = sorted(Path(test_dir).rglob("*.jpg"))[0]
-    out = _cli_subprocess("predict", [str(img), "--checkpoint", str(ck_a),
-                                      "--classes", *classes, "--preset",
-                                      PRESET]).strip().splitlines()
+    predict = subprocess.Popen(
+        [sys.executable, "-m", f"{PKG}.predict", str(img), "--checkpoint",
+         str(ck_a), "--classes", *classes, "--preset", PRESET],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
+
+    try:
+        sinks.check(rows, res_b)
+        _check_step_launches("run B", probe.deltas)
+        steps = len(probe.deltas)
+        for d in ck_b.iterdir():
+            if d.is_dir() and (d.name == "final" or (
+                    d.name.isdigit() and int(d.name) > CLI_RESUME_FROM)):
+                shutil.rmtree(d)
+        with StepProbe() as resumed:
+            _, resume_out = _cli_main("train", run_b)
+        _check_step_launches("run B resumed", resumed.deltas)
+        if f"resumed from step {CLI_RESUME_FROM}" not in resume_out or \
+                len(resumed.deltas) != steps - CLI_RESUME_FROM:
+            raise AssertionError(f"run B did not resume from step "
+                                 f"{CLI_RESUME_FROM}: {resume_out[-600:]}")
+        pa = load_params_npz(ck_a / "final" / "params.npz")
+        pb = load_params_npz(ck_b / "final" / "params.npz")
+        differ = [k for k in pa if not torch.equal(pa[k], pb[k])]
+        if set(pa) != set(pb) or differ:
+            raise AssertionError(f"resumed run B's final params differ from "
+                                 f"run A's: {differ[:5]}")
+
+        ev, _ = _cli_main("train", ["--test-dir", str(test_dir), "--preset",
+                                    PRESET, "--image-size", "224",
+                                    "--batch-size", str(TRAIN_BATCH),
+                                    "--eval-only", "--checkpoint-dir",
+                                    str(ck_a)])
+        if (ev["test_loss"][0], ev["test_acc"][0]) != (rows[-1]["test_loss"],
+                                                       rows[-1]["test_acc"]):
+            raise AssertionError(f"--eval-only {ev} != run A's last row "
+                                 f"{rows[-1]}")
+
+        out, err = predict.communicate(timeout=600)
+        if predict.returncode != 0:
+            raise AssertionError(f"python -m {PKG}.predict exit "
+                                 f"{predict.returncode}: {err[-3000:]}")
+    finally:
+        if predict.poll() is None:
+            predict.kill()
+            predict.wait()
+    out = out.strip().splitlines()
     model, transform, _ = load_inference_checkpoint(ck_a, PRESET,
                                                     len(classes), device=dev)
     label, prob, _ = predict_image(model, img, classes, transform)
@@ -3200,9 +3487,16 @@ def phase_train_cli(dev, root: Path) -> dict:
           "eval_only": {"test_loss": ev["test_loss"][0],
                         "test_acc": ev["test_acc"][0]},
           "predict": want,
-          "epochs": [{k: r[k] for k in ("epoch", "train_loss", "test_loss",
-                                        "images_per_sec")} for r in rows],
-          "time_to_first_step_s": rows[0]["time_to_first_step"],
+          # Run A's JSONL readings, taken while run B trained beside it on
+          # the same card and host: contended, not comparable with a run
+          # alone (run C's are).
+          "run_a_epochs_beside_run_b": [
+              {"epoch": r["epoch"], "train_loss": r["train_loss"],
+               "test_loss": r["test_loss"],
+               "images_per_sec_beside_run_b": r["images_per_sec"]}
+              for r in rows],
+          "run_a_time_to_first_step_s_beside_run_b":
+              rows[0]["time_to_first_step"],
           "run_c": {"steps": len(window.deltas),
                     "images_per_sec_profiled_epoch":
                         c_rows[0]["images_per_sec"],
@@ -5395,7 +5689,7 @@ KERNEL_DESIGN = {
 
 def kernel_list(k_rows, launches, serve_launches, ops, cli_launches,
                 packed_launches, transfer, distill_step, search, fleet,
-                mesh):
+                mesh, par):
     """The seven ported kernels with their main-path numbers: rows 1-5 at
     batch 32, bf16, dropout off, T = 197; rows 6 and 7 (the MLP core) at
     a tensor-parallel microbatch's shape (4 * 197 rows, F / tp = 1536,
@@ -5416,7 +5710,9 @@ def kernel_list(k_rows, launches, serve_launches, ops, cli_launches,
     the fleet phase's in-process engine whose replies the routed ones
     equal bit for bit (four lone requests: two ``::probs``, a features
     row and a ``::search``), ``train_mesh_launches`` rank 0's in the
-    train_mesh phase's runs (a) and (b), and rows 1-5 carry
+    train_mesh phase's runs (a), (b) and (c), ``sp_launches`` a rank's on
+    the sequence-parallel paths (parallel phase (c)'s ring and Ulysses
+    steps, train_mesh (c)'s ring CLI run), and rows 1-5 carry
     ``t577``, their readings at the 384 px step's shapes (T = 577, N =
     18,464 MLP rows). The eighth entry, ``scan_scores``, is the exact
     scan's scores kernel (no Pallas kernel in the JAX package: XLA's dot
@@ -5537,7 +5833,10 @@ def kernel_list(k_rows, launches, serve_launches, ops, cli_launches,
         entry["search_launches"] = search["search_launches"][name]
         entry["fleet_launches"] = fleet[name]
         entry["train_mesh_launches"] = {run: mesh[run][name]
-                                        for run in ("a", "b")}
+                                        for run in ("a", "b", "c")}
+        entry["sp_launches"] = {"parallel_c_ring": par["ring"][name],
+                                "parallel_c_ulysses": par["ulysses"][name],
+                                "train_mesh_c_ring": mesh["c"][name]}
         out.append(entry)
     sk = search["kernel"]
     out.append({
@@ -5555,7 +5854,9 @@ def kernel_list(k_rows, launches, serve_launches, ops, cli_launches,
         "distill_launches": 0,
         "search_launches": search["search_launches"]["scan_scores"],
         "fleet_launches": fleet["scan_scores"],
-        "train_mesh_launches": {"a": 0, "b": 0}})
+        "train_mesh_launches": {"a": 0, "b": 0, "c": 0},
+        "sp_launches": {"parallel_c_ring": 0, "parallel_c_ulysses": 0,
+                        "train_mesh_c_ring": 0}})
     return {"kernels": out, "to_port": []}
 
 
@@ -5575,7 +5876,15 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     card = card_line()
     t_start = time.perf_counter()
+    walls, t_mark = {}, [t_start]
+
+    def mark(phase: str) -> None:
+        """The wall of ``phase``: the seconds since the last mark."""
+        now = time.perf_counter()
+        walls[phase] = round(now - t_mark[0], 3)
+        t_mark[0] = now
     phase_build(card)
+    mark("build")
     gen = torch.Generator().manual_seed(0)
     card_peaks = peaks(name)
     k_rows = check_fused_mlp(gen, card_peaks, dev) + \
@@ -5584,8 +5893,10 @@ def main() -> int:
         check_flash_bwd(gen, card_peaks, dev) + \
         check_fused_mlp_core(gen, card_peaks, dev)
     check_mlp_widths(gen, dev)
+    mark("kernels")
     torch.cuda.empty_cache()
     ops = phase_ops(gen, card_peaks, dev)
+    mark("ops")
     torch.cuda.empty_cache()
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -5593,46 +5904,58 @@ def main() -> int:
         phase_cli(export, paths)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    mark("serve")
     torch.cuda.empty_cache()
     launches = phase_train(dev)
+    mark("train")
     torch.cuda.empty_cache()
     phase_presets(dev)
+    mark("presets")
     torch.cuda.empty_cache()
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
     try:
         cli_launches = phase_train_cli(dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    mark("train_cli")
     torch.cuda.empty_cache()
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_packed_"))
     try:
         packed_launches = phase_train_packed(dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    mark("train_packed")
     torch.cuda.empty_cache()
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_transfer_"))
     try:
         transfer = phase_transfer(dev, root, gen, card_peaks, k_rows)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    mark("transfer")
     torch.cuda.empty_cache()
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_distill_"))
     try:
         distill = phase_distill(dev, root)
+        mark("distill")
         torch.cuda.empty_cache()
         search = phase_search(dev, root, distill, card_peaks)
+        mark("search")
         torch.cuda.empty_cache()
         fleet = phase_fleet(dev, root, distill, search)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    mark("fleet")
     torch.cuda.empty_cache()
-    phase_parallel(dev)
+    par = phase_parallel(dev)
+    mark("parallel")
     torch.cuda.empty_cache()
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
     try:
         mesh_launches = phase_train_mesh(dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    mark("train_mesh")
+    emit({"phase": "walls", "seconds": walls})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             3)})
     print(card, flush=True)
@@ -5640,7 +5963,7 @@ def main() -> int:
                                  ops, cli_launches,
                                  packed_launches, transfer,
                                  distill["launches_per_step"], search,
-                                 fleet, mesh_launches)),
+                                 fleet, mesh_launches, par)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -249,7 +249,8 @@ class MeshConfig:
 
     Axes: ``data`` (batch sharded, gradients all-reduced), ``model``
     (tensor parallelism over attention heads and the MLP hidden width),
-    ``seq`` (sequence parallelism; not ported, validation refuses > 1),
+    ``seq`` (sequence parallelism: ring or Ulysses attention over the
+    token axis; needs ``pipe`` = 1),
     ``pipe`` (pipeline parallelism, encoder layers staged with GPipe
     microbatching). A dimension of 1 disables that axis; ``data = -1``
     takes all remaining processes.

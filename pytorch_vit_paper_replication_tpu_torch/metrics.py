@@ -1,17 +1,18 @@
 """Structured metrics (port of the JAX package's ``metrics.py``).
 
 * :class:`MetricsLogger` — one JSON object per ``log`` call to a JSONL
-  file and/or stdout, strict JSON (``allow_nan=False``), closed on every
-  exit path when used as a context manager;
+  file and/or stdout, strict JSON (``allow_nan=False``), and TensorBoard
+  scalars with ``tb_dir``; closed on every exit path when used as a
+  context manager;
 * :class:`Timer` — images/sec accounting that can exclude warm-up steps;
 * :func:`profile_trace` — a ``torch.profiler`` capture of the enclosed
   steps, written as a Chrome trace;
 * :func:`block_until_ready` — wait for the device work behind tensors, for
   honest step timing (CUDA launches return before the card finishes).
 
-TensorBoard scalars (the JAX logger's ``tb_dir``) are not ported yet
-(ROADMAP Queue 1 item 11): the JAX logger writes them with
-``tensorboardX``, which the port's machines do not have.
+TensorBoard scalars are written with ``tensorboardX``, as the JAX logger
+writes them, imported only when a ``tb_dir`` is given: without the package
+the logger (and ``train.py --tensorboard-dir``) fails at that import.
 """
 
 from __future__ import annotations
@@ -38,21 +39,33 @@ def _json_safe(v: Any) -> Any:
 
 
 class MetricsLogger:
-    """Write metrics to a JSONL file and/or stdout.
+    """Write metrics to a JSONL file, stdout and/or TensorBoard.
+
+    TensorBoard scalars are written per ``log(step=..., ...)`` call for
+    every numeric metric (``time``, ``step`` and ``epoch`` aside); view
+    with ``tensorboard --logdir <tb_dir>``. Rows without a ``step`` key
+    take the last step seen, as in the JAX logger.
 
     Also a context manager: ``with MetricsLogger(...) as logger`` closes
-    the JSONL handle on ANY exit path — a run that raises mid-epoch keeps
-    the rows it logged.
+    the JSONL handle and flushes the TensorBoard writer on ANY exit path —
+    a run that raises mid-epoch keeps the rows it logged.
     """
 
     def __init__(self, jsonl_path: Optional[str | Path] = None,
-                 stdout: bool = False):
+                 stdout: bool = False,
+                 tb_dir: Optional[str | Path] = None):
         self.jsonl_path = Path(jsonl_path) if jsonl_path else None
         self.stdout = stdout
         self._fh = None
+        self._tb = None
+        self._last_step = 0
         if self.jsonl_path:
             self.jsonl_path.parent.mkdir(parents=True, exist_ok=True)
             self._fh = open(self.jsonl_path, "a")
+        if tb_dir:
+            from tensorboardX import SummaryWriter
+
+            self._tb = SummaryWriter(str(tb_dir))
 
     def log(self, **metrics: Any) -> None:
         record = {"time": time.time()}
@@ -66,11 +79,23 @@ class MetricsLogger:
             self._fh.flush()
         if self.stdout:
             print(line)
+        if self._tb is not None:
+            if record.get("step") is not None:
+                self._last_step = int(record["step"])
+            for k, v in record.items():
+                if k in ("time", "step", "epoch"):
+                    continue
+                if isinstance(v, (int, float)) and not isinstance(v, bool):
+                    self._tb.add_scalar(k, v, global_step=self._last_step)
+            self._tb.flush()
 
     def close(self) -> None:
         if self._fh:
             self._fh.close()
             self._fh = None
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
 
     def __enter__(self) -> "MetricsLogger":
         return self

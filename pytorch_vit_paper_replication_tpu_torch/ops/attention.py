@@ -29,14 +29,28 @@ Operands are ``[batch, seq, heads, head_dim]`` (the JAX layout):
                 less device time than the xla one at T = 197 (PERF.md
                 section 5), so the port picks flash there.
 
-Not ported yet (raises ``NotImplementedError`` naming the ROADMAP item):
-sequence parallelism.
+Sequence parallelism rides on top of the dispatch rather than on ``impl``,
+as in JAX: inside :func:`sequence_parallel` (entered by
+``parallel.api``'s steps when the mesh's ``seq`` axis is > 1) every
+attention call goes through ring or Ulysses attention
+(:mod:`..parallel.ring_attention`, :mod:`..parallel.ulysses`), whatever
+``impl`` says. The operands there are the rank's shards (its data rows,
+its token piece, its heads). Two cases fall back, each with JAX's
+warning once per process, to the *gathered* xla path (every rank gathers
+the whole sequence, runs :func:`_xla_attention` on it and keeps its
+rows), as JAX falls back to its gathered XLA path: a mask; Ulysses with
+heads not divisible by the seq axis. JAX's third, a batch or token count
+not divisible by the mesh axes, cannot arise here: the operands are
+already equal shards, and ``parallel.sharding.validate_sp_divisibility``
+refuses such a configuration up front with JAX's message. Nothing else
+falls back, and a CUDA tensor stays on its card.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 import warnings
 from typing import Optional
 
@@ -52,14 +66,85 @@ _SOFTMAX_SHIFT = 16.0
 _SOFTMAX_CLAMP = 80.0
 
 
+# --- sequence-parallel context --------------------------------------------
+
+_SP = threading.local()
+
+
 @contextlib.contextmanager
-def sequence_parallel(*args, **kwargs):
-    """The JAX package routes attention through ring/Ulysses attention
-    inside this context; the port has no sequence parallelism yet."""
-    raise NotImplementedError(
-        "sequence-parallel attention is not ported yet (ROADMAP Queue 1, "
-        "parallelism slice)")
-    yield  # pragma: no cover
+def sequence_parallel(mesh, *, data_axis: str = "data",
+                      seq_axis: str = "seq", model_axis: str = "model",
+                      sp_impl: str = "ring"):
+    """Route attention through sequence parallelism while active.
+
+    ``mesh`` is this rank's :class:`..parallel.mesh.Mesh`; with its
+    ``seq_axis`` > 1, :func:`dot_product_attention` takes the rank's
+    shards and runs ``sp_impl``: ``"ring"`` (K/V rotate around the ring,
+    ``O(T T_local)`` memory) or ``"ulysses"`` (two all-to-alls re-shard
+    tokens to heads; needs heads divisible by the seq axis; see
+    ``parallel/ulysses.py``). Entered by ``parallel.api``'s train and eval
+    steps around the forward and backward (autograd's backward calls the
+    collectives' own backward, which needs no context).
+    """
+    if sp_impl not in ("ring", "ulysses"):
+        raise ValueError(f"unknown sp_impl {sp_impl!r}")
+    prev = getattr(_SP, "ctx", None)
+    _SP.ctx = (mesh, data_axis, seq_axis, model_axis, sp_impl)
+    try:
+        yield
+    finally:
+        _SP.ctx = prev
+
+
+def _sp_context():
+    ctx = getattr(_SP, "ctx", None)
+    if ctx is None or ctx[0].shape.get(ctx[2], 1) <= 1:
+        return None
+    return ctx
+
+
+def _sp_attention(q, k, v, ctx, *, heads_local: bool, dropout_rate=0.0,
+                  seed=None, deterministic=True):
+    """Ring or Ulysses attention over the seq axis (per the context's
+    ``sp_impl``). The batch is sharded over the data axis, and the heads
+    over the model axis when ``heads_local`` (a size-1 axis shards
+    nothing), so one call serves dp x tp x sp meshes; attention dropout
+    runs inside either strategy on the positional hash."""
+    from ..parallel.ring_attention import make_ring_attention
+    from ..parallel.ulysses import make_ulysses_attention
+
+    mesh, data_axis, seq_axis, model_axis, sp_impl = ctx
+    make = (make_ulysses_attention if sp_impl == "ulysses"
+            else make_ring_attention)
+    fn = make(mesh, seq_axis, data_axis=data_axis,
+              head_axis=model_axis if heads_local else None,
+              dropout_rate=dropout_rate, dropout_seed=seed,
+              deterministic=deterministic)
+    return fn(q, k, v)
+
+
+def _gathered_attention(q, k, v, ctx, *, heads_local: bool,
+                        **xla_kwargs):
+    """The gathered fallback: every rank gathers the whole token axis of
+    ``q``, ``k`` and ``v`` (one exchange, stacked), runs
+    :func:`_xla_attention` over it (a ``mask`` broadcasts to ``[B, H, T,
+    T]`` in global token coordinates) and keeps its own rows. The dropout
+    bits are drawn from the seed for the whole ``[B, H, T, T]`` of the
+    unsharded call, and the rank keeps its block of them (its data rows,
+    and its model slice of the heads when ``heads_local``): the rows are
+    those of the unsharded call on every data and model coordinate."""
+    from ..parallel.collectives import all_gather_tokens
+
+    mesh, data_axis, seq_axis, model_axis, _ = ctx
+    b, t, h = q.shape[:3]
+    g = all_gather_tokens(torch.stack([q, k, v]), mesh.groups[seq_axis], 2)
+    n_model = mesh.shape.get(model_axis, 1) if heads_local else 1
+    window = (b * mesh.shape.get(data_axis, 1), h * n_model,
+              b * mesh.coords.get(data_axis, 0),
+              h * mesh.coords.get(model_axis, 0) if heads_local else 0)
+    out = _xla_attention(g[0], g[1], g[2], dropout_window=window,
+                         **xla_kwargs)
+    return out.narrow(1, t * mesh.coords[seq_axis], t)
 
 
 def _softmax32(logits32: torch.Tensor, softmax: str) -> torch.Tensor:
@@ -132,8 +217,14 @@ def _xla_attention(q, k, v, *, dropout_rate: float = 0.0,
                    seed: Optional[int] = None,
                    deterministic: bool = True, mask=None,
                    softmax: str = "saturating", probs_dtype: str = "bf16",
-                   residual_dtype: Optional[str] = None) -> torch.Tensor:
+                   residual_dtype: Optional[str] = None,
+                   dropout_window: Optional[tuple] = None) -> torch.Tensor:
     """Materialized-logits attention, shapes ``[B, T, H, Dh]``.
+
+    ``dropout_window`` ``(B_all, H_all, b_off, h_off)``: the operands are
+    the block at those offsets of a ``[B_all, T, H_all, Dh]`` call, whose
+    dropout bits are drawn and this block's kept (the gathered fallback);
+    None draws bits for the operands' own shape.
 
     ``probs_dtype`` / ``residual_dtype``: storage of the softmax weights
     and of the backward's residual (``residual_dtype=None`` follows
@@ -166,7 +257,12 @@ def _xla_attention(q, k, v, *, dropout_rate: float = 0.0,
         if seed is None:
             raise ValueError("attention dropout needs a seed")
         gen = torch.Generator(device=q.device).manual_seed(seed)
-        weights = dropout(weights, dropout_rate, gen)
+        window = None
+        if dropout_window is not None:
+            b_all, h_all, b_off, h_off = dropout_window
+            window = ((b_all, h_all, *weights.shape[2:]),
+                      (b_off, h_off, 0, 0))
+        weights = dropout(weights, dropout_rate, gen, window=window)
     weights = weights.to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
@@ -191,12 +287,18 @@ def dot_product_attention(q, k, v, *, impl: str = "auto",
     """Multi-head scaled dot-product attention over ``[B, T, H, Dh]``.
 
     Same contract as the JAX function; ``seed`` replaces the JAX
-    ``dropout_rng``: the int32 positional-hash seed of the flash path, the
-    seed of the dropout generator on the xla path.
-    ``heads_already_local`` only matters under sequence parallelism and is
-    accepted for signature parity.
+    ``dropout_rng``: the int32 positional-hash seed of the flash, ring and
+    Ulysses paths, the seed of the dropout generator on the xla path.
+
+    Inside :func:`sequence_parallel` (seq axis > 1) the operands are the
+    rank's shards and ``impl`` is not read: ring or Ulysses attention, or
+    the gathered fallback (module docstring). ``heads_already_local`` says
+    the operands hold the rank's ``model`` slice of the heads (a
+    tensor-parallel block), which then offsets the dropout mask's head
+    indices; else they hold every head. JAX divides a traced global head
+    count by the model axis for the Ulysses check; here the check reads
+    the heads the operands hold, which are the ones Ulysses splits.
     """
-    del heads_already_local
     if impl not in ("xla", "flash", "auto"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if probs_dtype not in PROBS_DTYPES:
@@ -205,6 +307,31 @@ def dot_product_attention(q, k, v, *, impl: str = "auto",
     if residual_dtype is not None and residual_dtype not in PROBS_DTYPES:
         raise ValueError(f"unknown residual_dtype {residual_dtype!r}; "
                          f"expected one of {PROBS_DTYPES}")
+    sp = _sp_context()
+    if sp is not None:
+        mesh, seq_axis, sp_impl = sp[0], sp[2], sp[4]
+        h, seq_size = q.shape[2], mesh.shape[seq_axis]
+        if mask is not None:
+            _warn_once(
+                "sequence_parallel: attention masks are not supported by "
+                "ring/ulysses attention; using the (gathered) XLA path "
+                "instead")
+        elif sp_impl == "ulysses" and h % seq_size:
+            _warn_once(
+                f"sequence_parallel: sp_impl='ulysses' needs heads ({h}) "
+                f"divisible by the seq axis ({seq_size}); using the "
+                "(gathered) XLA path instead — or use sp_impl='ring'")
+        else:
+            return _sp_attention(q, k, v, sp,
+                                 heads_local=heads_already_local,
+                                 dropout_rate=dropout_rate, seed=seed,
+                                 deterministic=deterministic)
+        return _gathered_attention(
+            q, k, v, sp, heads_local=heads_already_local,
+            dropout_rate=dropout_rate, seed=seed,
+            deterministic=deterministic, mask=mask, softmax=softmax,
+            probs_dtype=probs_dtype, residual_dtype=residual_dtype)
+
     if impl == "flash" or (impl == "auto" and _flash_ok(q)):
         return flash_attention(q, k, v, mask=mask,
                                dropout_rate=dropout_rate, seed=seed,

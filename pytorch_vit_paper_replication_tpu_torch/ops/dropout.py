@@ -99,23 +99,30 @@ def derive_positional_seed(generator: torch.Generator) -> int:
                              device=generator.device))
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            window: Optional[tuple] = None) -> torch.Tensor:
     """Functional dropout with a uint8-threshold mask.
 
     Drops with probability ``quantized_rate(rate)`` (``bits <
     round(rate * 256)`` on uint8 bits drawn from ``generator``, which must
     live on ``x``'s device) and rescales survivors by ``1 / (1 - t/256)``
     cast to ``x.dtype``, so the expectation is preserved. ``rate = 1``
-    drops everything.
+    drops everything. ``window`` ``(shape, offsets)``: ``x`` is the block
+    at ``offsets`` of a tensor of ``shape``; the bits are drawn for that
+    whole shape and the block's kept, so each block of a sharded tensor
+    drops what the whole tensor's call would.
     """
     if rate == 1.0:
         return torch.zeros_like(x)
     threshold = _threshold(rate)
     if threshold <= 0:
         return x
-    bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
+    shape, offsets = window if window is not None else (x.shape, None)
+    bits = torch.randint(0, 256, shape, dtype=torch.uint8,
                          generator=generator, device=x.device)
+    if offsets is not None:
+        for d, (off, n) in enumerate(zip(offsets, x.shape)):
+            bits = bits.narrow(d, off, n)
     scale = torch.tensor(1.0 / (1.0 - threshold / 256.0), dtype=x.dtype,
                          device=x.device)
     return torch.where(bits >= threshold, x * scale, x.new_zeros(()))

@@ -15,12 +15,21 @@ mesh)::
 What GSPMD inserts in the JAX package is explicit here: the tensor-parallel
 all-reduces inside the blocks, the pipeline's point-to-point transfers,
 then per step one all-reduce of the replicated embedding/tail gradients
-over ``pipe`` (only the first and last stage compute them), one of every
-gradient over ``data``, the clip norm over the whole unsharded gradient
-(:func:`..optim.sharded_global_norm`), and the metrics summed over
-``data`` and ``pipe`` so every rank returns the global ones. The optimizer
+over ``pipe`` (only the first and last stage compute them), one over
+``seq`` of every gradient upstream of the pooled all-reduce (embedding,
+blocks, ``encoder_norm``: each seq rank holds a partial sum from its
+tokens; the head's is whole on every seq rank and is not summed), one of
+every gradient over ``data``, the clip norm over the whole unsharded
+gradient (:func:`..optim.sharded_global_norm`; after the seq sum every seq
+rank holds the same gradient, so no leaf counts twice), and the metrics
+summed over ``data`` and ``pipe`` (never ``seq``: every seq rank computes
+the same logits) so every rank returns the global ones. The optimizer
 updates the local shards; its moments and its accumulator are elementwise,
 so they are the single-device ones' slices.
+
+On a ``seq`` axis > 1 both steps run the model inside
+:func:`..ops.attention.sequence_parallel` with ``sp_impl`` (``"ring"`` or
+``"ulysses"``), JAX's ``_with_seq_parallel``.
 
 The step is JAX's ``engine.make_train_step`` on a mesh: label smoothing,
 the NaN guard (one nonfinite flag reduced over every rank, so all ranks
@@ -36,12 +45,14 @@ summed over ``data``.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Mapping, Optional
 
 import torch
 
 from ..engine import (TrainState, _to, cross_entropy_loss, distill_loss,
                       step_generator)
+from ..ops.attention import sequence_parallel
 from ..optim import sharded_global_norm
 from .collectives import all_reduce
 from .pipeline import PipelineViT, dropout_seeds
@@ -87,6 +98,13 @@ def shard_train_state(state: TrainState, mesh) -> TrainState:
                       seed=state.seed, step=state.step)
 
 
+def _seq_parallel(mesh, sp_impl: str):
+    """The sequence-parallel context on a ``seq`` axis > 1, else none."""
+    if mesh.shape["seq"] > 1:
+        return sequence_parallel(mesh, sp_impl=sp_impl)
+    return contextlib.nullcontext()
+
+
 def _reduce_flat(tensors, group) -> None:
     """Sum ``tensors`` over ``group`` in place, as one flat buffer."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
@@ -100,7 +118,8 @@ def _reduce_flat(tensors, group) -> None:
 def _sync_grads(model, mesh) -> Dict[str, torch.Tensor]:
     """Every parameter's full-batch gradient on this rank: the replicated
     embedding and tail summed over ``pipe`` (zeros where a stage did not
-    compute them), then everything summed over ``data``."""
+    compute them), everything but the head summed over ``seq`` (each seq
+    rank's share of its tokens), then everything summed over ``data``."""
     grads = {}
     for name, p in model.named_parameters():
         if p.grad is None:
@@ -109,6 +128,9 @@ def _sync_grads(model, mesh) -> Dict[str, torch.Tensor]:
     if mesh.shape["pipe"] > 1:
         _reduce_flat([g for n, g in grads.items() if block_index(n) is None],
                      mesh.groups["pipe"])
+    if mesh.shape["seq"] > 1:
+        _reduce_flat([g for n, g in grads.items()
+                      if not n.startswith("head.")], mesh.groups["seq"])
     if mesh.shape["data"] > 1:
         _reduce_flat(list(grads.values()), mesh.groups["data"])
     return grads
@@ -129,6 +151,7 @@ def _global_metrics(metrics: Dict[str, torch.Tensor], mesh
 def make_parallel_train_step(state: TrainState, mesh, *,
                              label_smoothing: float = 0.0,
                              nan_guard: bool = False,
+                             sp_impl: str = "ring",
                              distill_alpha: Optional[float] = None,
                              distill_t: float = 1.0):
     """The train step ``(state, local batch) -> (state, metrics)`` on every
@@ -138,7 +161,9 @@ def make_parallel_train_step(state: TrainState, mesh, *,
     ``nan_guard``, equal on every rank. The keyword arguments are
     :func:`..engine.make_train_step`'s: a skipped step applies no update
     (params, optimizer state, accumulator and schedule position stay),
-    adds zeros to the sums and still advances ``state.step``."""
+    adds zeros to the sums and still advances ``state.step``.
+    ``sp_impl`` picks the sequence-parallel strategy on a ``seq`` axis > 1
+    (``"ring"`` or ``"ulysses"``)."""
     model = state.model
     dev = mesh.device
     dp = mesh.shape["data"]
@@ -170,7 +195,9 @@ def make_parallel_train_step(state: TrainState, mesh, *,
         if pipelined:
             seeds = dropout_seeds(gen, mesh, model.config.num_layers,
                                   model.num_microbatches)
-            out = model.forward_backward(b["image"], targets, seeds, loss_fn)
+            with _seq_parallel(mesh, sp_impl):
+                out = model.forward_backward(b["image"], targets, seeds,
+                                             loss_fn)
         else:
             logits = model(b["image"], gen)
             loss = loss_fn(logits, targets)
@@ -219,17 +246,18 @@ def make_parallel_train_step(state: TrainState, mesh, *,
     return train_step
 
 
-def make_parallel_eval_step(state: TrainState, mesh):
+def make_parallel_eval_step(state: TrainState, mesh, *,
+                            sp_impl: str = "ring"):
     """The eval step ``(state, local batch) -> metrics``: ``loss_sum``,
     ``correct`` and ``count`` over the global batch's ``mask = 1`` rows,
-    equal on every rank."""
+    equal on every rank. ``sp_impl``: as in the train step."""
     model = state.model
     dev = mesh.device
 
     def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         model.eval()
         b = _to(batch, dev)
-        with torch.no_grad():
+        with torch.no_grad(), _seq_parallel(mesh, sp_impl):
             logits = model(b["image"])
         zero = torch.zeros((), device=dev)
         metrics = {"loss_sum": zero, "correct": zero, "count": zero}

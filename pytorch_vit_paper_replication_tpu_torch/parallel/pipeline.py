@@ -21,14 +21,43 @@ stage as in JAX; stage 0 runs the embedding and the last stage the tail,
 and the step all-reduces their gradients over ``pipe`` so every stage holds
 the same (:mod:`.api`).
 
+Sequence parallelism (a ``seq`` axis > 1, which needs ``pipe`` = 1, as in
+JAX): every rank of a ``seq`` group embeds its data shard's images
+(positions added, embedding dropout applied) and keeps its ``T / seq``
+tokens, rank ``i`` the ``i``-th piece, through the blocks; attention
+runs ring or Ulysses attention over the ``seq`` group
+(:func:`..ops.attention.sequence_parallel`, entered by :mod:`.api`'s
+steps), everything else is per token. The tail's pool reduces over the
+group: ``gap`` is the sum of every rank's tokens over ``T``, ``cls`` rank
+0's first token (the others add their first token times 0, so each
+rank's backward runs through its blocks and joins the ring's collectives).
+The pooled all-reduce passes its gradient through unchanged, so each rank
+holds a partial sum of every gradient upstream of it and the whole
+gradient of the head (:mod:`.api` sums the former over ``seq``).
+
 Dropout: one seed per (data rank, microbatch) for the embedding and per
 (data rank, global layer, microbatch) for each block's attention and MLP,
 drawn from the step's generator (:func:`dropout_seeds`): equal on every
 rank of a tensor-parallel group (its tensors are replicated and must be
 dropped alike), distinct across data ranks and microbatches. The bits
-cannot match JAX's ``fold_in`` stream. Remat checkpoints each block with
-``torch.utils.checkpoint`` and the same seeds, so the recomputation
-drops the same elements.
+cannot match JAX's ``fold_in`` stream. On a ``seq`` axis > 1 the rules
+change where the layout would change the noise:
+
+* the attention seed of a (layer, microbatch) is the same on every rank
+  (data row 0's draw): ring and Ulysses hash global (example·head, row,
+  column) coordinates, so the mask is the one-rank flash kernel's for
+  that seed, as in JAX;
+* the MLP seed is one per (data, seq) coordinate, drawn after the rest:
+  the fused MLP kernel's hash keys on the row of its local ``[N, D]``
+  operand, so a token shard cannot reproduce one rank's mask, and a
+  seed shared by the seq ranks would repeat one mask on each piece. This
+  re-draws the MLP noise per layout, as dp does (JAX's ``--dropout``
+  help says so of dp);
+* the embedding seed stays per data row: each seq rank drops the whole
+  embedded sequence alike and keeps its piece.
+
+Remat checkpoints each block with ``torch.utils.checkpoint`` and the same
+seeds, so the recomputation drops the same elements.
 
 Layouts: :func:`stack_block_params` / :func:`unstack_block_params` convert
 a ``state_dict`` between the standard layout and the JAX pipeline layout
@@ -47,7 +76,7 @@ from torch import nn
 from ..configs import ViTConfig
 from ..models.vit import (Dense, LayerNorm, PatchEmbedding,
                           TransformerEncoderBlock, _dtype, pool_tokens)
-from .collectives import recv, send
+from .collectives import recv, reduce_from_tp, send
 from .sharding import (BLOCKS_KEY, block_index, stage_layers,
                        validate_mesh_for_config, validate_tp_divisibility)
 
@@ -116,17 +145,28 @@ def dropout_seeds(gen: torch.Generator, mesh, num_layers: int,
     """This rank's int32 dropout seeds, ``[M][1 + 2 L]``: per microbatch
     the embedding seed, then (attention, MLP) per global layer. Every rank
     draws the same ``[data, M, 1 + 2 L]`` block from ``gen`` and keeps its
-    data row."""
+    data row. With a ``seq`` axis > 1 (module docstring) the attention
+    seeds are data row 0's and the MLP seeds come from a ``[data, seq, M,
+    L]`` block drawn next, at the rank's (data, seq) coordinate."""
     seeds = torch.randint(-2**31, 2**31, (mesh.shape["data"],
                                           num_microbatches,
                                           1 + 2 * num_layers),
                           generator=gen)
-    return seeds[mesh.coords["data"]].tolist()
+    mine = seeds[mesh.coords["data"]]
+    if mesh.shape["seq"] > 1:
+        mlp = torch.randint(-2**31, 2**31, (mesh.shape["data"],
+                                            mesh.shape["seq"],
+                                            num_microbatches, num_layers),
+                            generator=gen)
+        mine[:, 1::2] = seeds[0][:, 1::2]
+        mine[:, 2::2] = mlp[mesh.coords["data"], mesh.coords["seq"]]
+    return mine.tolist()
 
 
 class PipelineViT(nn.Module):
-    """The rank-local ViT of a dp x tp x pp mesh: the replicated patch
-    embedding and tail, and this stage's tensor-parallel encoder blocks.
+    """The rank-local ViT of a dp x tp x sp x pp mesh: the replicated patch
+    embedding and tail, and this stage's tensor-parallel encoder blocks
+    over the rank's token piece (module docstring).
     Parameter names are the standard model's (a subset of its blocks);
     load the rank's slices with :func:`..parallel.sharding.shard_state_dict`
     or :func:`..convert.rank_local_params`."""
@@ -146,6 +186,7 @@ class PipelineViT(nn.Module):
                                     mlp_size=cfg.mlp_size // tp,
                                     head_dim_override=cfg.head_dim)
         group = mesh.groups["model"] if tp > 1 else None
+        self.seq = mesh.shape["seq"]
         self.backbone = nn.Module()
         self.backbone.patch_embedding = PatchEmbedding(cfg)
         for i in self.layers:
@@ -172,6 +213,8 @@ class PipelineViT(nn.Module):
         cfg = self.config
         if self.first:
             x = self.backbone.patch_embedding(x, seeds[0])
+            if self.seq > 1:
+                x = x.chunk(self.seq, dim=1)[self.mesh.coords["seq"]]
         for i in self.layers:
             block = getattr(self.backbone, f"encoder_block_{i}")
             block_seeds = seeds[1 + 2 * i:3 + 2 * i]
@@ -182,12 +225,25 @@ class PipelineViT(nn.Module):
                 x = block(x, block_seeds)
         if self.last:
             tokens = self.backbone.encoder_norm(x)
-            return self.head(pool_tokens(cfg, tokens).float())
+            return self.head(self._pool(tokens).float())
         return x
+
+    def _pool(self, tokens: torch.Tensor) -> torch.Tensor:
+        """:func:`..models.vit.pool_tokens` over the whole sequence, from
+        this rank's piece of it."""
+        cfg = self.config
+        if self.seq == 1:
+            return pool_tokens(cfg, tokens)
+        group = self.mesh.groups["seq"]
+        if cfg.pool == "cls":
+            first = float(self.mesh.coords["seq"] == 0)
+            return reduce_from_tp(tokens[:, 0] * first, group)
+        total = reduce_from_tp(tokens.float().sum(1), group)
+        return (total / cfg.seq_len).to(tokens.dtype)
 
     def _activation(self, mb: int):
         cfg = self.config
-        return (mb, cfg.seq_len, cfg.embedding_dim), _dtype(cfg)
+        return (mb, cfg.seq_len // self.seq, cfg.embedding_dim), _dtype(cfg)
 
     def forward(self, images: torch.Tensor) -> Optional[torch.Tensor]:
         """The pipelined forward without gradients (eval): the logits on

@@ -14,6 +14,11 @@ a tuple; ``()`` is replicated):
   all-reduce after fc2);
 * LayerNorms, the embeddings and the head are replicated.
 
+Nothing is sharded over ``seq``: sequence parallelism shards activations
+(the token axis), and every rank of a ``seq`` group holds the same
+slices, so a gather reads the ranks at data and seq coordinate 0 and a
+scatter sends each seq rank the slices of its model and pipe coordinates.
+
 Pipeline stages own ``L / pipe`` contiguous encoder blocks. In the JAX
 package's stacked layout (``encoder_blocks.*`` with a leading ``[L]``
 axis) that axis is sharded over ``pipe`` and each TP rule moves one axis
@@ -213,11 +218,26 @@ def validate_tp_divisibility(config, mesh) -> None:
             f"size {tp}")
 
 
+def validate_sp_divisibility(config, mesh) -> None:
+    """Sequence parallelism shards the token axis: seq_len % seq-axis must
+    be 0.
+
+    ViT's CLS token makes the default sequence odd (197 for 224/16); the
+    error suggests ``pool="gap"``, which drops it (196 = 4·49 patches).
+    """
+    sp = mesh.shape.get("seq", 1)
+    if sp == 1:
+        return
+    if config.seq_len % sp != 0:
+        hint = (" (pool='gap' would drop the CLS token, giving "
+                f"{config.num_patches} tokens)" if config.pool == "cls"
+                else "")
+        raise ValueError(
+            f"seq_len={config.seq_len} not divisible by seq-axis size "
+            f"{sp}{hint}")
+
+
 def validate_mesh_for_config(config, mesh) -> None:
-    """All mesh-vs-architecture checks in one call. Sequence parallelism
-    (``seq > 1``) is not ported."""
+    """All mesh-vs-architecture divisibility checks in one call."""
     validate_tp_divisibility(config, mesh)
-    if mesh.shape.get("seq", 1) > 1:
-        raise NotImplementedError(
-            "sequence parallelism (mesh seq > 1) is not ported yet (ROADMAP "
-            "Queue 1 item 7: ring attention, Ulysses)")
+    validate_sp_divisibility(config, mesh)

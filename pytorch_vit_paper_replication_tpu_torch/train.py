@@ -28,17 +28,24 @@ It runs on ``cuda`` unless ``--device cpu`` is given (then the kernels'
 plain PyTorch versions run); without a card it raises ``no CUDA device``.
 Checkpoint saves are asynchronous unless ``--sync-checkpoints``. The flags
 keep the JAX CLI's names, defaults and semantics. Those whose path is not
-ported yet (sequence parallelism, multihost and elastic runs, TensorBoard,
-the compile cache) are parsed and refused with ``... not yet ported
-(ROADMAP Queue 1 item N)`` when given a value other than their default.
+ported yet (multihost and elastic runs, the compile cache) are parsed and
+refused with ``... not yet ported (ROADMAP Queue 1 item N)`` when given a
+value other than their default. ``--tensorboard-dir`` writes every
+numeric metric as a TensorBoard scalar (tensorboardX, imported only then).
 
-A data x tensor x pipeline mesh (``--mesh-data D --mesh-model M
---mesh-pipe P [--pipe-microbatches K]``; ``--mesh-data -1``, the default,
-is every remaining card) runs the same command on D x M x P ranks::
+A data x tensor x sequence x pipeline mesh (``--mesh-data D --mesh-model
+M --mesh-seq S --mesh-pipe P [--pipe-microbatches K] [--sp-impl
+ring|ulysses]``; ``--mesh-data -1``, the default, is every remaining card)
+runs the same command on D x M x S x P ranks::
 
     python -m pytorch_vit_paper_replication_tpu_torch.train --synthetic \
         --mesh-data 2 --mesh-model 2 --mesh-pipe 2 --grad-accum 2 \
         --checkpoint-dir runs/mesh
+
+    # the token axis over 2 ranks: an even token count (--pool gap), no
+    # pipe axis
+    python -m pytorch_vit_paper_replication_tpu_torch.train --synthetic \
+        --pool gap --mesh-data 2 --mesh-seq 2 --sp-impl ulysses
 
 This process is the launcher: it makes the JAX CLI's mesh checks, the
 initial weights, then starts one rank process per device
@@ -134,8 +141,7 @@ NOT_PORTED: Dict[str, int] = {
     "elastic_local_devices": 7, "elastic_rendezvous": 7,
     "elastic_worker_id": 7, "elastic_process_count": 7,
     "elastic_generation": 7, "elastic_collective": 7,
-    "mesh_seq": 7, "multihost": 7, "sp_impl": 7,
-    "tensorboard_dir": 11,
+    "multihost": 7,
 }
 
 
@@ -216,12 +222,19 @@ def build_parser() -> argparse.ArgumentParser:
                        choices=["bf16", "fp8_e4m3", "fp8_e5m2", "u8"])
     model.add_argument("--sp-impl", default="ring",
                        choices=["ring", "ulysses"],
-                       help="sequence parallelism (not ported)")
+                       help="sequence-parallel strategy for --mesh-seq>1: "
+                            "'ring' rotates K/V around the ring of seq "
+                            "ranks (O(T*T/K) memory); 'ulysses' re-shards "
+                            "tokens->heads with two all_to_alls (needs "
+                            "heads %% seq == 0)")
     model.add_argument("--mlp-impl", default="auto",
                        choices=["auto", "fused", "xla"],
                        help="fused = the CUDA LN+MLP+residual kernel; "
                             "auto = fused on the card")
-    model.add_argument("--pool", default="cls", choices=["cls", "gap"])
+    model.add_argument("--pool", default="cls", choices=["cls", "gap"],
+                       help="classifier pooling; 'gap' drops the CLS token "
+                            "(even token count: required for --mesh-seq on "
+                            "typical shapes)")
     model.add_argument("--dropout", type=float, default=None,
                        help="override all three dropout rates; 0 makes "
                             "the step deterministic given (seed, step)")
@@ -308,7 +321,9 @@ def build_parser() -> argparse.ArgumentParser:
     dist = p.add_argument_group("distributed (one card: the default mesh)")
     dist.add_argument("--mesh-data", type=int, default=-1)
     dist.add_argument("--mesh-model", type=int, default=1)
-    dist.add_argument("--mesh-seq", type=int, default=1)
+    dist.add_argument("--mesh-seq", type=int, default=1,
+                      help="sequence parallelism (attention over the token "
+                           "axis sharded over the seq ranks, --sp-impl)")
     dist.add_argument("--mesh-pipe", type=int, default=1)
     dist.add_argument("--pipe-microbatches", type=int, default=0)
     dist.add_argument("--multihost", action="store_true")
@@ -330,7 +345,8 @@ def build_parser() -> argparse.ArgumentParser:
                           "saves)")
     out.add_argument("--metrics-jsonl", type=str, default=None)
     out.add_argument("--tensorboard-dir", type=str, default=None,
-                     help="(not ported)")
+                     help="write TensorBoard scalars here (needs "
+                          "tensorboardX)")
     out.add_argument("--plot", type=str, default=None,
                      help="save loss curves PNG here")
     out.add_argument("--profile-dir", type=str, default=None,
@@ -523,21 +539,22 @@ def initial_params(model: torch.nn.Module,
 
 
 def mesh_request(args) -> Optional[MeshConfig]:
-    """The mesh of ``--mesh-data/-model/-pipe``, None for a world of one
-    process. ``--mesh-data -1`` is every remaining card under ``--device
-    cuda`` (the card count over model x pipe, at least 1), 1 on any other
-    device."""
-    model, pipe = max(1, args.mesh_model), max(1, args.mesh_pipe)
+    """The mesh of ``--mesh-data/-model/-seq/-pipe``, None for a world of
+    one process. ``--mesh-data -1`` is every remaining card under
+    ``--device cuda`` (the card count over model x seq x pipe, at least
+    1), 1 on any other device."""
+    model, seq, pipe = (max(1, args.mesh_model), max(1, args.mesh_seq),
+                        max(1, args.mesh_pipe))
     data = args.mesh_data
     if data == -1:
-        data = (max(1, torch.cuda.device_count() // (model * pipe))
+        data = (max(1, torch.cuda.device_count() // (model * seq * pipe))
                 if args.device == "cuda" else 1)
     if data < 1:
         raise SystemExit(f"--mesh-data must be -1 (every remaining card) "
                          f"or >= 1, got {args.mesh_data}")
-    if data * model * pipe == 1:
+    if data * model * seq * pipe == 1:
         return None
-    return MeshConfig(data=data, model=model, pipe=pipe)
+    return MeshConfig(data=data, model=model, seq=seq, pipe=pipe)
 
 
 def main(argv=None) -> dict:
@@ -765,11 +782,16 @@ def run(args, mesh=None, init: Optional[Dict[str, torch.Tensor]] = None
                   f"{cfg.num_layers // mesh.shape['pipe']} layers, "
                   f"{s.microbatches} microbatches")
         state = shard_train_state(state, mesh)
+        if mesh.shape["seq"] > 1:
+            print(f"sequence parallelism: {mesh.shape['seq']} ranks x "
+                  f"{cfg.seq_len // mesh.shape['seq']} tokens, "
+                  f"{args.sp_impl} attention")
         train_step = make_parallel_train_step(
             state, mesh, label_smoothing=args.label_smoothing,
-            nan_guard=args.nan_guard, distill_alpha=distill_alpha,
-            distill_t=args.distill_t)
-        eval_step = make_parallel_eval_step(state, mesh)
+            nan_guard=args.nan_guard, sp_impl=args.sp_impl,
+            distill_alpha=distill_alpha, distill_t=args.distill_t)
+        eval_step = make_parallel_eval_step(state, mesh,
+                                            sp_impl=args.sp_impl)
 
     checkpointer = None
     if args.checkpoint_dir:
@@ -861,8 +883,11 @@ def run(args, mesh=None, init: Optional[Dict[str, torch.Tensor]] = None
             # Every exit path waits for the save in flight (and raises its
             # error); the writer thread is not a daemon either.
             stack.callback(checkpointer.wait)
-        logger = (stack.enter_context(MetricsLogger(args.metrics_jsonl))
-                  if args.metrics_jsonl and lead else None)
+        # On a mesh rank 0 alone writes the JSONL and the events.
+        logger = (stack.enter_context(MetricsLogger(
+            args.metrics_jsonl, tb_dir=args.tensorboard_dir))
+            if (args.metrics_jsonl or args.tensorboard_dir) and lead
+            else None)
         telemetry = make_telemetry(args, cfg, dev, profile_window, stack,
                                    mesh)
         if lead:
@@ -930,7 +955,7 @@ def launch(args, mesh_cfg: MeshConfig) -> dict:
     traceback; no rank is left running."""
     from .parallel.mesh import backend_for, describe_transport
     dev = resolve_device(args.device)
-    world = mesh_cfg.data * mesh_cfg.model * mesh_cfg.pipe
+    world = mesh_cfg.data * mesh_cfg.model * mesh_cfg.seq * mesh_cfg.pipe
     with contextlib.redirect_stdout(io.StringIO()):
         s = prepare(args, mesh_layout(mesh_cfg, world))
     if args.pretrained:
@@ -940,8 +965,9 @@ def launch(args, mesh_cfg: MeshConfig) -> dict:
             shapes = make_model(args, s.cfg, len(s.class_names))
         init = initial_params(shapes, args.seed)
     backend = backend_for(dev.type, world)
-    print(f"mesh: data {mesh_cfg.data} x model {mesh_cfg.model} x pipe "
-          f"{mesh_cfg.pipe}: {world} rank processes on {dev.type}, "
+    print(f"mesh: data {mesh_cfg.data} x model {mesh_cfg.model} x seq "
+          f"{mesh_cfg.seq} x pipe {mesh_cfg.pipe}: {world} rank processes "
+          f"on {dev.type}, "
           f"transport {describe_transport(backend, dev.type)}", flush=True)
     rank_fn = importlib.import_module(f"{__package__}.train")._mesh_rank
     try:

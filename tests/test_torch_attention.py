@@ -99,8 +99,10 @@ def test_flash_ok_only_on_cuda_and_large_logits():
 
 
 def test_unported_forms_raise():
-    """Sequence parallelism is the one form still refused; 8-bit probs
-    storage (refused before it was ported) now runs."""
+    """No form is refused any more: 8-bit probs storage and sequence
+    parallelism (refused before they were ported) run. A context on a
+    mesh whose seq axis is 1 leaves the dispatch as it is; an unknown
+    ``sp_impl`` is JAX's ValueError."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(5))
     out = tatt.dot_product_attention(q, k, v, impl="xla", probs_dtype="u8")
     assert out.shape == q.shape and torch.isfinite(out).all()
@@ -111,8 +113,15 @@ def test_unported_forms_raise():
     out = tatt.dot_product_attention(q, k, v, impl="xla", dropout_rate=0.1,
                                      seed=1, deterministic=False)
     assert out.shape == q.shape and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError):
-        with tatt.sequence_parallel(None):
+    from pytorch_vit_paper_replication_tpu_torch.configs import MeshConfig
+    from pytorch_vit_paper_replication_tpu_torch.parallel import mesh_layout
+    one = mesh_layout(MeshConfig(data=2), 2)
+    with tatt.sequence_parallel(one):
+        inside = tatt.dot_product_attention(q, k, v, impl="xla")
+    assert torch.equal(inside, tatt.dot_product_attention(q, k, v,
+                                                          impl="xla"))
+    with pytest.raises(ValueError, match="sp_impl"):
+        with tatt.sequence_parallel(one, sp_impl="bogus"):
             pass
     with pytest.raises(ValueError):
         tatt.dot_product_attention(q, k, v, impl="bogus")

@@ -226,9 +226,7 @@ def test_resume_schedule_horizon_guard(folder, tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--sp-impl", "ulysses"], 7),
-    (["--elastic", "2"], 7), (["--mesh-seq", "2"], 7),
-    (["--multihost"], 7), (["--tensorboard-dir", "tb"], 11),
+    (["--elastic", "2"], 7), (["--multihost"], 7),
     (["--compile-cache-dir", "cc"], 9)])
 def test_unported_flags_exit_nonzero(folder, extra, item):
     with pytest.raises(SystemExit, match=f"not yet ported \\(ROADMAP Queue "

@@ -1375,3 +1375,50 @@ def test_mesh_train_cli_on_the_card(dev, tmp_path):
                            str(ck)])
     np.testing.assert_allclose(one_card["test_loss"], res["test_loss"],
                                rtol=2e-2)
+
+
+@pytest.mark.parametrize("impl,sizes", [("ring", (1, 2, 2)),
+                                        ("ulysses", (2, 1, 2))])
+def test_sequence_parallel_attention_on_card_matches_flash(dev, impl, sizes):
+    """Ring on seq 2 x model 2 (heads sharded) and Ulysses on data 2 x seq
+    2, four gloo ranks sharing the card, f32, attention dropout: the
+    output and dq, dk, dv of B/16's attention shape (T = 196, 12 heads,
+    Dh 64) within 1e-4 of the flash kernel's on the whole batch with the
+    same seed, and the keep masks (q = k = 0, v the identity, T = 128)
+    the flash kernel's bit for bit."""
+    import torch_parallel_worker as worker
+    from pytorch_vit_paper_replication_tpu_torch.configs import MeshConfig
+    from pytorch_vit_paper_replication_tpu_torch.ops.flash_attention import (
+        flash_attention)
+    from pytorch_vit_paper_replication_tpu_torch.parallel import spawn
+    rng = np.random.default_rng(4)
+    b, t, h, d = 4, 196, 12, 64
+    q, k, v, ct = (rng.standard_normal((b, t, h, d)).astype(np.float32)
+                   for _ in range(4))
+    te = 128
+    z = np.zeros((2, te, 2, te), np.float32)
+    eye = np.broadcast_to(np.eye(te, dtype=np.float32)[None, :, None, :],
+                          z.shape).copy()
+    heads = sizes[1] > 1
+    seed, rate = 1234, 0.1
+    cases = [dict(q=q, k=k, v=v, ct=ct, rate=rate, seed=seed, heads=heads),
+             dict(q=z, k=z, v=eye, ct=np.ones_like(z), rate=rate, seed=seed,
+                  heads=heads)]
+    data, model, seq = sizes
+    ranks = spawn(worker.sp_attention, MeshConfig(data=data, model=model,
+                                                  seq=seq),
+                  device="cuda", timeout_s=300, args=(impl, cases))
+    for i, shape in enumerate(((b, t, h, d), z.shape)):
+        out, grads = worker.assemble_sp(ranks, i, shape)
+        args = [torch.from_numpy(cases[i][n]).to(dev).requires_grad_()
+                for n in "qkv"]
+        ref = flash_attention(*args, dropout_rate=rate, seed=seed,
+                              deterministic=False)
+        if i == 1:
+            np.testing.assert_array_equal(out > 0,
+                                          ref.detach().cpu().numpy() > 0)
+            continue
+        (ref * torch.from_numpy(ct).to(dev)).sum().backward()
+        assert _rel(torch.from_numpy(out), ref.detach().cpu()) < 1e-4
+        for g, a in zip(grads, args):
+            assert _rel(torch.from_numpy(g), a.grad.cpu()) < 1e-4

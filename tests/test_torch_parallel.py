@@ -359,7 +359,9 @@ def test_sharding_specs_match_jax():
 
 def test_validate_messages_match_jax():
     """validate_pipeline / validate_tp_divisibility raise JAX's errors on
-    the same layouts; sequence parallelism is refused as not ported."""
+    the same layouts, and validate_mesh_for_config its sequence-parallel
+    ones (17 tokens with the CLS token, on seq 2: the pool='gap' hint;
+    16 without it pass)."""
     cases = [
         (JMeshCfg(data=2, pipe=4), MeshConfig(data=2, pipe=4),
          dict(PIPE, num_layers=3), 2),
@@ -393,9 +395,15 @@ def test_validate_messages_match_jax():
                 with pytest.raises(ValueError) as got:
                     tfn()
                 assert str(got.value) == want
-    with pytest.raises(NotImplementedError, match="sequence"):
-        sharding.validate_mesh_for_config(
-            ViTConfig(**PIPE), mesh_layout(MeshConfig(data=4, seq=2), 8))
+    jmesh = jparallel.make_mesh(JMeshCfg(data=4, seq=2))
+    tmesh = mesh_layout(MeshConfig(data=4, seq=2), 8)
+    with pytest.raises(ValueError, match="gap") as want:
+        jparallel.validate_mesh_for_config(JCfg(**PIPE), jmesh)
+    with pytest.raises(ValueError) as got:
+        sharding.validate_mesh_for_config(ViTConfig(**PIPE), tmesh)
+    assert str(got.value) == str(want.value)
+    jparallel.validate_mesh_for_config(JCfg(**PIPE, pool="gap"), jmesh)
+    sharding.validate_mesh_for_config(ViTConfig(**PIPE, pool="gap"), tmesh)
 
 
 def test_layouts_and_rank_local_params():

@@ -180,7 +180,8 @@ def test_import_whole_port_pulls_no_jax():
         " 'serve.loadgen', 'serve.cascade', 'serve.fleet',"
         " 'serve.fleet.policy', 'serve.fleet.replica', 'serve.fleet.router',"
         " 'serve.fleet.rollout', 'serve.fleet.autoscale',"
-        " 'serve.fleet.__main__'):\n"
+        " 'serve.fleet.__main__', 'parallel.ring_attention',"
+        " 'parallel.ulysses', 'parallel.collectives'):\n"
         "    assert pkg.__name__ + '.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'flax'"

@@ -65,9 +65,10 @@ def jax_mesh_of_the_argv(monkeypatch):
     monkeypatch.setattr(jparallel, "make_mesh", first_devices)
 
 
-def jax_init(preset: str, seed: int = 7, num_classes: int = 3):
+def jax_init(preset: str, seed: int = 7, num_classes: int = 3,
+             **overrides):
     cfg = JPRESETS[preset](num_classes=num_classes, image_size=32,
-                           patch_size=16, dtype="float32")
+                           patch_size=16, dtype="float32", **overrides)
     return jax.device_get(JViT(cfg).init(
         jax.random.key(seed), jnp.zeros((1, 32, 32, 3)))["params"])
 
@@ -152,7 +153,8 @@ def against_jax(argv, tmp_path, monkeypatch, *, init=None, start=None,
     assert tres["rank_results"][0]["test_loss"] == tres["test_loss"]
     assert len(tres["rank_launches"]) == np.prod(
         [int(argv[argv.index(f) + 1]) if f in argv else 1
-         for f in ("--mesh-data", "--mesh-model", "--mesh-pipe")])
+         for f in ("--mesh-data", "--mesh-model", "--mesh-seq",
+                   "--mesh-pipe")])
     return tres
 
 
